@@ -1,29 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the port's main path on one CUDA card and check it.
+"""Drive the port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py    # needs one card
 
-The main path is planned full-graph aggregation: ``build_spmm_graph``
-builds the plans on the host, ``spmm`` runs them, and its backward runs
-the same kernels over the transpose plan. The script:
+The port's paths, each at the full width of its model on the two graphs of
+``bench.py`` (262,144 nodes, about 4.2M edges):
+
+* planned SpMM sum: a GCN [512, 512, 47] trains over ``build_spmm_graph``
+  plans (K1 on the uniform graph; K2 and K2h on the power-law graph's
+  dedup plans);
+* exact max/min: a GraphSAGE max-pool [512, 512, 47] trains over chunked
+  plans (K4), and ``spmm(reduce='max'/'min')`` runs forward and backward
+  at F=512 on the power-law graph built ``minmax='auto'`` (K5) and on the
+  uniform graph (K4);
+* the CSR segment family: ``sage_forward`` [512, 512, 47] with
+  ``aggr='mean'`` (K3) and ``aggr='max'`` (the planned K4) runs forward
+  and backward on the uniform graph's CSR.
+
+The script:
 
 1. prints the card's name and power limit and builds every kernel from
    ``pyg_lib_tpu_torch/csrc`` with ``nvcc`` (one process per source);
-2. holds K1, K2 and K2h against their plain PyTorch versions on the card
-   at small shapes (F=47 and 128; f32, bf16 and int8; weighted or not;
-   int8, bf16 and f32 ``hot_w``);
-3. builds the two graphs of ``bench.py`` (262,144 nodes, about 4.2M
-   edges; uniform with the chunked plan, Zipf(1.2) with ``dedup='auto'``),
-   checks each kernel against its plain version at the main path's
-   shapes, and then, with every launch count set to 0, trains a
-   [512, 512, 47] GCN for a few steps on each graph: that run is the main
-   path, and each kernel must have launched in it;
-4. holds the GCN forward and the ``spmm`` gradient against the same
-   computation through the plain versions;
-5. times each kernel at the main path's shapes beside its plain version,
-   ``torch.sparse.mm`` on the same graph (timed here only, never used by
-   the port) and its bound, and times ``spmm`` by ``bench.py``'s
-   useful-bytes metric.
+2. holds each kernel against its plain PyTorch version on the card at
+   small shapes (empty rows, partial tiles, -inf rows, ties and both
+   zeros; f32, bf16 and int8 where the kernel takes them);
+3. builds the graphs and holds each kernel against its plain version at
+   the main paths' shapes (F=512 and F=47);
+4. drives each path with every launch count set to 0 just before it and
+   read just after: each kernel of the path must have launched in it;
+5. holds each path's result against the same computation through the
+   plain versions;
+6. times each kernel at F=512 beside its plain version, one PyTorch call
+   that computes the same function (timed here only, never used by the
+   port) and its bound, and times ``spmm`` by ``bench.py``'s useful-bytes
+   metric.
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -43,14 +53,35 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 # A kernel and its plain version sum the same f32 terms in another order:
-# |kernel - plain| <= SUM_RTOL * Σ|terms| + SUM_ATOL, elementwise.
+# |kernel - plain| <= SUM_RTOL * Σ|terms| + SUM_ATOL, elementwise. A bf16
+# result adds one bf16 step, 2**-8 of its size. K4 and K5 are exact.
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-5
-# The GCN output passes two such sums and two matmuls.
-GCN_RTOL = 1e-4  # of max|plain output|
+# A model's output and weight gradients pass several such sums and
+# matmuls over 262,144 rows.
+GCN_RTOL = 1e-4  # of max|plain output| (or of max|plain gradient|)
 N_NODES, N_EDGES, F_BENCH = 262_144, 4_194_304, 512
 DIMS = [512, 512, 47]
 HOT_COLUMNS = 4096  # hot level of the power-law forward plan
 STEPS = 3
+BLOCK = 128  # feature columns per plain-version call at the bench shape
+# Launch counters of the kernel wrappers: id -> (wrapper in ops, counter).
+COUNTERS = {'K1': ('spmm_chunked', 'launches'),
+            'K2': ('dedup_sum', 'launches'),
+            'K2h': ('dedup_sum', 'hot_launches'),
+            'K3': ('segment_sum_csr_kernel', 'launches'),
+            'K4': ('segment_max_kernel', 'launches'),
+            'K5': ('dedup_minmax', 'launches')}
+SOURCES = {
+    'K1': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
+    'K2': ('spmm_dedup.cu', 'pyg_lib_tpu/ops/pallas/spmm_dedup.py:527'),
+    'K2h': ('spmm_dedup.cu', 'pyg_lib_tpu/ops/pallas/spmm_dedup.py:542'),
+    'K3': ('segment_csr.cu',
+           'pyg_lib_tpu/ops/pallas/segment_csr_kernel.py:47'),
+    'K4': ('segment_minmax.cu',
+           'pyg_lib_tpu/ops/pallas/segment_minmax_kernel.py:59'),
+    'K5': ('spmm_dedup_minmax.cu',
+           'pyg_lib_tpu/ops/pallas/spmm_dedup_minmax.py:292'),
+}
 
 
 def uniform_graph(n, e):
@@ -77,6 +108,47 @@ def powerlaw_graph(n, e):
     return rowptr, col[order].astype(np.int64)
 
 
+def ragged_graph(n, e):
+    """Geometric row degrees (many empty rows, a few long ones) over ``n``
+    rows, a partial last tile when ``n % 128``."""
+    rng = np.random.default_rng(3)
+    row = np.minimum(rng.geometric(0.01, e) - 1, n - 1)
+    order = np.argsort(row, kind='stable')
+    rowptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=n), out=rowptr[1:])
+    return rowptr, rng.integers(0, n, e)[order].astype(np.int64)
+
+
+def bits(t):
+    """Tensor to compare bit for bit (-0.0 and +0.0 told apart)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def by_columns(fn, src, *args):
+    """A plain version whose columns are independent, run on ``BLOCK``
+    columns of ``src`` at a time and joined: keeps its ``[E, F]``
+    temporaries to ``[E, BLOCK]`` at the bench shape."""
+    import torch
+
+    outs = [fn(src[:, f0:f0 + BLOCK].contiguous(), *args)
+            for f0 in range(0, src.shape[1], BLOCK)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, 1) for parts in zip(*outs))
+    return torch.cat(outs, 1)
+
+
+def tie_values(n, f, gen, dev):
+    """Values with many ties, both zeros and -inf (some rows all -inf)."""
+    import torch
+
+    choice = torch.tensor([-2.0, -0.0, 0.0, 1.0, float('-inf')], device=dev)
+    v = choice[torch.randint(0, 5, (n, f), generator=gen, device=dev)]
+    v[::7] = float('-inf')
+    return v
+
+
 def main():
     import torch
 
@@ -84,8 +156,9 @@ def main():
         raise SystemExit('chip_smoke: no CUDA device is available')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pyg_lib_tpu_torch import _build, ops
-    from pyg_lib_tpu_torch.models import GCN
-    from pyg_lib_tpu_torch.ops.kernels import spmm_chunked, spmm_dedup
+    from pyg_lib_tpu_torch.models import GCN, SAGE, sage_forward
+    from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
+    from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -110,7 +183,7 @@ def main():
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    errs = {'K1': 0.0, 'K2': 0.0, 'K2h': 0.0}
+    errs = {k: 0.0 for k in COUNTERS}
 
     def plain(xm, plan, scale=None):
         if isinstance(plan, ops.DedupSpmmPlan):
@@ -132,24 +205,64 @@ def main():
         hot_w = None if plan.hot_w is None else plan.hot_w.abs()
         return plan._replace(edge_meta=meta, hot_w=hot_w)
 
+    def check_sum(label, kid, got, ref, mag, bf16=False):
+        err = (got.float() - ref.float()).abs()
+        tol = SUM_RTOL * mag + SUM_ATOL
+        if bf16:
+            tol = tol + 2.0**-8 * ref.float().abs()
+        e = float(err.max()) if err.numel() else 0.0
+        errs[kid] = max(errs[kid], e)
+        print(f'  {kid} {label}: max_abs_err {e:.3g} (tolerance '
+              f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g}'
+              f'{" + 2^-8 |plain|" if bf16 else ""})', flush=True)
+        if not torch.isfinite(got).all() or bool((err > tol).any()):
+            raise AssertionError(f'{kid} {label} disagrees with its plain '
+                                 f'version: max_abs_err {e}')
+        return e
+
     def check(label, kid, xm, plan, scale=None):
         got = kernel(xm, plan, scale)
         torch.cuda.synchronize()
         ref = plain(xm, plan, scale)
         xa = xm.abs() if xm.dtype != torch.int8 else xm.abs().to(torch.int8)
-        bound = plain(xa, abs_plan(plan),
-                      None if scale is None else scale.abs())
-        err = (got - ref).abs()
-        tol = SUM_RTOL * bound + SUM_ATOL
-        worst = float((err - tol).max())
-        e = float(err.max())
+        mag = plain(xa, abs_plan(plan), None if scale is None else
+                    scale.abs())
+        return check_sum(label, kid, got, ref, mag)
+
+    def check_exact(label, kid, got, ref):
+        """Values and positions of K4/K5 against their plain version, bit
+        for bit."""
+        torch.cuda.synchronize()
+        same = all(g.shape == r.shape and torch.equal(bits(g), bits(r))
+                   for g, r in zip(got, ref))
+        diff = torch.where(got[0] == ref[0], torch.zeros_like(got[0]),
+                           (got[0] - ref[0]).abs())
+        e = float(diff.max()) if diff.numel() else 0.0
         errs[kid] = max(errs[kid], e)
-        print(f'  {kid} {label}: max_abs_err {e:.3g} (tolerance '
-              f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
-        if not torch.isfinite(got).all() or worst > 0:
+        print(f'  {kid} {label}: max_abs_err {e:.3g}, values and positions '
+              f'{"equal bit for bit" if same else "DIFFER"}', flush=True)
+        if not same:
             raise AssertionError(f'{kid} {label} disagrees with its plain '
-                                 f'version: max_abs_err {e}')
+                                 f'version')
         return e
+
+    def check_k3(label, src, ptr):
+        got = ops.segment_sum_csr_kernel(src, ptr)
+        torch.cuda.synchronize()
+        ref = by_columns(ops.segment_sum_csr_plain, src, ptr)
+        mag = by_columns(ops.segment_sum_csr_plain, src.abs().float(), ptr)
+        return check_sum(label, 'K3', got, ref, mag,
+                         bf16=src.dtype == torch.bfloat16)
+
+    def check_k4(label, src, plan, idx, negate=False):
+        got = ops.segment_max_kernel(src, plan, idx, negate)
+        ref = by_columns(ops.segment_max_plain, src, plan, idx, negate)
+        return check_exact(label, 'K4', got, ref)
+
+    def check_k5(label, x, plan, negate=False):
+        got = ops.dedup_minmax(x, plan, negate)
+        ref = by_columns(ops.dedup_minmax_plain, x, plan, negate)
+        return check_exact(label, 'K5', got, ref)
 
     def modes(x):
         xq, scale = ops.quantize_columns(x)
@@ -160,6 +273,7 @@ def main():
     print('kernel checks (small plans):', flush=True)
     rp_u, cl_u = uniform_graph(1000, 16000)
     rp_p, cl_p = powerlaw_graph(3000, 40000)
+    rp_r, cl_r = ragged_graph(1000, 12000)
     rng = np.random.default_rng(1)
     w_p = rng.normal(size=cl_p.shape[0]).astype(np.float32)
     k1_plans = [('uniform', ops.build_spmm_plan(rp_u, cl_u, chunk=128)),
@@ -187,102 +301,234 @@ def main():
             for kid, pname, plan in k2_plans:
                 check(f'{pname} F={f} {mode}', kid, xm, plan, scale)
 
-    # -- 3. the slice at bench scale ------------------------------------
+    # K3 over a ragged CSR with 5 leading and 9 trailing positions of no
+    # row; K4 in its three index modes; K5 on a plain plan, on the
+    # transposed power-law graph (hub tiles of many chunks, shared by
+    # several blocks) and on a ragged graph (empty rows, a partial tile).
+    ptr_r = torch.tensor(rp_r + 5, device=dev)
+    k4_plan = ops.build_spmm_plan(rp_r, cl_r, chunk=128, with_edge_maps=True)
+    k4_modes = [('padded', k4_plan.col_padded.shape[0], None),
+                ('col_padded', 1000, k4_plan.col_padded),
+                ('edge_perm', cl_r.shape[0], k4_plan.edge_perm)]
+    t_rp = np.zeros(3001, np.int64)
+    np.cumsum(np.bincount(cl_p, minlength=3000), out=t_rp[1:])
+    t_cl = np.repeat(np.arange(3000), np.diff(rp_p))[
+        np.argsort(cl_p, kind='stable')]
+    k5_plans = [
+        ('plain', 3000, ops.build_dedup_minmax_plan(rp_p, cl_p, ec=256,
+                                                    uc=96)),
+        ('hub tiles', 3000, ops.build_dedup_minmax_plan(t_rp, t_cl, ec=128,
+                                                        uc=64)),
+        ('ragged', 1000, ops.build_dedup_minmax_plan(rp_r, cl_r, ec=128,
+                                                     uc=64)),
+    ]
+    if np.bincount(k5_plans[1][2].chunk_tile.cpu().numpy()).max() <= 4:
+        raise AssertionError('the hub-tile plan has no tile of many chunks')
+    for f in (47, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            src = torch.randn((cl_r.shape[0] + 14, f), generator=gen,
+                              device=dev).to(dtype)
+            check_k3(f'ragged gap+pad F={f} {str(dtype)[6:]}', src, ptr_r)
+        for values in ('normal', 'ties'):
+            for mode, rows, idx in k4_modes:
+                src = (tie_values(rows, f, gen, dev) if values == 'ties'
+                       else torch.randn((rows, f), generator=gen,
+                                        device=dev))
+                for negate in (False, True):
+                    check_k4(f'{mode} F={f} {values} negate={negate}', src,
+                             k4_plan, idx, negate)
+            for pname, rows, plan in k5_plans:
+                x = (tie_values(rows, f, gen, dev) if values == 'ties'
+                     else torch.randn((rows, f), generator=gen, device=dev))
+                for negate in (False, True):
+                    check_k5(f'{pname} F={f} {values} negate={negate}', x,
+                             plan, negate)
+
+    # -- 3. the graphs at bench scale -----------------------------------
     t0 = time.perf_counter()
     rp_u, cl_u = uniform_graph(N_NODES, N_EDGES)
-    g_u = ops.build_spmm_graph(rp_u, cl_u)
+    g_u = ops.build_spmm_graph(rp_u, cl_u, with_edge_maps=True,
+                               minmax='auto')
     t_u = time.perf_counter() - t0
     t0 = time.perf_counter()
     rp_p, cl_p = powerlaw_graph(N_NODES, N_EDGES)
-    g_p = ops.build_spmm_graph(rp_p, cl_p, dedup='auto')
+    g_p = ops.build_spmm_graph(rp_p, cl_p, dedup='auto', minmax='auto')
     t_p = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_pp = ops.build_spmm_graph(rp_p, cl_p, with_edge_maps=True)
+    t_pp = time.perf_counter() - t0
     e_u, e_p = int(rp_u[-1]), int(rp_p[-1])
     print(f'graphs: uniform E={e_u} E_pad={g_u.fwd.col_padded.numel()} '
-          f'{type(g_u.fwd).__name__} ({t_u:.1f} s); powerlaw E={e_p} fwd '
+          f'{type(g_u.fwd).__name__} mm={type(g_u.mm).__name__} '
+          f'({t_u:.1f} s); powerlaw E={e_p} fwd '
           f'{type(g_p.fwd).__name__} chunks={g_p.fwd.num_chunks} '
           f'uc={g_p.fwd.uc} hot={g_p.fwd.num_hot} '
           f'hot_w={g_p.fwd.hot_w.dtype}, bwd {type(g_p.bwd).__name__} '
           f'chunks={g_p.bwd.num_chunks} uc={g_p.bwd.uc} '
-          f'hot={g_p.bwd.num_hot} ({t_p:.1f} s)', flush=True)
+          f'hot={g_p.bwd.num_hot}, mm {type(g_p.mm).__name__} '
+          f'chunks={g_p.mm.num_chunks} ec={g_p.mm.ec} uc={g_p.mm.uc} '
+          f'edges={int((g_p.mm.edge_meta[:, 0, :] < 128).sum())} '
+          f'({t_p:.1f} s); powerlaw chunked '
+          f'E_pad={g_pp.fwd.col_padded.numel()} ({t_pp:.1f} s)', flush=True)
     if not (isinstance(g_u.fwd, ops.SpmmPlan)
-            and isinstance(g_u.bwd, ops.SpmmPlan)
+            and isinstance(g_u.bwd, ops.SpmmPlan) and g_u.mm is None
+            and g_u.fwd.edge_perm is not None
             and isinstance(g_p.fwd, ops.DedupSpmmPlan)
             and g_p.fwd.num_hot == HOT_COLUMNS
             and g_p.fwd.hot_w.dtype == torch.int8
             and isinstance(g_p.bwd, ops.DedupSpmmPlan)
-            and g_p.bwd.num_hot == 0):
+            and g_p.bwd.num_hot == 0
+            and isinstance(g_p.mm, ops.DedupMinmaxPlan)
+            and isinstance(g_pp.fwd, ops.SpmmPlan)):
         raise AssertionError('bench graphs did not get the expected plans')
     graphs = {'uniform': g_u, 'powerlaw': g_p}
+    sage_graphs = {'uniform': g_u, 'powerlaw': g_pp}
+    ptr_u = torch.tensor(rp_u, device=dev)
+    row_u = torch.tensor(cl_u.astype(np.int64), device=dev)
+    csr_plan = plan_for_ptr(ptr_u)  # the planned segment_max_csr's plan
+
+    print('kernel checks (main-path shapes):', flush=True)
+    main_errs = {k: 0.0 for k in COUNTERS}
     sides = [('K1', 'uniform fwd', g_u.fwd), ('K1', 'uniform bwd', g_u.bwd),
              ('K2h', 'powerlaw fwd', g_p.fwd),
              ('K2', 'powerlaw bwd', g_p.bwd)]
-
-    print('kernel checks (main-path shapes):', flush=True)
-    main_errs = {'K1': 0.0, 'K2': 0.0, 'K2h': 0.0}
     for f in (F_BENCH, DIMS[-1]):
         x = torch.randn((N_NODES, f), generator=gen, device=dev)
-        for kid, label, plan in sides:
-            e = check(f'{label} F={f} f32', kid, x, plan)
+        found = [(kid, check(f'{label} F={f} f32', kid, x, plan))
+                 for kid, label, plan in sides]
+        for negate in (False, True):
+            found.append(('K4', check_k4(
+                f'uniform fwd col_padded F={f} negate={negate}', x,
+                g_u.fwd, g_u.fwd.col_padded, negate)))
+            found.append(('K5', check_k5(
+                f'powerlaw mm F={f} negate={negate}', x, g_p.mm, negate)))
+        found.append(('K4', check_k4(f'powerlaw fwd col_padded F={f}', x,
+                                     g_pp.fwd, g_pp.fwd.col_padded)))
+        msgs = x[row_u]
+        found.append(('K3', check_k3(f'uniform CSR F={f} f32', msgs, ptr_u)))
+        found.append(('K4', check_k4(f'uniform CSR edge_perm F={f}', msgs,
+                                     csr_plan, csr_plan.edge_perm)))
+        for kid, e in found:
             main_errs[kid] = max(main_errs[kid], e)
-        del x
-    torch.cuda.empty_cache()
+        del x, msgs
+        torch.cuda.empty_cache()
 
-    # The main path: a few GCN training steps on each graph, counted.
+    # -- 4. the main paths, each counted on its own ----------------------
+    launches = {k: 0 for k in COUNTERS}
+
+    def run_path(name, need, fn):
+        for wrapper, attr in COUNTERS.values():
+            setattr(getattr(ops, wrapper), attr, 0)
+        result = fn()
+        torch.cuda.synchronize()
+        got = {k: getattr(getattr(ops, w), a)
+               for k, (w, a) in COUNTERS.items()}
+        print(f'main path {name}: launches {got}', flush=True)
+        for k in need:
+            if got[k] <= 0:
+                raise AssertionError(f'{k} never launched on the main path '
+                                     f'{name}')
+        for k, n in got.items():
+            launches[k] += n
+        return result
+
     x = torch.randn((N_NODES, DIMS[0]), generator=gen, device=dev)
     labels = torch.randint(0, DIMS[-1], (N_NODES, ), generator=gen,
                            device=dev)
+
+    def train(models, gdict):
+        step_ms = {}
+        for gname, graph in gdict.items():
+            model = models[gname]
+            opt = torch.optim.SGD(model.parameters(), lr=0.1)
+            for step in range(STEPS):
+                if step == 1:  # the first step pays cuBLAS set-up
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                opt.zero_grad()
+                loss = torch.nn.functional.cross_entropy(model(x, graph),
+                                                         labels)
+                loss.backward()
+                opt.step()
+                if not torch.isfinite(loss):
+                    raise AssertionError(f'loss on {gname} is not finite')
+            torch.cuda.synchronize()
+            step_ms[gname] = (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
+        return step_ms
+
     cpu_gen = torch.Generator().manual_seed(0)
-    models = {k: GCN(DIMS, generator=cpu_gen, device=dev) for k in graphs}
-    spmm_chunked.spmm_chunked.launches = 0
-    spmm_dedup.dedup_sum.launches = 0
-    spmm_dedup.dedup_sum.hot_launches = 0
-    step_ms = {}
-    for gname, graph in graphs.items():
-        model = models[gname]
-        opt = torch.optim.SGD(model.parameters(), lr=0.1)
-        for step in range(STEPS):
-            if step == 1:  # the first step pays cuBLAS and allocator set-up
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            opt.zero_grad()
-            loss = torch.nn.functional.cross_entropy(model(x, graph), labels)
-            loss.backward()
-            opt.step()
-            if not torch.isfinite(loss):
-                raise AssertionError(f'GCN loss on {gname} is not finite')
-        torch.cuda.synchronize()
-        step_ms[gname] = (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
-    launches = {'K1': spmm_chunked.spmm_chunked.launches,
-                'K2': spmm_dedup.dedup_sum.launches,
-                'K2h': spmm_dedup.dedup_sum.hot_launches}
-    print(f'main path: {STEPS} GCN {DIMS} training steps per graph; ms per '
-          f'step after the first {step_ms}; launches {launches}', flush=True)
-    for kid, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f'{kid} never launched on the main path')
+    gcn = {k: GCN(DIMS, generator=cpu_gen, device=dev) for k in graphs}
+    gcn_ms = run_path('GCN', ('K1', 'K2', 'K2h'), lambda: train(gcn, graphs))
+    print(f'  {STEPS} GCN {DIMS} training steps per graph; ms per step '
+          f'after the first {gcn_ms}', flush=True)
+    sage = {k: SAGE(DIMS, generator=cpu_gen, device=dev)
+            for k in sage_graphs}
+    sage_ms = run_path('SAGE max-pool', ('K4', ),
+                       lambda: train(sage, sage_graphs))
+    print(f'  {STEPS} SAGE max-pool {DIMS} training steps per graph; ms per '
+          f'step after the first {sage_ms}', flush=True)
 
     # Where a training step's time goes: device time by kernel over one
     # profiled step, against the unprofiled step time above.
-    for gname, graph in graphs.items():
-        model = models[gname]
+    for mname, models, gdict, ms in (('GCN', gcn, graphs, gcn_ms),
+                                     ('SAGE max-pool', sage, sage_graphs,
+                                      sage_ms)):
+        for gname, graph in gdict.items():
+            model = models[gname]
 
-        def step():
-            model.zero_grad()
-            torch.nn.functional.cross_entropy(model(x, graph),
-                                              labels).backward()
+            def step():
+                model.zero_grad()
+                torch.nn.functional.cross_entropy(model(x, graph),
+                                                  labels).backward()
 
-        busy_ms, top = device_time_by_kernel(step)
-        if busy_ms == 0.0:
-            print(f'profile {gname}: the profiler saw no device time (not '
-                  f'measured)', flush=True)
-            continue
-        print(f'profile {gname} step: device busy {busy_ms:.3f} ms of '
-              f'{step_ms[gname]:.3f} ms, idle share '
-              f'{1 - busy_ms / step_ms[gname]:.3f}; by kernel (ms): '
-              + '; '.join(f'{name} {ms:.3f}' for name, ms in top[:8]),
-              flush=True)
+            busy_ms, top = device_time_by_kernel(step)
+            if busy_ms == 0.0:
+                print(f'profile {mname} {gname}: the profiler saw no device '
+                      f'time (not measured)', flush=True)
+                continue
+            print(f'profile {mname} {gname} step: device busy '
+                  f'{busy_ms:.3f} ms of {ms[gname]:.3f} ms, idle share '
+                  f'{1 - busy_ms / ms[gname]:.3f}; by kernel (ms): '
+                  + '; '.join(f'{name} {t:.3f}' for name, t in top[:8]),
+                  flush=True)
 
-    # -- 4. GCN forward and spmm gradient against the plain path --------
+    xs = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev,
+                     requires_grad=True)
+    cot = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
+
+    def minmax_path():
+        res = {}
+        for gname, graph in (('powerlaw', g_p), ('uniform', g_u)):
+            for reduce in ('max', 'min'):
+                out = ops.spmm(xs, graph, reduce)
+                (grad, ) = torch.autograd.grad((out * cot).sum(), xs)
+                res[gname, reduce] = (out.detach(), grad)
+        return res
+
+    mm_res = run_path('spmm max/min', ('K4', 'K5'), minmax_path)
+
+    sage_params = SAGE(DIMS, generator=cpu_gen, device=dev).params()
+    cot47 = torch.randn((N_NODES, DIMS[-1]), generator=gen, device=dev)
+    leaves = [p for layer in sage_params['layers'] for p in layer.values()]
+
+    def sage_forward_path():
+        res = {}
+        for aggr in ('mean', 'max'):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sage_forward(sage_params, x, ptr_u, row_u, aggr)
+            grads = torch.autograd.grad((out * cot47).sum(), leaves)
+            torch.cuda.synchronize()
+            res[aggr] = (out.detach(), grads,
+                         (time.perf_counter() - t0) * 1e3)
+        return res
+
+    sf_res = run_path('sage_forward mean/max', ('K3', 'K4'),
+                      sage_forward_path)
+    print('  sage_forward forward + backward ms: ' + ', '.join(
+        f'{a} {r[2]:.3f}' for a, r in sf_res.items()), flush=True)
+
+    # -- 5. each path against the plain versions ------------------------
     def plain_gcn(params, x, graph):
         inv = torch.rsqrt(graph.deg.clamp(min=1.0))[:, None]
         layers = params['layers']
@@ -293,47 +539,141 @@ def main():
                 x = torch.relu(x)
         return x
 
+    def plain_maxpool(params, x, graph):
+        plan = graph.fwd
+        empty = (graph.deg < 0.5)[:, None]
+        layers = params['layers']
+        for i, layer in enumerate(layers):
+            h = torch.relu(x @ layer['w_nbr'])
+            agg = by_columns(ops.segment_max_plain, h, plan,
+                             plan.col_padded)[0]
+            agg = torch.where(empty, torch.zeros_like(agg), agg)
+            x = x @ layer['w_self'] + agg + layer['b']
+            if i < len(layers) - 1:
+                x = torch.relu(x)
+        return x
+
+    def close(label, out, ref, rtol=GCN_RTOL):
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f'{label} is malformed')
+        e = float((out - ref).abs().max())
+        tol = rtol * float(ref.abs().max())
+        print(f'{label}: max_abs_err {e:.3g} (tolerance {rtol:g} * '
+              f'max|plain| = {tol:.3g})', flush=True)
+        if e > tol:
+            raise AssertionError(f'{label} disagrees with the plain path')
+
     fwd_ms = {}
     with torch.no_grad():
-        for gname, graph in graphs.items():
-            params = models[gname].params()
-            out = models[gname](x, graph)
-            ref = plain_gcn(params, x, graph)
-            if out.shape != (N_NODES, DIMS[-1]) or not torch.isfinite(
-                    out).all():
-                raise AssertionError(f'GCN output on {gname} is malformed')
-            e = float((out - ref).abs().max())
-            tol = GCN_RTOL * float(ref.abs().max())
-            print(f'GCN forward {gname}: max_abs_err {e:.3g} (tolerance '
-                  f'{GCN_RTOL:g} * max|plain| = {tol:.3g})', flush=True)
-            if e > tol:
-                raise AssertionError(f'GCN forward on {gname} disagrees')
-            fwd_ms[gname] = {
-                'kernel': cuda_ms(lambda: models[gname](x, graph)),
-                'plain': cuda_ms(lambda: plain_gcn(params, x, graph)),
-            }
-            del out, ref
+        for mname, models, gdict, ref_fn in (
+                ('GCN', gcn, graphs, plain_gcn),
+                ('SAGE max-pool', sage, sage_graphs, plain_maxpool)):
+            for gname, graph in gdict.items():
+                params = models[gname].params()
+                out = models[gname](x, graph)
+                close(f'{mname} forward {gname}', out,
+                      ref_fn(params, x, graph))
+                if mname == 'GCN':
+                    fwd_ms[gname] = {
+                        'kernel': cuda_ms(lambda: models[gname](x, graph)),
+                        'plain': cuda_ms(lambda: plain_gcn(params, x,
+                                                           graph)),
+                    }
+                del out
     print(f'GCN forward ms: {fwd_ms}', flush=True)
-    del x, labels
     torch.cuda.empty_cache()
 
     for gname, graph in graphs.items():
-        x = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev,
-                        requires_grad=True)
-        cot = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
-        (gk, ) = torch.autograd.grad((ops.spmm(x, graph) * cot).sum(), x)
-        (gp, ) = torch.autograd.grad((plain(x, graph.fwd) * cot).sum(), x)
-        bound = plain(cot.abs(), abs_plan(graph.bwd))
+        xg = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev,
+                         requires_grad=True)
+        cg = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
+        (gk, ) = torch.autograd.grad((ops.spmm(xg, graph) * cg).sum(), xg)
+        (gp, ) = torch.autograd.grad((plain(xg, graph.fwd) * cg).sum(), xg)
+        bound = plain(cg.abs(), abs_plan(graph.bwd))
         err = (gk - gp).abs()
         e = float(err.max())
         print(f'spmm grad {gname}: max_abs_err {e:.3g} (tolerance '
               f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
         if float((err - SUM_RTOL * bound - SUM_ATOL).max()) > 0:
             raise AssertionError(f'spmm gradient on {gname} disagrees')
-        del x, cot, gk, gp, bound, err
+        del xg, cg, gk, gp, bound, err
         torch.cuda.empty_cache()
 
-    # -- 5. timing ------------------------------------------------------
+    # spmm max/min: values bit for bit, the gradient as the winners' sums.
+    xd = xs.detach()
+    for (gname, reduce), (out, grad) in mm_res.items():
+        graph = g_p if gname == 'powerlaw' else g_u
+        plan = graph.mm if graph.mm is not None else graph.fwd
+        is_min = reduce == 'min'
+        if isinstance(plan, ops.DedupMinmaxPlan):
+            vals, pos = by_columns(ops.dedup_minmax_plain, xd, plan, is_min)
+            idx = plan.uniq_cols
+        else:
+            vals, pos = by_columns(ops.segment_max_plain, xd, plan,
+                                   plan.col_padded, is_min)
+            idx = plan.col_padded
+        empty = (graph.deg < 0.5)[:, None]
+        vals = torch.where(empty, torch.zeros_like(vals),
+                           -vals if is_min else vals)
+        hit = ~empty & (pos < POS_NONE)
+        tgt = torch.where(hit, idx[torch.where(hit, pos, 0).long()],
+                          N_NODES).long()
+        grads = [torch.zeros((N_NODES + 1, F_BENCH), device=dev)
+                 .scatter_add_(0, tgt, c)[:N_NODES] for c in (cot, cot.abs())]
+        same = torch.equal(bits(out), bits(vals))
+        e = float((grad - grads[0]).abs().max())
+        print(f'spmm {reduce} {gname}: values '
+              f'{"equal bit for bit" if same else "DIFFER"}; grad '
+              f'max_abs_err {e:.3g} (tolerance {SUM_RTOL:g} * sum|terms| + '
+              f'{SUM_ATOL:g})', flush=True)
+        if not same or bool(((grad - grads[0]).abs() > SUM_RTOL * grads[1] +
+                             SUM_ATOL).any()):
+            raise AssertionError(f'spmm {reduce} on {gname} disagrees')
+        del vals, pos, grads, tgt
+    del mm_res, xs, xd, cot
+    torch.cuda.empty_cache()
+
+    # sage_forward through the plain versions, with its own gradients.
+    counts = (ptr_u[1:] - ptr_u[:-1]).clamp(min=1)[:, None]
+    empty_u = (ptr_u[1:] == ptr_u[:-1])[:, None]
+
+    def plain_sage(aggr, mask):
+        """sage_forward through the plain versions, with the kernel
+        path's ReLU pattern ``mask``: a unit whose pre-activation lies
+        within the two paths' rounding difference of 0 would otherwise
+        switch, and move a weight gradient by |x·g|, about 1."""
+        xi = x
+        layers = sage_params['layers']
+        for i, layer in enumerate(layers):
+            msgs = xi[row_u]
+            if aggr == 'mean':
+                agg = ops.segment_sum_csr_plain(msgs, ptr_u) / counts
+            else:
+                agg = ops.segment_max_plain(msgs, csr_plan,
+                                            csr_plan.edge_perm)[0]
+                agg = torch.where(empty_u, torch.zeros_like(agg), agg)
+            del msgs
+            xi = xi @ layer['w_self'] + agg @ layer['w_nbr'] + layer['b']
+            if i < len(layers) - 1:
+                xi = torch.where(mask, xi, torch.zeros_like(xi))
+        return xi
+
+    for aggr, (out, grads, _) in sf_res.items():
+        with torch.no_grad():  # layer 1 alone: its pre-activation
+            mask = sage_forward({'layers': sage_params['layers'][:1]}, x,
+                                ptr_u, row_u, aggr) > 0
+        ref = plain_sage(aggr, mask)
+        del mask
+        close(f'sage_forward {aggr} forward', out, ref.detach())
+        refs = torch.autograd.grad((ref * cot47).sum(), leaves)
+        for name, g, r in zip(('w_self', 'w_nbr', 'b') * len(DIMS), grads,
+                              refs):
+            close(f'  sage_forward {aggr} grad {name}', g, r)
+        del ref, refs
+        torch.cuda.empty_cache()
+    del sf_res
+
+    # -- 6. timing ------------------------------------------------------
     csr = {}
     for gname, (rp, cl) in {'uniform': (rp_u, cl_u),
                             'powerlaw': (rp_p, cl_p)}.items():
@@ -341,55 +681,88 @@ def main():
             torch.from_numpy(rp), torch.from_numpy(cl.astype(np.int64)),
             torch.ones(cl.shape[0]), (N_NODES, N_NODES)).to(dev)
         csr[gname] = (a, a.t().to_sparse_csr())
-    x = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
+    xb = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
     print('spmm (bench.py useful bytes: E*F*4 + E*4 + N*F*4):', flush=True)
     for gname, graph in graphs.items():
         e = e_u if gname == 'uniform' else e_p
         useful = e * F_BENCH * 4 + e * 4 + N_NODES * F_BENCH * 4
-        lib_ms = cuda_ms(lambda: torch.sparse.mm(csr[gname][0], x))
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(csr[gname][0], xb))
         for prec in (None, 'bf16'):
-            ms = cuda_ms(lambda: ops.spmm(x, graph, precision=prec))
+            ms = cuda_ms(lambda: ops.spmm(xb, graph, precision=prec))
             print(f'  {gname} precision={prec}: {ms:.3f} ms, '
                   f'{useful / ms / 1e6:.1f} GB/s, bound '
                   f'{useful / HBM_BYTES_PER_S * 1e3:.3f} ms; '
                   f'torch.sparse.mm f32 {lib_ms:.3f} ms', flush=True)
 
     rows = []
-    sources = {'K1': ('pyg_lib_tpu_torch/csrc/spmm_chunked.cu',
-                      'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
-               'K2': ('pyg_lib_tpu_torch/csrc/spmm_dedup.cu',
-                      'pyg_lib_tpu/ops/pallas/spmm_dedup.py:527'),
-               'K2h': ('pyg_lib_tpu_torch/csrc/spmm_dedup.cu',
-                       'pyg_lib_tpu/ops/pallas/spmm_dedup.py:542')}
-    timed = [('K1', 'uniform fwd', g_u.fwd, csr['uniform'][0]),
-             ('K2h', 'powerlaw fwd', g_p.fwd, csr['powerlaw'][0]),
-             ('K2', 'powerlaw bwd', g_p.bwd, csr['powerlaw'][1])]
-    for kid, label, plan, lib in timed:
-        nbytes, flops = work(plan, F_BENCH)
+
+    def row(kid, label, run, run_plain, run_lib, nbytes, flops, lib_name):
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-        row = {
-            'name': kid, 'route': 'cuda', 'source': sources[kid][0],
-            'replaces': sources[kid][1], 'launches': launches[kid],
-            'max_abs_err': main_errs[kid],
-            'ms': cuda_ms(lambda: kernel(x, plan)),
-            'plain_ms': cuda_ms(lambda: plain(x, plan), iters=3),
-            'bound_ms': bound_ms,
+        r = {
+            'name': kid, 'route': 'cuda',
+            'source': f'pyg_lib_tpu_torch/csrc/{SOURCES[kid][0]}',
+            'replaces': SOURCES[kid][1], 'launches': launches[kid],
+            'max_abs_err': main_errs[kid], 'ms': cuda_ms(run),
+            'plain_ms': cuda_ms(run_plain, iters=3), 'bound_ms': bound_ms,
             'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >=
                          flops / F32_FLOPS else 'operations'),
-            'library_ms': cuda_ms(lambda: torch.sparse.mm(lib, x)),
+            'library_ms': cuda_ms(run_lib),
         }
-        print(f'  {kid} {label} F={F_BENCH} f32: {row["ms"]:.3f} ms, plain '
-              f'{row["plain_ms"]:.3f} ms, torch.sparse.mm '
-              f'{row["library_ms"]:.3f} ms, bound {bound_ms:.3f} ms '
-              f'({row["bound_by"]}: {nbytes / 1e9:.3f} GB, '
-              f'{flops / 1e9:.3f} GFLOP)', flush=True)
-        rows.append(row)
+        print(f'  {kid} {label} F={F_BENCH} f32: {r["ms"]:.3f} ms, plain '
+              f'{r["plain_ms"]:.3f} ms, {lib_name} {r["library_ms"]:.3f} '
+              f'ms, bound {bound_ms:.3f} ms ({r["bound_by"]}: '
+              f'{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)', flush=True)
+        rows.append(r)
+
+    for kid, label, plan, lib in (
+            ('K1', 'uniform fwd', g_u.fwd, csr['uniform'][0]),
+            ('K2h', 'powerlaw fwd', g_p.fwd, csr['powerlaw'][0]),
+            ('K2', 'powerlaw bwd', g_p.bwd, csr['powerlaw'][1])):
+        nbytes, flops = work(plan, F_BENCH)
+        row(kid, label, lambda: kernel(xb, plan), lambda: plain(xb, plan),
+            lambda: torch.sparse.mm(lib, xb), nbytes, flops,
+            'torch.sparse.mm')
+    del csr
+    torch.cuda.empty_cache()
+
+    # K3 and K4 on the uniform graph, K5 on the power-law min/max plan;
+    # the library call reduces the same messages gathered beforehand.
+    ptr_f = N_NODES * F_BENCH * 4
+    msgs = xb[row_u]
+    row('K3', 'uniform CSR', lambda: ops.segment_sum_csr_kernel(msgs, ptr_u),
+        lambda: ops.segment_sum_csr_plain(msgs, ptr_u),
+        lambda: torch.segment_reduce(msgs, 'sum', offsets=ptr_u, axis=0),
+        e_u * F_BENCH * 4 + (N_NODES + 1) * 8 + ptr_f, e_u * F_BENCH,
+        'torch.segment_reduce sum')
+    k4_csr_ms = cuda_ms(lambda: ops.segment_max_kernel(
+        msgs, csr_plan, csr_plan.edge_perm))
+    print(f'  K4 uniform CSR edge_perm (sage_forward max) F={F_BENCH}: '
+          f'{k4_csr_ms:.3f} ms', flush=True)
+    plan = g_u.fwd
+    row('K4', 'uniform fwd col_padded',
+        lambda: ops.segment_max_kernel(xb, plan, plan.col_padded),
+        lambda: ops.segment_max_plain(xb, plan, plan.col_padded),
+        lambda: torch.segment_reduce(msgs, 'max', offsets=ptr_u, axis=0),
+        ptr_f + plan.col_padded.numel() * 4 + plan.tile_ptr.shape[0] * 129 * 4
+        + 2 * ptr_f, e_u * F_BENCH, 'torch.segment_reduce max')
+    del msgs
+    torch.cuda.empty_cache()
+    mm = g_p.mm
+    rp_d, cl_d = ops.dedup_pairs(rp_p, cl_p)
+    ptr_d = torch.tensor(rp_d, device=dev)
+    msgs = xb[torch.tensor(cl_d, device=dev)]
+    row('K5', 'powerlaw mm', lambda: ops.dedup_minmax(xb, mm),
+        lambda: ops.dedup_minmax_plain(xb, mm),
+        lambda: torch.segment_reduce(msgs, 'max', offsets=ptr_d, axis=0),
+        ptr_f + mm.uniq_cols.numel() * 4 + mm.num_chunks * 2 * mm.ec * 4 +
+        mm.num_chunks * 4 + 2 * ptr_f, cl_d.shape[0] * F_BENCH,
+        'torch.segment_reduce max')
     return smi, errs, rows
 
 
 def work(plan, f):
     """Bytes (each input read once, the output written once) and f32
-    operations that one kernel call on ``plan`` at width ``f`` needs."""
+    operations that one K1/K2 call on ``plan`` at width ``f`` needs."""
     import torch
 
     from pyg_lib_tpu_torch.ops import DedupSpmmPlan
@@ -458,7 +831,7 @@ if __name__ == '__main__':
 
     t_start = time.perf_counter()
     smi, errs, rows = main()
-    print(f'small-plan max_abs_err: {errs}; total '
+    print(f'small-plan and main-shape max_abs_err: {errs}; total '
           f'{time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': rows}))
     print(smi)

@@ -10,8 +10,11 @@ Entry points put their tensors on ``cuda`` unless the caller passes
 PyTorch version; on CUDA tensors it launches the kernel or raises.
 
 * ``pyg_lib_tpu_torch.ops`` — planned SpMM (``build_spmm_graph``,
-  ``spmm``) over the chunked and the deduplicated plans.
-* ``pyg_lib_tpu_torch.models`` — full-graph GCN over a planned graph.
+  ``spmm``: sum/mean over the chunked and the deduplicated plans, exact
+  max/min over the chunked and the dedup min/max plans), the CSR segment
+  family (``segment_*_csr``, ``gather_csr``) and the padded-space max.
+* ``pyg_lib_tpu_torch.models`` — GCN and GraphSAGE (mean, max and
+  full-graph max-pool).
 
 This package never imports ``jax`` or ``pyg_lib_tpu``.
 """

@@ -24,6 +24,20 @@ __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
 }
 
+// float -> the element type, rounding to nearest even (as torch's .to()).
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
 // Values per lane of an F-block: the least power of two up to `cap` with
 // 32 * vpl >= F.
 inline int pick_vpl(int F, int cap) {

@@ -1,6 +1,11 @@
 """GNN models of the port."""
 
-from pyg_lib_tpu_torch.models.gnn import (GCN, gcn_forward_spmm,
-                                          gcn_params_from_jax)
+from pyg_lib_tpu_torch.models.gnn import (GCN, SAGE, gcn_forward,
+                                          gcn_forward_spmm,
+                                          gcn_params_from_jax, sage_forward,
+                                          sage_maxpool_forward_spmm,
+                                          sage_params_from_jax)
 
-__all__ = ['GCN', 'gcn_forward_spmm', 'gcn_params_from_jax']
+__all__ = ['GCN', 'SAGE', 'gcn_forward', 'gcn_forward_spmm',
+           'gcn_params_from_jax', 'sage_forward', 'sage_maxpool_forward_spmm',
+           'sage_params_from_jax']

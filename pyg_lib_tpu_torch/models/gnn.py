@@ -1,10 +1,19 @@
-"""Full-graph GCN over a planned graph (port of
-``pyg_lib_tpu.models.gnn.init_gcn`` / ``gcn_forward_spmm``).
+"""GNN models of the port: GCN and GraphSAGE, on a planned graph and on a
+CSR batch (port of ``pyg_lib_tpu.models.gnn``: ``init_gcn``,
+``gcn_forward``, ``gcn_forward_spmm``, ``init_sage``, ``sage_forward``,
+``sage_maxpool_forward_spmm``).
 
-Parameters are ``{'layers': [{'w': [in, out], 'b': [out]}, ...]}``, the
-JAX package's tree with tensors for arrays, so converted JAX weights
-(:func:`gcn_params_from_jax`) and a :class:`GCN` module's weights run
-through the same functional forward.
+Parameters are the JAX package's trees with tensors for arrays:
+``{'layers': [{'w': [in, out], 'b': [out]}, ...]}`` for GCN and
+``{'layers': [{'w_self', 'w_nbr': [in, out], 'b': [out]}, ...]}`` for
+GraphSAGE, so converted JAX weights (:func:`gcn_params_from_jax`,
+:func:`sage_params_from_jax`) and a module's weights run through the same
+functional forwards.
+
+The CSR forwards take a batch as the JAX package lays it out: ``x [N, F]``,
+``rowptr [N+1]`` over destination nodes and ``row [E]`` the source of each
+edge, sorted by destination; pad edges (``row == N``) sit past
+``rowptr[-1]`` and belong to no row.
 """
 
 from typing import Dict, List, Optional
@@ -13,10 +22,56 @@ import numpy as np
 import torch
 from torch import nn
 
-from pyg_lib_tpu_torch.ops import spmm
+from pyg_lib_tpu_torch.ops import (segment_max_csr, segment_mean_csr,
+                                   segment_sum_csr, spmm)
+from pyg_lib_tpu_torch.ops.spmm import _gathered_max_padded
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['GCN', 'gcn_forward_spmm', 'gcn_params_from_jax']
+__all__ = ['GCN', 'SAGE', 'gcn_forward', 'gcn_forward_spmm',
+           'gcn_params_from_jax', 'sage_forward', 'sage_maxpool_forward_spmm',
+           'sage_params_from_jax']
+
+
+def _gather_src(x: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    # Pad edges carry row == N: clip; they sit past rowptr[-1], so the
+    # segment op drops their messages.
+    return x[row.clamp(max=x.shape[0] - 1)]
+
+
+def _glorot(fan_in: int, fan_out: int, generator, device) -> torch.Tensor:
+    limit = (6.0 / (fan_in + fan_out))**0.5
+    w = torch.rand((fan_in, fan_out), generator=generator)
+    return ((2 * w - 1) * limit).to(device)
+
+
+def _params_from_jax(tree: Dict, keys, device) -> Dict:
+    device = _resolve_device(device)
+    return {'layers': [{
+        k: torch.tensor(np.asarray(layer[k], dtype=np.float32), device=device)
+        for k in keys
+    } for layer in tree['layers']]}
+
+
+# -- GCN ----------------------------------------------------------------------
+
+
+def gcn_forward(params: Dict, x: torch.Tensor, rowptr: torch.Tensor,
+                row: torch.Tensor) -> torch.Tensor:
+    """Kipf-Welling GCN with symmetric in-batch degree normalisation over a
+    CSR batch; aggregates with ``segment_sum_csr`` (kernel K3 on the
+    card)."""
+    deg = (rowptr[1:] - rowptr[:-1]).to(x.dtype)
+    inv_sqrt = torch.rsqrt(deg.clamp(min=1.0))[:, None]
+    n = x.shape[0]
+    layers = params['layers']
+    for i, layer in enumerate(layers):
+        h = x @ layer['w']
+        msgs = _gather_src(h * inv_sqrt, row)
+        agg = segment_sum_csr(msgs, rowptr)[:n]
+        x = agg * inv_sqrt + h * inv_sqrt**2 + layer['b']
+        if i < len(layers) - 1:
+            x = torch.relu(x)
+    return x
 
 
 def gcn_forward_spmm(params: Dict, x: torch.Tensor, graph) -> torch.Tensor:
@@ -39,11 +94,7 @@ def gcn_params_from_jax(tree: Dict, device=None) -> Dict:
     """Turn the JAX package's GCN tree (``init_gcn``; arrays as numpy or
     anything ``np.asarray`` takes) into the port's parameters: f32
     tensors on ``device`` (default: the CUDA card)."""
-    device = _resolve_device(device)
-    return {'layers': [{
-        k: torch.tensor(np.asarray(layer[k], dtype=np.float32), device=device)
-        for k in ('w', 'b')
-    } for layer in tree['layers']]}
+    return _params_from_jax(tree, ('w', 'b'), device)
 
 
 class GCN(nn.Module):
@@ -60,9 +111,8 @@ class GCN(nn.Module):
         self.w = nn.ParameterList()
         self.b = nn.ParameterList()
         for fan_in, fan_out in zip(dims[:-1], dims[1:]):
-            limit = (6.0 / (fan_in + fan_out))**0.5
-            w = torch.rand((fan_in, fan_out), generator=generator)
-            self.w.append(nn.Parameter(((2 * w - 1) * limit).to(device)))
+            self.w.append(nn.Parameter(_glorot(fan_in, fan_out, generator,
+                                               device)))
             self.b.append(nn.Parameter(torch.zeros(fan_out, device=device)))
 
     def params(self) -> Dict:
@@ -71,3 +121,87 @@ class GCN(nn.Module):
 
     def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
         return gcn_forward_spmm(self.params(), x, graph)
+
+
+# -- GraphSAGE ----------------------------------------------------------------
+
+
+def sage_forward(params: Dict, x: torch.Tensor, rowptr: torch.Tensor,
+                 row: torch.Tensor, aggr: str = 'mean') -> torch.Tensor:
+    """GraphSAGE with the mean or max aggregator over a CSR batch:
+    ``segment_mean_csr`` (K3) or ``segment_max_csr`` (K4 over a cached
+    plan at 65,536 edges and more)."""
+    n = x.shape[0]
+    layers = params['layers']
+    for i, layer in enumerate(layers):
+        msgs = _gather_src(x, row)
+        if aggr == 'mean':
+            agg = segment_mean_csr(msgs, rowptr)[:n]
+        elif aggr == 'max':
+            agg = segment_max_csr(msgs, rowptr)[0][:n]
+        else:
+            raise ValueError(f'Unknown aggr: {aggr!r}')
+        x = x @ layer['w_self'] + agg @ layer['w_nbr'] + layer['b']
+        if i < len(layers) - 1:
+            x = torch.relu(x)
+    return x
+
+
+def sage_maxpool_forward_spmm(params: Dict, x: torch.Tensor,
+                              graph) -> torch.Tensor:
+    """Full-graph GraphSAGE with max-pooling aggregation over a planned
+    graph: neighbour features go through the pooling layer
+    ``relu(x @ w_nbr)``, are max-reduced per destination row over
+    ``graph.fwd`` (a chunked plan), and are added to the self term. K4
+    reads the pooled rows through the plan's ``col_padded``, so the padded
+    message slab the JAX package gathers first is never written; the
+    values and the gradient (winner-only, then the gather's transpose) are
+    the same."""
+    plan = graph.fwd
+    layers = params['layers']
+    for i, layer in enumerate(layers):
+        h_pool = torch.relu(x @ layer['w_nbr'])
+        agg = _gathered_max_padded(h_pool, plan)
+        x = x @ layer['w_self'] + agg + layer['b']
+        if i < len(layers) - 1:
+            x = torch.relu(x)
+    return x
+
+
+def sage_params_from_jax(tree: Dict, device=None) -> Dict:
+    """Turn the JAX package's GraphSAGE tree (``init_sage``) into the
+    port's parameters: f32 tensors on ``device`` (default: the CUDA
+    card)."""
+    return _params_from_jax(tree, ('w_self', 'w_nbr', 'b'), device)
+
+
+class SAGE(nn.Module):
+    """GraphSAGE, ``dims = [in, hidden..., out]``; its forward is the
+    full-graph max-pool model (:func:`sage_maxpool_forward_spmm`), and
+    :meth:`params` also feeds :func:`sage_forward`.
+
+    Weights are Glorot-uniform from ``generator`` (``w_self``, then
+    ``w_nbr``, layer by layer) and biases zero, as in ``init_sage``.
+    """
+
+    def __init__(self, dims: List[int],
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = _resolve_device(device)
+        self.w_self = nn.ParameterList()
+        self.w_nbr = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for fan_in, fan_out in zip(dims[:-1], dims[1:]):
+            for ws in (self.w_self, self.w_nbr):
+                ws.append(nn.Parameter(_glorot(fan_in, fan_out, generator,
+                                               device)))
+            self.b.append(nn.Parameter(torch.zeros(fan_out, device=device)))
+
+    def params(self) -> Dict:
+        """The parameters as the functional forwards' tree."""
+        return {'layers': [{'w_self': ws, 'w_nbr': wn, 'b': b}
+                           for ws, wn, b in zip(self.w_self, self.w_nbr,
+                                                self.b)]}
+
+    def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
+        return sage_maxpool_forward_spmm(self.params(), x, graph)

@@ -43,6 +43,14 @@ class SpmmPlan(NamedTuple):
     num_rows: int
     num_edges: int
     chunk: int
+    # Optional (with_edge_maps=True): move per-edge values between the
+    # original and the padded coordinates.
+    edge_perm: Optional[torch.Tensor] = None  # [E_pad] int32 orig edge
+    #                                           per slot (pads -> 0)
+    edge_pos: Optional[torch.Tensor] = None  # [E] int32 slot per orig edge
+    row_padded: Optional[torch.Tensor] = None  # [E_pad] int32 dst row per
+    #                                            slot (pads -> 0)
+    valid_mask: Optional[torch.Tensor] = None  # [E_pad] bool, real slots
 
     @property
     def num_chunks(self) -> int:
@@ -135,11 +143,10 @@ def build_spmm_plan(rowptr, col, chunk=512, with_edge_maps: bool = False,
     rows, with its tensors on ``device`` (default: the CUDA card).
 
     ``chunk='auto'`` sizes the chunk with :func:`auto_chunk`.
+    ``with_edge_maps`` also stores the maps between original and padded
+    edge coordinates (``edge_perm``, ``edge_pos``, ``row_padded``,
+    ``valid_mask``), which the planned ``segment_{max,min}_csr`` reads.
     """
-    if with_edge_maps:
-        raise NotImplementedError(
-            'with_edge_maps=True is not ported yet (ROADMAP Queue 1 item 6, '
-            'padded-space primitives)')
     if pad_to_chunks is not None:
         raise NotImplementedError(
             'pad_to_chunks is not ported yet (ROADMAP Queue 1 items 9-10, '
@@ -160,6 +167,21 @@ def build_spmm_plan(rowptr, col, chunk=512, with_edge_maps: bool = False,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    maps = {}
+    if with_edge_maps:
+        num_rows = rowptr.shape[0] - 1
+        pos = np.zeros(int(col.shape[0]), np.int32)
+        pos[orig[valid]] = np.nonzero(valid)[0].astype(np.int32)
+        row_of_edge = np.repeat(np.arange(num_rows, dtype=np.int32),
+                                np.diff(rowptr).astype(np.int64))
+        if len(row_of_edge):
+            rp = np.where(valid, row_of_edge[np.minimum(
+                orig, len(row_of_edge) - 1)], 0).astype(np.int32)
+        else:
+            rp = np.zeros(orig.shape[0], np.int32)
+        maps = dict(edge_perm=dev(np.where(valid, orig, 0).astype(np.int32)),
+                    edge_pos=dev(pos), row_padded=dev(rp),
+                    valid_mask=dev(valid))
     return SpmmPlan(
         col_padded=dev(col_padded),
         chunk_tile=dev(chunk_tile),
@@ -168,6 +190,7 @@ def build_spmm_plan(rowptr, col, chunk=512, with_edge_maps: bool = False,
         num_rows=int(rowptr.shape[0] - 1),
         num_edges=int(col.shape[0]),
         chunk=int(chunk),
+        **maps,
     )
 
 

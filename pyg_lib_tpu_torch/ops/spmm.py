@@ -1,10 +1,12 @@
 """Planned SpMM — the fused full-graph message-passing aggregation.
 
 Port of ``pyg_lib_tpu/ops/spmm.py`` (sum/add/mean over the chunked and
-the deduplicated plans). :func:`build_spmm_graph` builds the forward plan
-and the plan of the transposed graph on the host once per graph;
-:func:`spmm` runs them, and its gradient is the same kernel over the
-transpose plan: d/dx (A @ x) = Aᵀ @ g.
+the deduplicated plans, max/min over the chunked and the dedup min/max
+plans, and the padded-space max/min). :func:`build_spmm_graph` builds the
+forward plan and the plan of the transposed graph on the host once per
+graph; :func:`spmm` runs them. The sum's gradient is the same kernel over
+the transpose plan, d/dx (A @ x) = Aᵀ @ g; the max/min gradient goes to
+each row's winning source row only.
 """
 
 from typing import NamedTuple, Optional, Union
@@ -12,7 +14,9 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (SpmmPlan,
+from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (POS_NONE,
+                                                          segment_max_kernel)
+from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (TR, SpmmPlan,
                                                         auto_chunk,
                                                         build_spmm_plan,
                                                         spmm_plan_apply)
@@ -20,18 +24,28 @@ from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (DedupSpmmPlan,
                                                       build_dedup_plan,
                                                       dedup_plan_apply,
                                                       estimate_dedup)
+from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import (
+    DedupMinmaxPlan, build_dedup_minmax_plan, dedup_minmax, dedup_pairs,
+    estimate_minmax_config)
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['SpmmGraph', 'build_spmm_graph', 'spmm']
+__all__ = ['SpmmGraph', 'build_spmm_graph', 'segment_max_padded',
+           'segment_min_padded', 'spmm']
 
 Plan = Union[SpmmPlan, DedupSpmmPlan]
 
 
 class SpmmGraph(NamedTuple):
-    """Forward and transpose plans for one CSR graph, plus row degrees."""
+    """Forward and transpose plans for one CSR graph, plus row degrees.
+
+    ``mm`` (``build_spmm_graph(minmax=...)``) is a schedule of its own
+    for ``reduce='max'/'min'`` over the pair-deduped edges: a
+    ``DedupMinmaxPlan``, or a plain ``SpmmPlan`` where tile-scope reuse
+    would not pay and ``fwd`` cannot serve."""
     fwd: Plan
     bwd: Plan  # plan over the transposed graph (for grad_x)
     deg: torch.Tensor  # [num_rows] f32 row degrees (for reduce='mean')
+    mm: Optional[Union[SpmmPlan, DedupMinmaxPlan]] = None
 
 
 def _transpose_csr(rowptr, col, num_cols, return_order: bool = False):
@@ -64,20 +78,28 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
 
     ``num_cols`` is the source-node count of a rectangular adjacency
     (default: the row count). ``chunk='auto'`` sizes the chunk from the
-    degree distribution. ``dedup`` in {'off', 'auto', 'on'} selects the
-    deduplicated-gather plan: ``'auto'`` takes it per side where
+    degree distribution. ``with_edge_maps`` gives the chunked plans the
+    maps between original and padded edge coordinates.
+
+    ``dedup`` in {'off', 'auto', 'on'} selects the deduplicated-gather
+    plan for sum/mean: ``'auto'`` takes it per side where
     :func:`estimate_dedup` predicts a gain of at least 1.3, the JAX
     package's threshold, kept for parity. ``edge_weight`` (``[E]`` f32,
-    dedup only) bakes weights into both sides. ``range_split``,
-    ``range_fused``, ``with_edge_maps``, ``minmax`` and ``reorder`` are
-    not ported yet and raise ``NotImplementedError``.
+    dedup only) bakes weights into both sides; max/min ignore it.
+
+    ``minmax`` in {'off', 'auto', 'on'} also builds a ``reduce='max'/
+    'min'`` schedule over the pair-deduped edges: ``'on'`` the dedup
+    min/max plan (kernel K5), ``'auto'`` that plan where the gain is at
+    least 1.3 and otherwise nothing (``fwd`` serves) or, on a dedup
+    graph, a chunked plan. ``(ec, uc)`` come from
+    :func:`estimate_minmax_config`. Without it, max/min need a chunked
+    ``fwd``.
+
+    ``range_split``, ``range_fused`` and ``reorder`` are not ported yet
+    and raise ``NotImplementedError``.
     """
     if range_split > 1 or range_fused:
         raise _not_ported('range_split / range_fused', '9')
-    if with_edge_maps:
-        raise _not_ported('with_edge_maps', '6')
-    if minmax not in ('off', False):
-        raise _not_ported("minmax != 'off'", '5')
     if reorder not in ('off', False):
         raise _not_ported("reorder != 'off'", '12 (partition/)')
     if dedup not in ('off', 'auto', 'on', False, True):
@@ -85,6 +107,11 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
                          f'{dedup!r}')
     dedup = {'off': 'off', False: 'off', 'on': 'on', True: 'on',
              'auto': 'auto'}[dedup]
+    if minmax not in ('off', 'auto', 'on', False, True):
+        raise ValueError(f"minmax must be 'off', 'auto' or 'on', got "
+                         f'{minmax!r}')
+    minmax = {'off': 'off', False: 'off', 'on': 'on', True: 'on',
+              'auto': 'auto'}[minmax]
     device = _resolve_device(device)
     rowptr = np.asarray(rowptr, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
@@ -92,9 +119,22 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
     if num_cols is None:
         num_cols = num_rows
     deg = torch.from_numpy(np.diff(rowptr).astype(np.float32)).to(device)
+    mm = None
+    if minmax != 'off':
+        rp_d, cl_d = dedup_pairs(rowptr, col)
+        ec_mm, uc_mm = estimate_minmax_config(rp_d, cl_d)
+        if minmax == 'on' or estimate_dedup(rp_d, cl_d, ec=ec_mm)[1] >= 1.3:
+            mm = build_dedup_minmax_plan(rp_d, cl_d, ec=ec_mm, uc=uc_mm,
+                                         _pre_deduped=True, device=device)
+            mm = mm._replace(num_edges=int(col.shape[0]))
+        elif dedup != 'off':
+            mm = build_spmm_plan(rp_d, cl_d, chunk=512, device=device)
     if edge_weight is not None and dedup == 'off':
         raise ValueError('edge_weight requires dedup="on"/"auto"')
     if dedup != 'off':
+        if with_edge_maps:
+            raise ValueError('dedup is incompatible with with_edge_maps '
+                             'and range_split')
         ec = auto_chunk(rowptr) if chunk == 'auto' else int(chunk)
         if edge_weight is not None:
             edge_weight = np.asarray(edge_weight, dtype=np.float32)
@@ -111,13 +151,15 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
                                     device=device)
 
         return SpmmGraph(fwd=side(rowptr, col, edge_weight),
-                         bwd=side(t_ptr, t_col, t_weight), deg=deg)
+                         bwd=side(t_ptr, t_col, t_weight), deg=deg, mm=mm)
     if chunk == 'auto':
         chunk = auto_chunk(rowptr)
-    fwd = build_spmm_plan(rowptr, col, chunk=chunk, device=device)
+    fwd = build_spmm_plan(rowptr, col, chunk=chunk,
+                          with_edge_maps=with_edge_maps, device=device)
     t_ptr, t_col = _transpose_csr(rowptr, col, num_cols)
-    bwd = build_spmm_plan(t_ptr, t_col, chunk=chunk, device=device)
-    return SpmmGraph(fwd=fwd, bwd=bwd, deg=deg)
+    bwd = build_spmm_plan(t_ptr, t_col, chunk=chunk,
+                          with_edge_maps=with_edge_maps, device=device)
+    return SpmmGraph(fwd=fwd, bwd=bwd, deg=deg, mm=mm)
 
 
 def _plan_apply_any(x: torch.Tensor, plan: Plan,
@@ -147,20 +189,22 @@ def spmm(x: torch.Tensor, graph: SpmmGraph, reduce: str = 'sum',
          precision: Optional[str] = None) -> torch.Tensor:
     """``out[r] = reduce_{e in row r} x[col[e]]`` with a prebuilt plan.
 
-    ``reduce`` in {'sum', 'add', 'mean'} ('max'/'min' are not ported
-    yet). ``precision=None`` keeps float32 rows; ``'bf16'`` reads rows in
-    bfloat16 with float32 accumulation; ``'int8'`` quantises ``x`` (and
-    the cotangent in the backward) per feature column. ``x`` must be on
-    the graph's device.
+    ``reduce`` in {'sum', 'add', 'mean', 'max', 'min'}. ``precision=None``
+    keeps float32 rows; ``'bf16'`` reads rows in bfloat16 with float32
+    accumulation; ``'int8'`` quantises ``x`` (and the cotangent in the
+    backward) per feature column. max/min ignore ``precision``: they are
+    exact (the values of the first winning edge on a chunked plan, of the
+    least winning column on a dedup min/max plan; 0 for an empty row), and
+    their gradient goes to the winning source row only. They run over
+    ``graph.mm``, else ``graph.fwd``, which must then be a chunked plan.
+    ``x`` must be on the graph's device.
     """
     if precision not in (None, 'highest', 'bf16', 'int8'):
         raise ValueError(f"spmm precision must be None, 'highest', 'bf16' "
                          f"or 'int8', got {precision!r}")
     if precision == 'highest':
         precision = None
-    if reduce in ('max', 'min'):
-        raise _not_ported("spmm reduce='max'/'min'", '5')
-    if reduce not in ('sum', 'add', 'mean'):
+    if reduce not in ('sum', 'add', 'mean', 'max', 'min'):
         raise ValueError(f"spmm reduce must be 'sum', 'add', 'mean', 'max' "
                          f"or 'min', got {reduce!r}")
     if x.device != graph.deg.device:
@@ -171,7 +215,87 @@ def spmm(x: torch.Tensor, graph: SpmmGraph, reduce: str = 'sum',
     if x.dim() != 2 or x.shape[0] != graph.bwd.num_rows:
         raise ValueError(f'x must be [{graph.bwd.num_rows}, F] for this '
                          f'graph, got {tuple(x.shape)}')
+    if reduce in ('max', 'min'):
+        plan = graph.mm if graph.mm is not None else graph.fwd
+        if not isinstance(plan, (SpmmPlan, DedupMinmaxPlan)):
+            raise ValueError(
+                "spmm reduce='max'/'min' needs a single-plan graph or one "
+                "built with minmax='auto'/'on' (dedup plans carry no "
+                'min/max schedule of their own)')
+        empty = (graph.deg < 0.5)[:, None]
+        idx = plan.col_padded if isinstance(plan, SpmmPlan) else None
+        return _ExactMax.apply(x, plan, idx, reduce == 'min',
+                               empty).to(x.dtype)
     out = _SpmmSum.apply(x, graph, precision)
     if reduce == 'mean':
         out = out / graph.deg.clamp(min=1.0).to(out.dtype)[:, None]
     return out
+
+
+class _ExactMax(torch.autograd.Function):
+    """Exact per-row max (min: of the negated messages, negated back) over
+    a chunked plan (K4; messages ``src[idx[p]]``, or ``src[p]`` when
+    ``idx`` is ``None``) or a dedup min/max plan (K5). Rows in ``empty``
+    give 0. The gradient is winner-only: each row's cotangent goes to the
+    one source row that won, mapped from its position only here."""
+
+    @staticmethod
+    def forward(ctx, src, plan, idx, is_min, empty):
+        src32 = src.float().contiguous()
+        if isinstance(plan, DedupMinmaxPlan):
+            vals, pos = dedup_minmax(src32, plan, negate=is_min)
+            idx = plan.uniq_cols
+        else:
+            vals, pos = segment_max_kernel(src32, plan, idx, negate=is_min)
+        if is_min:
+            vals = -vals
+        vals = torch.where(empty, torch.zeros_like(vals), vals)
+        pos = torch.where(empty | (pos >= POS_NONE), torch.full_like(pos, -1),
+                          pos)
+        ctx.save_for_backward(pos)
+        ctx.idx, ctx.n, ctx.dtype = idx, src.shape[0], src.dtype
+        return vals
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos, ) = ctx.saved_tensors
+        hit = pos >= 0
+        slot = torch.where(hit, pos, torch.zeros_like(pos)).long()
+        tgt = slot if ctx.idx is None else ctx.idx[slot].long()
+        tgt = torch.where(hit, tgt, torch.full_like(tgt, ctx.n))
+        grad = torch.zeros((ctx.n + 1, g.shape[1]), dtype=g.dtype,
+                           device=g.device)
+        grad.scatter_add_(0, tgt, g)  # row n takes the rows with no winner
+        return grad[:ctx.n].to(ctx.dtype), None, None, None, None
+
+
+def _rows_nonempty(plan: SpmmPlan) -> torch.Tensor:
+    """Rows with at least one slot, read off ``tile_ptr``."""
+    bounds = plan.tile_ptr[:, 0, :]
+    lo = bounds[:, :TR].reshape(-1)[:plan.num_rows]
+    hi = bounds[:, 1:TR + 1].reshape(-1)[:plan.num_rows]
+    return hi > lo
+
+
+def segment_max_padded(x_padded: torch.Tensor,
+                       plan: SpmmPlan) -> torch.Tensor:
+    """Exact per-row max of padded messages ``[E_pad, F]`` (K4), as f32;
+    an empty row gives 0, and the gradient goes to the winning slot
+    only."""
+    return _ExactMax.apply(x_padded, plan, None, False,
+                           ~_rows_nonempty(plan)[:, None])
+
+
+def segment_min_padded(x_padded: torch.Tensor,
+                       plan: SpmmPlan) -> torch.Tensor:
+    """Per-row min in padded coordinates (negated max)."""
+    return -segment_max_padded(-x_padded, plan)
+
+
+def _gathered_max_padded(src: torch.Tensor,
+                         plan: SpmmPlan) -> torch.Tensor:
+    """``segment_max_padded(src[plan.col_padded], plan)`` with the gather
+    fused into K4, so the ``[E_pad, F]`` message slab is never written;
+    values and gradient are the same."""
+    return _ExactMax.apply(src, plan, plan.col_padded, False,
+                           ~_rows_nonempty(plan)[:, None])

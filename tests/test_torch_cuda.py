@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1, K2 and K2h against their plain versions, on
-the card.
+"""The port's CUDA kernels K1, K2, K2h, K3, K4 and K5 against their plain
+versions, on the card.
 
 Every test here needs an NVIDIA card with ``nvcc`` (marker ``cuda``) and
 skips without one. The file imports nothing of JAX, so it also runs where
@@ -11,6 +11,9 @@ Tolerance: a kernel and its plain version add the same f32 terms in
 another order (K2 with shared-memory atomics, in an order that changes
 from run to run), so ``|kernel - plain| <= 1e-5 * Σ|terms| + 1e-5``
 elementwise, with ``Σ|terms|`` the plain version's sum of absolute values.
+K3 in bf16 rounds that sum to bf16 once, so one bf16 step of the result,
+``2**-8 * |plain|``, is added there. K4 and K5 are exact: values and
+positions equal bit for bit (``-0.0`` and ``+0.0`` told apart).
 """
 
 import functools
@@ -195,3 +198,181 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     graph = ops.build_spmm_graph(rowptr, col, device='cpu')
     with pytest.raises(ValueError, match='is on'):
         ops.spmm(x, graph)
+
+
+# -- K3, K4, K5 ---------------------------------------------------------------
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_same(got, ref):
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert torch.equal(_bits(g).cpu(), _bits(r).cpu())
+
+
+def _tie_values(n, f, seed, device):
+    """Values with many ties, both zeros and -inf (some rows all -inf)."""
+    rng = np.random.default_rng(seed)
+    v = rng.choice(np.float32([-2.0, -0.0, 0.0, 1.0, -np.inf]), size=(n, f))
+    v[::7] = -np.inf
+    return torch.tensor(v, device=device)
+
+
+def _values(kind, n, f, seed, device):
+    if kind == 'ties':
+        return _tie_values(n, f, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n, f), generator=gen, device=device)
+
+
+@pytest.mark.parametrize('graph', list(GRAPHS))
+@pytest.mark.parametrize('f', [1, 47, 300])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('bounds', ['full', 'gap_and_pad'])
+def test_k3_matches_plain(dev, graph, f, dtype, bounds):
+    rowptr, _ = GRAPHS[graph]()
+    e = int(rowptr[-1])
+    if bounds == 'gap_and_pad':  # 5 leading positions and 9 trailing ones
+        rowptr, e = rowptr + 5, e + 14
+    ptr = torch.tensor(rowptr, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    src = torch.randn((e, f), generator=gen, device=dev).to(dtype)
+    got = ops.segment_sum_csr_kernel(src, ptr)
+    torch.cuda.synchronize()
+    ref = ops.segment_sum_csr_plain(src, ptr)
+    mag = ops.segment_sum_csr_plain(src.abs().float(), ptr)
+    assert got.shape == ref.shape == (rowptr.shape[0] - 1, f)
+    assert got.dtype == dtype
+    tol = RTOL * mag + ATOL
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0**-8 * ref.float().abs()
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+def _k4_case(mode, graph, dev):
+    rowptr, col = GRAPHS[graph]()
+    plan = ops.build_spmm_plan(rowptr, col, chunk=128, with_edge_maps=True,
+                               device=dev)
+    n = plan.num_rows
+    if mode == 'padded':
+        return plan, plan.col_padded.shape[0], None
+    if mode == 'col_padded':
+        return plan, n, plan.col_padded
+    return plan, max(col.shape[0], 1), plan.edge_perm
+
+
+@pytest.mark.parametrize('mode', ['padded', 'col_padded', 'edge_perm'])
+@pytest.mark.parametrize('graph', list(GRAPHS))
+@pytest.mark.parametrize('f', [1, 47, 300])
+@pytest.mark.parametrize('values', ['normal', 'ties'])
+@pytest.mark.parametrize('negate', [False, True])
+def test_k4_matches_plain(dev, mode, graph, f, values, negate):
+    plan, rows, idx = _k4_case(mode, graph, dev)
+    src = _values(values, rows, f, f, dev)
+    got = ops.segment_max_kernel(src, plan, idx, negate)
+    torch.cuda.synchronize()
+    _assert_same(got, ops.segment_max_plain(src, plan, idx, negate))
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_plan(kind, device):
+    if kind == 'empty':
+        rowptr, col = GRAPHS['empty']()
+    else:
+        rowptr, col = GRAPHS['powerlaw']()
+    if kind == 'hub_tiles':
+        # The transpose of a power-law graph: its hub rows give tiles of
+        # many chunks, shared by several blocks.
+        rowptr, col = _csr(col, np.repeat(np.arange(3000),
+                                          np.diff(rowptr)), 3000)
+    ec, uc = {'hub_tiles': (128, 64), 'plain': (256, 96),
+              'empty': (128, 64)}[kind]
+    plan = ops.build_dedup_minmax_plan(rowptr, col, ec=ec, uc=uc,
+                                       device=device)
+    if kind == 'hub_tiles':
+        tiles = plan.chunk_tile.cpu().numpy()
+        assert np.bincount(tiles).max() > 8  # several blocks share a tile
+    return plan
+
+
+@pytest.mark.parametrize('kind', ['plain', 'hub_tiles', 'empty'])
+@pytest.mark.parametrize('f', [1, 47, 300])
+@pytest.mark.parametrize('values', ['normal', 'ties'])
+@pytest.mark.parametrize('negate', [False, True])
+def test_k5_matches_plain(dev, kind, f, values, negate):
+    plan = _k5_plan(kind, dev)
+    x = _values(values, 3000 if kind != 'empty' else 200, f, f, dev)
+    got = ops.dedup_minmax(x, plan, negate)
+    torch.cuda.synchronize()
+    _assert_same(got, ops.dedup_minmax_plain(x, plan, negate))
+
+
+@pytest.mark.parametrize('minmax', ['off', 'on'])
+@pytest.mark.parametrize('reduce', ['max', 'min'])
+def test_spmm_minmax_and_grad_match_cpu(dev, minmax, reduce):
+    rowptr, col = GRAPHS['powerlaw']()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3000, 40)).astype(np.float32)
+    cot = rng.normal(size=(3000, 40)).astype(np.float32)
+    outs = []
+    for device in ('cpu', dev):
+        graph = ops.build_spmm_graph(rowptr, col, minmax=minmax,
+                                     device=device)
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        out = ops.spmm(xt, graph, reduce)
+        grads = [torch.autograd.grad(
+            (out * torch.tensor(c, device=device)).sum(), xt,
+            retain_graph=True)[0].cpu() for c in (cot, np.abs(cot))]
+        outs.append((out.detach().cpu(), *grads))
+    # Exact values; each gradient entry sums the same winners' cotangents
+    # in another order, so Σ|terms| is the winners' sum of |cotangent|.
+    assert torch.equal(_bits(outs[0][0]), _bits(outs[1][0]))
+    mag = outs[0][2]
+    assert bool(((outs[1][1] - outs[0][1]).abs() <= RTOL * mag + ATOL).all())
+
+
+def test_new_kernel_launches_are_counted(dev):
+    rowptr, col = GRAPHS['powerlaw']()
+    x = torch.randn((3000, 16), device=dev)
+    # 10,000 rows of 7: past the planned min/max path's 65,536 edges.
+    ptr = torch.arange(0, 70001, 7, device=dev)
+    src = torch.randn((70000, 16), device=dev)
+
+    def count():
+        return (ops.segment_sum_csr_kernel.launches,
+                ops.segment_max_kernel.launches, ops.dedup_minmax.launches)
+
+    cases = [
+        (lambda: ops.spmm(x, ops.build_spmm_graph(rowptr, col, device=dev),
+                          'max'), (0, 1, 0)),
+        (lambda: ops.spmm(x, ops.build_spmm_graph(rowptr, col, minmax='on',
+                                                  device=dev), 'min'),
+         (0, 0, 1)),
+        (lambda: ops.segment_mean_csr(src, ptr), (1, 0, 0)),
+        (lambda: ops.segment_max_csr(src, ptr), (0, 1, 0)),
+        (lambda: ops.segment_max_csr(src[:60000], ptr[:8572]), (0, 0, 0)),
+    ]
+    for run, want in cases:
+        before = count()
+        run()
+        assert tuple(a - b for a, b in zip(count(), before)) == want
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    plan, _, _ = _k4_case('col_padded', 'ragged', dev)
+    mplan = _k5_plan('plain', dev)
+    x = torch.randn((1000, 8), device=dev)
+    with pytest.raises(ValueError, match='f32/bf16'):
+        ops.segment_sum_csr_kernel(x.double(), torch.zeros(3, device=dev,
+                                                           dtype=torch.long))
+    with pytest.raises(ValueError, match='float32'):
+        ops.segment_max_kernel(x.to(torch.bfloat16), plan, plan.col_padded)
+    with pytest.raises(ValueError, match='idx'):
+        ops.segment_max_kernel(x, plan, plan.col_padded.long())
+    with pytest.raises(ValueError, match='padded src'):
+        ops.segment_max_kernel(x[:10], plan)
+    with pytest.raises(ValueError, match='contiguous'):
+        ops.dedup_minmax(torch.randn((8, 3000), device=dev).t(), mplan)

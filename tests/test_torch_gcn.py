@@ -22,7 +22,10 @@ import pyg_lib_tpu_torch
 from pyg_lib_tpu import ops as jops
 from pyg_lib_tpu.models import gnn as jgnn
 from pyg_lib_tpu_torch import ops
-from pyg_lib_tpu_torch.models import GCN, gcn_forward_spmm, gcn_params_from_jax
+from pyg_lib_tpu_torch.models import (GCN, SAGE, gcn_forward_spmm,
+                                      gcn_params_from_jax,
+                                      sage_params_from_jax)
+from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
 from test_torch_spmm import (ATOL, RTOL, features, powerlaw_graph,
                              uniform_graph)
 
@@ -128,7 +131,12 @@ def test_gcn_module_trains_on_cpu():
 
 def test_package_imports_neither_jax_nor_reference():
     code = ('import sys, pyg_lib_tpu_torch, pyg_lib_tpu_torch.ops, '
-            'pyg_lib_tpu_torch.models, pyg_lib_tpu_torch.testing; '
+            'pyg_lib_tpu_torch.models, pyg_lib_tpu_torch.testing, '
+            'pyg_lib_tpu_torch.ops.segment_csr, '
+            'pyg_lib_tpu_torch.ops.kernels.plan_cache, '
+            'pyg_lib_tpu_torch.ops.kernels.segment_csr, '
+            'pyg_lib_tpu_torch.ops.kernels.segment_minmax, '
+            'pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyg_lib_tpu')); "
             'assert not bad, bad')
@@ -150,7 +158,9 @@ def _imported_roots(path):
 def test_sources_import_neither_jax_nor_reference():
     files = sorted((REPO / 'pyg_lib_tpu_torch').rglob('*.py'))
     files.append(REPO / 'chip_smoke.py')
-    assert len(files) > 10
+    names = {p.name for p in files}
+    assert {'segment_csr.py', 'segment_minmax.py', 'spmm_dedup_minmax.py',
+            'plan_cache.py', 'gnn.py'} <= names and len(files) > 14
     for path in files:
         bad = _imported_roots(path) & {'jax', 'jaxlib', 'pyg_lib_tpu'}
         assert not bad, f'{path.relative_to(REPO)} imports {bad}'
@@ -162,8 +172,12 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     for build in (lambda: ops.build_spmm_graph(rowptr, col),
                   lambda: ops.build_spmm_plan(rowptr, col),
                   lambda: ops.build_dedup_plan(rowptr, col),
-                  lambda: GCN(DIMS),
-                  lambda: gcn_params_from_jax(_jax_params(2))):
+                  lambda: ops.build_dedup_minmax_plan(rowptr, col),
+                  lambda: ops.build_spmm_graph(rowptr, col, minmax='on'),
+                  lambda: plan_for_ptr(rowptr),
+                  lambda: GCN(DIMS), lambda: SAGE(DIMS),
+                  lambda: gcn_params_from_jax(_jax_params(2)),
+                  lambda: sage_params_from_jax(_jax_params(2))):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             build()
     assert pyg_lib_tpu_torch.cuda_version() == ''
@@ -177,13 +191,14 @@ def test_spmm_refuses_mixed_devices_and_unported_options():
     for bad in (torch.zeros((49, 4)), torch.zeros(50)):
         with pytest.raises(ValueError, match=r'x must be \[50, F\]'):
             ops.spmm(bad, graph)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ops.spmm(torch.zeros((50, 4)), graph, reduce='max')
+    with pytest.raises(ValueError, match='reduce must be'):
+        ops.spmm(torch.zeros((50, 4)), graph, reduce='prod')
     for kw in (dict(range_split=2), dict(range_fused=True),
-               dict(minmax='on'), dict(reorder='rcm'),
-               dict(with_edge_maps=True)):
+               dict(reorder='rcm')):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ops.build_spmm_graph(rowptr, col, device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        ops.build_spmm_plan(rowptr, col, pad_to_chunks=4, device='cpu')
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
