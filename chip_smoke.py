@@ -15,7 +15,14 @@ The port's paths, each at the full width of its model on the two graphs of
   uniform graph (K4);
 * the CSR segment family: ``sage_forward`` [512, 512, 47] with
   ``aggr='mean'`` (K3) and ``aggr='max'`` (the planned K4) runs forward
-  and backward on the uniform graph's CSR.
+  and backward on the uniform graph's CSR;
+* attention: a GAT [512, 512, 48] with 4 heads trains over chunked plans
+  with edge maps on both graphs (K6 for the softmax, K1's ``msgs_padded``
+  entry for the aggregation and the softmax backward's row sums);
+* range-split plans: a GCN [512, 512, 47] trains over the uniform graph
+  built ``range_split=4, range_fused=True, chunk='auto'`` (K7 forward and
+  backward), and ``spmm`` runs forward and backward on a weighted fused
+  graph (K7 with weights) and on a ``range_split=4`` graph (K1 per range).
 
 The script:
 
@@ -23,9 +30,10 @@ The script:
    ``pyg_lib_tpu_torch/csrc`` with ``nvcc`` (one process per source);
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (empty rows, partial tiles, -inf rows, ties and both
-   zeros; f32, bf16 and int8 where the kernel takes them);
+   zeros, rows far above and below the rest, empty ranges and empty
+   tiles; f32, bf16 and int8 where the kernel takes them);
 3. builds the graphs and holds each kernel against its plain version at
-   the main paths' shapes (F=512 and F=47);
+   the main paths' shapes (F=512 and F=47; F=4, the head count, for K6);
 4. drives each path with every launch count set to 0 just before it and
    read just after: each kernel of the path must have launched in it;
 5. holds each path's result against the same computation through the
@@ -33,7 +41,8 @@ The script:
 6. times each kernel at F=512 beside its plain version, one PyTorch call
    that computes the same function (timed here only, never used by the
    port) and its bound, and times ``spmm`` by ``bench.py``'s useful-bytes
-   metric.
+   metric. Each training path also gets one profiled step (device time
+   by kernel, idle share; peak memory for GAT).
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -56,11 +65,20 @@ F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 # |kernel - plain| <= SUM_RTOL * Σ|terms| + SUM_ATOL, elementwise. A bf16
 # result adds one bf16 step, 2**-8 of its size. K4 and K5 are exact.
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-5
+# K6 and its plain version: exponentials a few f32 ulps apart, and each
+# row's sum of n terms in another order, at most n * 2**-24 of it apart in
+# each: |kernel - plain| <= (1e-5 + n * 2**-23) |plain| + 1e-7 (a bf16
+# result adds one bf16 step, 2**-7 |plain|), NaN where the plain has NaN.
+K6_RTOL, K6_ATOL = 1e-5, 1e-7
 # A model's output and weight gradients pass several such sums and
 # matmuls over 262,144 rows.
 GCN_RTOL = 1e-4  # of max|plain output| (or of max|plain gradient|)
 N_NODES, N_EDGES, F_BENCH = 262_144, 4_194_304, 512
 DIMS = [512, 512, 47]
+# GAT: ogbn-products' 47 classes rounded up to a multiple of the heads,
+# which every width must be (init_gat_spmm).
+GAT_DIMS, HEADS = [512, 512, 48], 4
+RANGES = 4  # range_split of the range paths (bench_range_split's "S=4f")
 HOT_COLUMNS = 4096  # hot level of the power-law forward plan
 STEPS = 3
 BLOCK = 128  # feature columns per plain-version call at the bench shape
@@ -70,7 +88,10 @@ COUNTERS = {'K1': ('spmm_chunked', 'launches'),
             'K2h': ('dedup_sum', 'hot_launches'),
             'K3': ('segment_sum_csr_kernel', 'launches'),
             'K4': ('segment_max_kernel', 'launches'),
-            'K5': ('dedup_minmax', 'launches')}
+            'K5': ('dedup_minmax', 'launches'),
+            'K6': ('segment_softmax_planned', 'launches'),
+            'K7': ('fused_range_sum', 'launches'),
+            'K1m': ('segment_sum_chunked', 'launches')}
 SOURCES = {
     'K1': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
     'K2': ('spmm_dedup.cu', 'pyg_lib_tpu/ops/pallas/spmm_dedup.py:527'),
@@ -81,6 +102,11 @@ SOURCES = {
            'pyg_lib_tpu/ops/pallas/segment_minmax_kernel.py:59'),
     'K5': ('spmm_dedup_minmax.cu',
            'pyg_lib_tpu/ops/pallas/spmm_dedup_minmax.py:292'),
+    'K6': ('segment_softmax.cu',
+           'pyg_lib_tpu/ops/pallas/segment_softmax_kernel.py:47'),
+    'K7': ('spmm_range_fused.cu',
+           'pyg_lib_tpu/ops/pallas/spmm_range_fused.py:221'),
+    'K1m': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
 }
 
 
@@ -156,9 +182,10 @@ def main():
         raise SystemExit('chip_smoke: no CUDA device is available')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pyg_lib_tpu_torch import _build, ops
-    from pyg_lib_tpu_torch.models import GCN, SAGE, sage_forward
+    from pyg_lib_tpu_torch.models import GAT, GCN, SAGE, sage_forward
     from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
     from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
+    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -188,15 +215,30 @@ def main():
     def plain(xm, plan, scale=None):
         if isinstance(plan, ops.DedupSpmmPlan):
             return ops.dedup_sum_plain(xm, plan, scale)
+        if isinstance(plan, ops.FusedRangePlan):
+            return ops.fused_range_plain(xm, plan, scale)
+        if isinstance(plan, ops.RangeSpmmPlan):
+            return sum(ops.spmm_chunked_plain(xm[lo:hi], p, scale)
+                       for (lo, hi), p in zip(plan.bounds, plan.plans))
         return ops.spmm_chunked_plain(xm, plan, scale)
 
     def kernel(xm, plan, scale=None):
         if isinstance(plan, ops.DedupSpmmPlan):
             return ops.dedup_sum(xm, plan, scale)
+        if isinstance(plan, ops.FusedRangePlan):
+            return ops.fused_range_sum(xm, plan, scale)
+        if isinstance(plan, ops.RangeSpmmPlan):
+            return sum(ops.spmm_chunked(xm[lo:hi], p, scale)
+                       for (lo, hi), p in zip(plan.bounds, plan.plans))
         return ops.spmm_chunked(xm, plan, scale)
 
     def abs_plan(plan):
         """The plan with |weights|: its plain sum of |x| is Σ|terms|."""
+        if isinstance(plan, ops.FusedRangePlan):
+            if plan.weights is None:
+                return plan
+            return plan._replace(weights=tuple(w.abs()
+                                               for w in plan.weights))
         if not isinstance(plan, ops.DedupSpmmPlan) or not plan.weighted:
             return plan
         meta = plan.edge_meta.clone()
@@ -263,6 +305,63 @@ def main():
         got = ops.dedup_minmax(x, plan, negate)
         ref = by_columns(ops.dedup_minmax_plain, x, plan, negate)
         return check_exact(label, 'K5', got, ref)
+
+    def check_msgs(label, msgs, plan):
+        """K1's msgs_padded entry against its plain version."""
+        got = ops.segment_sum_chunked(msgs, plan)
+        torch.cuda.synchronize()
+        ref = by_columns(ops.segment_sum_chunked_plain, msgs, plan)
+        mag = by_columns(ops.segment_sum_chunked_plain, msgs.abs(), plan)
+        return check_sum(label, 'K1m', got, ref, mag)
+
+    def check_k6(label, src, plan, idx=None):
+        """K6 against its plain version, within the bound of K6_RTOL."""
+        got = ops.segment_softmax_planned(src, plan, idx)
+        torch.cuda.synchronize()
+        ref = by_columns(ops.segment_softmax_plain, src, plan, idx).float()
+        slot, row = _padded_rows(plan.tile_ptr)
+        at = slot if idx is None else idx[slot].long()
+        n = torch.zeros(ref.shape[0], device=dev)
+        n[at] = torch.bincount(row, minlength=plan.num_rows)[row].float()
+        del slot, row, at
+        nan = torch.isnan(ref)
+        mag = ref.abs().masked_fill(nan, 0.0)
+        err = (got.float() - ref).abs().masked_fill(nan, 0.0)
+        rtol = K6_RTOL + n[:, None] * 2.0**-23
+        if src.dtype == torch.bfloat16:
+            rtol = rtol + 2.0**-7
+        e = float(err.max()) if err.numel() else 0.0
+        errs['K6'] = max(errs['K6'], e)
+        same_nan = torch.equal(torch.isnan(got.float()), nan)
+        print(f'  K6 {label}: max_abs_err {e:.3g} (tolerance ({K6_RTOL:g} + '
+              f'n * 2^-23{" + 2^-7" if src.dtype == torch.bfloat16 else ""})'
+              f' |plain| + {K6_ATOL:g}); NaN '
+              f'{"where" if same_nan else "NOT where"} the plain version has '
+              f'NaN', flush=True)
+        if (got.dtype != src.dtype or not same_nan
+                or bool((err > rtol * mag + K6_ATOL).any())):
+            raise AssertionError(f'K6 {label} disagrees with its plain '
+                                 f'version: max_abs_err {e}')
+        if idx is None and bool(got[~plan.valid_mask].float().abs().sum()):
+            raise AssertionError(f'K6 {label} wrote a pad slot')
+        return e
+
+    def k6_values(rows, f, plan, idx, dtype):
+        """Logits with rows far above (+200) and far below (-200) the rest,
+        -inf at some rows' first slot and a row of -inf in column 0."""
+        slot, row = _padded_rows(plan.tile_ptr)
+        at = slot if idx is None else idx[slot].long()
+        v = torch.randn((rows, f), generator=gen, device=dev) * 4
+        shift = torch.zeros(plan.num_rows, device=dev)
+        shift[0::13] = 200.0
+        shift[5::17] = -200.0
+        v[at] += shift[row][:, None]
+        bounds = plan.tile_ptr[:, 0, :128].reshape(-1)[:plan.num_rows].long()
+        first = bounds[3::11]
+        hit = torch.isin(slot, first)
+        v[at[hit], 0] = float('-inf')
+        v[at[row == 23], 0] = float('-inf')
+        return v.to(dtype)
 
     def modes(x):
         xq, scale = ops.quantize_columns(x)
@@ -344,6 +443,65 @@ def main():
                     check_k5(f'{pname} F={f} {values} negate={negate}', x,
                              plan, negate)
 
+    # K6 over a ragged plan (empty rows, a partial tile), a uniform plan
+    # and the transposed power-law graph (hub rows of many chunks), in the
+    # padded mode and through edge_perm; K1's msgs_padded entry over the
+    # same plans.
+    k6_plans = [('ragged', k4_plan),
+                ('uniform', ops.build_spmm_plan(rp_u, cl_u, chunk=128,
+                                                with_edge_maps=True)),
+                ('hub rows', ops.build_spmm_plan(t_rp, t_cl, chunk=128,
+                                                 with_edge_maps=True))]
+    for pname, plan in k6_plans:
+        for f in (1, 4, 47, 512):
+            for dtype in (torch.float32, torch.bfloat16):
+                for mode, idx in (('padded', None),
+                                  ('edge_perm', plan.edge_perm)):
+                    rows = (plan.col_padded.shape[0] if idx is None else
+                            max(plan.num_edges, 1))
+                    check_k6(f'{pname} {mode} F={f} {str(dtype)[6:]}',
+                             k6_values(rows, f, plan, idx, dtype), plan, idx)
+        for f in (47, 128):
+            msgs = torch.randn((plan.col_padded.shape[0], f), generator=gen,
+                               device=dev)
+            for mode, xm, _ in modes(msgs):
+                check_msgs(f'{pname} F={f} {mode}', xm, plan)
+
+    # K7 over S = 1, 2 and 4 equal ranges, explicit bounds, weights, and a
+    # graph whose middle ranges hold no edge (dropped) and whose other two
+    # each have no chunk in half the tiles.
+    row_p = np.repeat(np.arange(3000), np.diff(rp_p))
+    cl_skew = np.where(row_p < 1500, cl_p % 700, 2300 + cl_p % 700)
+    three = [(0, 7), (7, 1500), (1500, 3000)]
+    k7_plans = [
+        ('S=1', ops.build_fused_range_plan(rp_p, cl_p, 3000, 1, chunk=128)),
+        ('S=2', ops.build_fused_range_plan(rp_p, cl_p, 3000, 2, chunk=128)),
+        ('S=4 auto', ops.build_fused_range_plan(rp_p, cl_p, 3000, 4,
+                                                chunk='auto')),
+        ('empty ranges and tiles', ops.build_fused_range_plan(
+            rp_p, cl_skew, 3000, 4, chunk=128)),
+        ('bounds', ops.build_fused_range_plan(rp_p, cl_p, 3000, 1, chunk=128,
+                                              bounds=three)),
+        ('weighted S=3', ops.build_fused_range_plan(rp_p, cl_p, 3000, 3,
+                                                    chunk=128,
+                                                    edge_weight=w_p)),
+        ('weighted bounds', ops.build_fused_range_plan(
+            rp_p, cl_p, 3000, 1, chunk=128, bounds=three, edge_weight=w_p)),
+    ]
+    skew = k7_plans[3][1]
+    if len(skew.plans) != 2 or min(
+            int(np.bincount(p.chunk_tile.cpu().numpy(),
+                            minlength=p.tile_ptr.shape[0]).min())
+            for p in skew.plans) != 0:
+        raise AssertionError('the skewed K7 plan has no empty tile')
+    for f in (47, 128):
+        x = torch.randn((3000, f), generator=gen, device=dev)
+        for mode, xm, scale in modes(x):
+            for pname, plan in k7_plans:
+                if plan.weights is not None and mode == 'int8':
+                    continue  # refused on weighted plans
+                check(f'{pname} F={f} {mode}', 'K7', xm, plan, scale)
+
     # -- 3. the graphs at bench scale -----------------------------------
     t0 = time.perf_counter()
     rp_u, cl_u = uniform_graph(N_NODES, N_EDGES)
@@ -357,6 +515,18 @@ def main():
     t0 = time.perf_counter()
     g_pp = ops.build_spmm_graph(rp_p, cl_p, with_edge_maps=True)
     t_pp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_uf = ops.build_spmm_graph(rp_u, cl_u, range_split=RANGES,
+                                range_fused=True, chunk='auto')
+    g_ur = ops.build_spmm_graph(rp_u, cl_u, range_split=RANGES, chunk='auto')
+    quarter = -(-N_NODES // RANGES)
+    bounds4 = [(i * quarter, min((i + 1) * quarter, N_NODES))
+               for i in range(RANGES)]
+    w_u = np.random.default_rng(2).normal(size=cl_u.shape[0]).astype(
+        np.float32)
+    g_w = ops.build_weighted_fused_graph(rp_u, cl_u, N_NODES, bounds4, w_u,
+                                         chunk='auto', bounds_t=bounds4)
+    t_r = time.perf_counter() - t0
     e_u, e_p = int(rp_u[-1]), int(rp_p[-1])
     print(f'graphs: uniform E={e_u} E_pad={g_u.fwd.col_padded.numel()} '
           f'{type(g_u.fwd).__name__} mm={type(g_u.mm).__name__} '
@@ -369,7 +539,11 @@ def main():
           f'chunks={g_p.mm.num_chunks} ec={g_p.mm.ec} uc={g_p.mm.uc} '
           f'edges={int((g_p.mm.edge_meta[:, 0, :] < 128).sum())} '
           f'({t_p:.1f} s); powerlaw chunked '
-          f'E_pad={g_pp.fwd.col_padded.numel()} ({t_pp:.1f} s)', flush=True)
+          f'E_pad={g_pp.fwd.col_padded.numel()} ({t_pp:.1f} s); uniform '
+          f'range-fused S={len(g_uf.fwd.plans)} chunk={g_uf.fwd.chunk} '
+          f'slots={g_uf.fwd.cat_cols.numel()}, range-split chunk='
+          f'{g_ur.fwd.plans[0].chunk}, weighted fused chunk={g_w.fwd.chunk} '
+          f'({t_r:.1f} s for the three)', flush=True)
     if not (isinstance(g_u.fwd, ops.SpmmPlan)
             and isinstance(g_u.bwd, ops.SpmmPlan) and g_u.mm is None
             and g_u.fwd.edge_perm is not None
@@ -379,7 +553,14 @@ def main():
             and isinstance(g_p.bwd, ops.DedupSpmmPlan)
             and g_p.bwd.num_hot == 0
             and isinstance(g_p.mm, ops.DedupMinmaxPlan)
-            and isinstance(g_pp.fwd, ops.SpmmPlan)):
+            and isinstance(g_pp.fwd, ops.SpmmPlan)
+            and g_pp.fwd.edge_perm is not None
+            and isinstance(g_uf.fwd, ops.FusedRangePlan)
+            and isinstance(g_uf.bwd, ops.FusedRangePlan)
+            and len(g_uf.fwd.plans) == len(g_uf.bwd.plans) == RANGES
+            and isinstance(g_ur.fwd, ops.RangeSpmmPlan)
+            and g_w.fwd.weights is not None and g_w.bwd.weights is not None
+            and len(g_w.bwd.plans) == RANGES):
         raise AssertionError('bench graphs did not get the expected plans')
     graphs = {'uniform': g_u, 'powerlaw': g_p}
     sage_graphs = {'uniform': g_u, 'powerlaw': g_pp}
@@ -391,7 +572,11 @@ def main():
     main_errs = {k: 0.0 for k in COUNTERS}
     sides = [('K1', 'uniform fwd', g_u.fwd), ('K1', 'uniform bwd', g_u.bwd),
              ('K2h', 'powerlaw fwd', g_p.fwd),
-             ('K2', 'powerlaw bwd', g_p.bwd)]
+             ('K2', 'powerlaw bwd', g_p.bwd),
+             ('K7', 'uniform S=4f fwd', g_uf.fwd),
+             ('K7', 'uniform S=4f bwd', g_uf.bwd),
+             ('K7', 'uniform weighted fwd', g_w.fwd),
+             ('K7', 'uniform weighted bwd', g_w.bwd)]
     for f in (F_BENCH, DIMS[-1]):
         x = torch.randn((N_NODES, f), generator=gen, device=dev)
         found = [(kid, check(f'{label} F={f} f32', kid, x, plan))
@@ -412,6 +597,37 @@ def main():
             main_errs[kid] = max(main_errs[kid], e)
         del x, msgs
         torch.cuda.empty_cache()
+
+    # K6 at the head count's width: GAT's logits on the uniform forward
+    # plan, and softmax_csr on the power-law graph's transpose CSR (hub
+    # rows of about 0.8M edges) through edge_perm. K1's msgs_padded entry
+    # on the uniform plan's padded messages at F=512 (pad slots 0, as
+    # GAT's weighted messages).
+    plan = g_u.fwd
+    e_pad_u = plan.col_padded.numel()
+    main_errs['K6'] = check_k6('uniform fwd padded F=4', k6_values(
+        e_pad_u, HEADS, plan, None, torch.float32), plan)
+    t_ptr_p = np.zeros(N_NODES + 1, np.int64)
+    np.cumsum(np.bincount(cl_p, minlength=N_NODES), out=t_ptr_p[1:])
+    ptr_tp = torch.tensor(t_ptr_p, device=dev)
+    plan_tp = plan_for_ptr(ptr_tp)
+    src_tp = torch.randn((e_p, HEADS), generator=gen, device=dev)
+    main_errs['K6'] = max(main_errs['K6'], check_k6(
+        'powerlaw transpose CSR edge_perm F=4', src_tp, plan_tp,
+        plan_tp.edge_perm))
+    via_op = ops.softmax_csr(src_tp, ptr_tp)
+    if not torch.equal(via_op, ops.segment_softmax_planned(
+            src_tp, plan_tp, plan_tp.edge_perm)):
+        raise AssertionError('softmax_csr did not take the planned K6 path')
+    print(f'  softmax_csr on the power-law transpose CSR (longest row '
+          f'{int(np.diff(t_ptr_p).max())} edges) is K6 through edge_perm',
+          flush=True)
+    del via_op
+    msgs_u = torch.randn((e_pad_u, F_BENCH), generator=gen, device=dev)
+    msgs_u.mul_(plan.valid_mask[:, None])
+    main_errs['K1m'] = check_msgs(f'uniform fwd F={F_BENCH}', msgs_u, plan)
+    del msgs_u
+    torch.cuda.empty_cache()
 
     # -- 4. the main paths, each counted on its own ----------------------
     launches = {k: 0 for k in COUNTERS}
@@ -436,7 +652,15 @@ def main():
     labels = torch.randint(0, DIMS[-1], (N_NODES, ), generator=gen,
                            device=dev)
 
-    def train(models, gdict):
+    def train(models, gdict, split=None):
+        """``STEPS`` SGD steps per graph; ms per step after the first.
+        ``split`` (a dict with a ``'kid'``) also counts that kernel's
+        launches in the forwards and in the backwards apart."""
+        def count():
+            return 0 if split is None else getattr(
+                getattr(ops, COUNTERS[split['kid']][0]),
+                COUNTERS[split['kid']][1])
+
         step_ms = {}
         for gname, graph in gdict.items():
             model = models[gname]
@@ -446,9 +670,15 @@ def main():
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                 opt.zero_grad()
+                c0 = count()
                 loss = torch.nn.functional.cross_entropy(model(x, graph),
                                                          labels)
+                c1 = count()
                 loss.backward()
+                if split is not None:
+                    split['forward'] = split.get('forward', 0) + c1 - c0
+                    split['backward'] = (split.get('backward', 0) + count()
+                                         - c1)
                 opt.step()
                 if not torch.isfinite(loss):
                     raise AssertionError(f'loss on {gname} is not finite')
@@ -468,29 +698,43 @@ def main():
     print(f'  {STEPS} SAGE max-pool {DIMS} training steps per graph; ms per '
           f'step after the first {sage_ms}', flush=True)
 
-    # Where a training step's time goes: device time by kernel over one
-    # profiled step, against the unprofiled step time above.
+    def profile_step(label, model, graph, ms, top_n=8):
+        """Where a training step's time goes: device time by kernel over
+        one profiled step, against that step's own wall time (the idle
+        share) and the unprofiled step time ``ms``; peak device memory of
+        the step."""
+        def step():
+            model.zero_grad()
+            torch.nn.functional.cross_entropy(model(x, graph),
+                                              labels).backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        busy_ms, wall_ms, top = device_time_by_kernel(step)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if busy_ms == 0.0:
+            print(f'profile {label}: the profiler saw no device time (not '
+                  f'measured); peak memory {peak:.2f} GiB', flush=True)
+            return
+        # PyTorch's index_add_ runs indexFunc* kernels; index_select runs
+        # vectorized_gather_kernel or indexSelect* kernels.
+        add_ms = sum(t for name, t in top if 'indexFunc' in name)
+        gather_ms = sum(t for name, t in top
+                        if re.search('vectorized_gather|indexSelect', name))
+        print(f'profile {label} step: device busy {busy_ms:.3f} ms of '
+              f'{wall_ms:.3f} ms (unprofiled step {ms:.3f} ms), idle share '
+              f'{1 - busy_ms / wall_ms:.3f}; peak memory '
+              f'{peak:.2f} GiB; index_select gathers {gather_ms:.3f} ms, '
+              f'index_add_ {add_ms:.3f} ms; by kernel (ms): '
+              + '; '.join(f'{name} {t:.3f}' for name, t in top[:top_n]),
+              flush=True)
+
     for mname, models, gdict, ms in (('GCN', gcn, graphs, gcn_ms),
                                      ('SAGE max-pool', sage, sage_graphs,
                                       sage_ms)):
         for gname, graph in gdict.items():
-            model = models[gname]
-
-            def step():
-                model.zero_grad()
-                torch.nn.functional.cross_entropy(model(x, graph),
-                                                  labels).backward()
-
-            busy_ms, top = device_time_by_kernel(step)
-            if busy_ms == 0.0:
-                print(f'profile {mname} {gname}: the profiler saw no device '
-                      f'time (not measured)', flush=True)
-                continue
-            print(f'profile {mname} {gname} step: device busy '
-                  f'{busy_ms:.3f} ms of {ms[gname]:.3f} ms, idle share '
-                  f'{1 - busy_ms / ms[gname]:.3f}; by kernel (ms): '
-                  + '; '.join(f'{name} {t:.3f}' for name, t in top[:8]),
-                  flush=True)
+            profile_step(f'{mname} {gname}', models[gname], graph,
+                         ms[gname])
 
     xs = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev,
                      requires_grad=True)
@@ -673,6 +917,119 @@ def main():
         torch.cuda.empty_cache()
     del sf_res
 
+    # -- 5b. attention and range-split paths, each checked -------------
+    # GAT [512, 512, 48], 4 heads, on chunked plans with edge maps: each
+    # graph is a path of its own, so each must launch K6 and K1m.
+    gat = {}
+    gat_ms = {}
+    for gname, graph in (('uniform', g_u), ('powerlaw', g_pp)):
+        gat[gname] = GAT(GAT_DIMS, heads=HEADS, generator=cpu_gen,
+                         device=dev)
+        gat_ms.update(run_path(f'GAT {gname}', ('K6', 'K1m'),
+                               lambda: train({gname: gat[gname]},
+                                             {gname: graph})))
+        torch.cuda.empty_cache()
+    print(f'  {STEPS} GAT {GAT_DIMS} ({HEADS} heads) training steps per '
+          f'graph; ms per step after the first {gat_ms}', flush=True)
+
+    def plain_gat(params, x, graph):
+        """The GAT forward through the plain versions, ``BLOCK`` feature
+        columns of the weighted messages at a time."""
+        plan = graph.fwd
+        layers = params['layers']
+        for i, layer in enumerate(layers):
+            heads, out_h = layer['a_src'].shape
+            h = x @ layer['w']
+            hh = h.view(h.shape[0], heads, out_h)
+            s_src = (hh * layer['a_src']).sum(-1)
+            s_dst = (hh * layer['a_dst']).sum(-1)
+            logits = torch.nn.functional.leaky_relu(
+                s_src[plan.col_padded.long()] +
+                s_dst[plan.row_padded.long()], 0.2)
+            alpha = ops.segment_softmax_plain(logits, plan)
+            parts = []
+            for f0 in range(0, h.shape[1], BLOCK):
+                cols = torch.arange(f0, min(f0 + BLOCK, h.shape[1]),
+                                    device=dev)
+                msgs = (h[:, cols].contiguous().index_select(
+                    0, plan.col_padded) * alpha[:, cols // out_h])
+                parts.append(ops.segment_sum_chunked_plain(msgs, plan))
+                del msgs
+            x = torch.cat(parts, 1)
+            if i < len(layers) - 1:
+                x = torch.nn.functional.elu(x)
+        return x
+
+    with torch.no_grad():
+        for gname, graph in (('uniform', g_u), ('powerlaw', g_pp)):
+            out = gat[gname](x, graph)
+            close(f'GAT forward {gname}', out,
+                  plain_gat(gat[gname].params(), x, graph))
+            del out
+            torch.cuda.empty_cache()
+    for gname, graph in (('uniform', g_u), ('powerlaw', g_pp)):
+        profile_step(f'GAT {gname}', gat[gname], graph, gat_ms[gname],
+                     top_n=16)
+        torch.cuda.empty_cache()
+    del gat
+    torch.cuda.empty_cache()
+
+    # A GCN [512, 512, 47] over the range-fused uniform graph: K7 in the
+    # forward and over the transpose in the backward.
+    gcn_r = GCN(DIMS, generator=cpu_gen, device=dev)
+    k7_split = {'kid': 'K7'}
+    gcn_r_ms = run_path('GCN range-fused', ('K7', ), lambda: train(
+        {'uniform': gcn_r}, {'uniform': g_uf}, split=k7_split))
+    print(f'  {STEPS} GCN {DIMS} training steps on the uniform graph '
+          f'(range_split={RANGES}, range_fused, chunk=auto); ms per step '
+          f'after the first {gcn_r_ms}; K7 launches forward '
+          f'{k7_split["forward"]}, backward {k7_split["backward"]}',
+          flush=True)
+    if k7_split['forward'] <= 0 or k7_split['backward'] <= 0:
+        raise AssertionError('K7 did not launch in both the forward and the '
+                             'backward of the range-fused GCN')
+    with torch.no_grad():
+        close('GCN range-fused forward uniform', gcn_r(x, g_uf),
+              plain_gcn(gcn_r.params(), x, g_uf))
+    profile_step('GCN range-fused uniform', gcn_r, g_uf, gcn_r_ms['uniform'])
+    del gcn_r
+    torch.cuda.empty_cache()
+
+    # spmm forward and backward over the weighted fused graph (K7 with
+    # weights) and the range_split=4 graph (K1 per range).
+    xr = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev,
+                     requires_grad=True)
+    cr = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
+
+    def range_spmm_path():
+        res = {}
+        for gname, graph in (('weighted fused', g_w), ('range-split', g_ur)):
+            out = ops.spmm(xr, graph)
+            (grad, ) = torch.autograd.grad((out * cr).sum(), xr)
+            res[gname] = (out.detach(), grad)
+        return res
+
+    rs_res = run_path('spmm weighted fused / range-split', ('K7', 'K1'),
+                      range_spmm_path)
+    xd = xr.detach()
+    for gname, graph in (('weighted fused', g_w), ('range-split', g_ur)):
+        out, grad = rs_res.pop(gname)
+        for what, got, ref, mag in (
+                ('forward', out, plain(xd, graph.fwd),
+                 plain(xd.abs(), abs_plan(graph.fwd))),
+                ('grad', grad, plain(cr, graph.bwd),
+                 plain(cr.abs(), abs_plan(graph.bwd)))):
+            err = (got - ref).abs()
+            e = float(err.max())
+            print(f'spmm {gname} {what}: max_abs_err {e:.3g} (tolerance '
+                  f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
+            if bool((err > SUM_RTOL * mag + SUM_ATOL).any()):
+                raise AssertionError(f'spmm {gname} {what} disagrees')
+            del err, ref, mag
+        del out, grad
+    del xr, xd, cr, rs_res
+    torch.cuda.empty_cache()
+
     # -- 6. timing ------------------------------------------------------
     csr = {}
     for gname, (rp, cl) in {'uniform': (rp_u, cl_u),
@@ -696,7 +1053,8 @@ def main():
 
     rows = []
 
-    def row(kid, label, run, run_plain, run_lib, nbytes, flops, lib_name):
+    def row(kid, label, run, run_plain, run_lib, nbytes, flops, lib_name,
+            f=F_BENCH):
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
         r = {
             'name': kid, 'route': 'cuda',
@@ -708,7 +1066,7 @@ def main():
                          flops / F32_FLOPS else 'operations'),
             'library_ms': cuda_ms(run_lib),
         }
-        print(f'  {kid} {label} F={F_BENCH} f32: {r["ms"]:.3f} ms, plain '
+        print(f'  {kid} {label} F={f} f32: {r["ms"]:.3f} ms, plain '
               f'{r["plain_ms"]:.3f} ms, {lib_name} {r["library_ms"]:.3f} '
               f'ms, bound {bound_ms:.3f} ms ({r["bound_by"]}: '
               f'{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)', flush=True)
@@ -722,7 +1080,28 @@ def main():
         row(kid, label, lambda: kernel(xb, plan), lambda: plain(xb, plan),
             lambda: torch.sparse.mm(lib, xb), nbytes, flops,
             'torch.sparse.mm')
-    del csr
+
+    # K7 on the uniform graph's S=4f plan; beside it the weighted fused
+    # plan (against torch.sparse.mm over the weighted CSR) and the
+    # range_split=4 plan (K1 per range, partial sums added).
+    plan = g_uf.fwd
+    nbytes = (N_NODES * F_BENCH * 4 + plan.cat_cols.numel() * 4 +
+              plan.tile_ptrs.shape[0] * len(plan.plans) * 129 * 4 +
+              plan.num_rows * F_BENCH * 4)
+    row('K7', f'uniform S={RANGES}f', lambda: ops.fused_range_sum(xb, plan),
+        lambda: ops.fused_range_plain(xb, plan),
+        lambda: torch.sparse.mm(csr['uniform'][0], xb), nbytes,
+        e_u * F_BENCH, 'torch.sparse.mm')
+    a_w = torch.sparse_csr_tensor(
+        torch.from_numpy(rp_u), torch.from_numpy(cl_u.astype(np.int64)),
+        torch.from_numpy(w_u), (N_NODES, N_NODES)).to(dev)
+    print(f'  K7 uniform weighted fused (4 bounds) F={F_BENCH}: '
+          f'{cuda_ms(lambda: ops.fused_range_sum(xb, g_w.fwd)):.3f} ms; '
+          f'torch.sparse.mm weighted CSR '
+          f'{cuda_ms(lambda: torch.sparse.mm(a_w, xb)):.3f} ms; K1 per '
+          f'range (range_split={RANGES}, partials added) '
+          f'{cuda_ms(lambda: kernel(xb, g_ur.fwd)):.3f} ms', flush=True)
+    del csr, a_w
     torch.cuda.empty_cache()
 
     # K3 and K4 on the uniform graph, K5 on the power-law min/max plan;
@@ -757,6 +1136,49 @@ def main():
         ptr_f + mm.uniq_cols.numel() * 4 + mm.num_chunks * 2 * mm.ec * 4 +
         mm.num_chunks * 4 + 2 * ptr_f, cl_d.shape[0] * F_BENCH,
         'torch.segment_reduce max')
+    del msgs
+    torch.cuda.empty_cache()
+
+    # K6 at the head count's width on the uniform forward plan (GAT's
+    # logits). The library call is torch.sparse.softmax over a hybrid COO
+    # tensor of the same rows: [row, place in the row] sparse, the heads
+    # dense, so no two edges share an index.
+    plan = g_u.fwd
+    logits = torch.randn((e_pad_u, HEADS), generator=gen, device=dev)
+    slot, row_of = _padded_rows(plan.tile_ptr)
+    lo = plan.tile_ptr[:, 0, :128].reshape(-1).long()[row_of]
+    place = slot - lo
+    coo = torch.sparse_coo_tensor(
+        torch.stack([row_of, place]), logits[slot],
+        (plan.num_rows, int(place.max()) + 1, HEADS)).coalesce()
+    del slot, row_of, lo, place
+    ptr_bytes = plan.tile_ptr.shape[0] * 129 * 4
+    row('K6', 'uniform fwd padded', lambda: ops.segment_softmax_planned(
+        logits, plan), lambda: ops.segment_softmax_plain(logits, plan),
+        lambda: torch.sparse.softmax(coo, 1),
+        2 * e_pad_u * HEADS * 4 + ptr_bytes, 6 * e_u * HEADS,
+        'torch.sparse.softmax (hybrid COO)', f=HEADS)
+    del logits, coo
+    hub_ms = cuda_ms(lambda: ops.segment_softmax_planned(
+        src_tp, plan_tp, plan_tp.edge_perm))
+    hub_bound = (2 * e_p * HEADS * 4 + e_p * 4 +
+                 plan_tp.tile_ptr.shape[0] * 129 * 4) / HBM_BYTES_PER_S * 1e3
+    print(f'  K6 powerlaw transpose CSR through edge_perm (softmax_csr, '
+          f'hub rows up to {int(np.diff(t_ptr_p).max())} edges) F={HEADS}: '
+          f'{hub_ms:.3f} ms, bound {hub_bound:.3f} ms', flush=True)
+
+    # K1's msgs_padded entry on the uniform forward plan's padded messages
+    # (pad slots 0, as GAT's); the library call is index_add_ over
+    # row_padded, which on these inputs computes the same sums.
+    msgs = torch.randn((e_pad_u, F_BENCH), generator=gen, device=dev)
+    msgs.mul_(plan.valid_mask[:, None])
+    row('K1m', 'uniform fwd msgs_padded',
+        lambda: ops.segment_sum_chunked(msgs, plan),
+        lambda: ops.segment_sum_chunked_plain(msgs, plan),
+        lambda: torch.zeros((N_NODES, F_BENCH), device=dev).index_add_(
+            0, plan.row_padded, msgs),
+        e_pad_u * F_BENCH * 4 + ptr_bytes + N_NODES * F_BENCH * 4,
+        e_u * F_BENCH, 'index_add_')
     return smi, errs, rows
 
 
@@ -788,15 +1210,18 @@ def work(plan, f):
 
 def device_time_by_kernel(fn):
     """Run ``fn`` once under ``torch.profiler``; return the device's busy
-    ms and ``[(kernel name, ms)]`` summed by name, largest first."""
+    ms, the run's wall ms (host clock to a synchronize) and ``[(kernel
+    name, ms)]`` summed by name, largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -806,7 +1231,7 @@ def device_time_by_kernel(fn):
         by_name[name] = by_name.get(name, 0.0) + ev.self_device_time_total
     top = sorted(((k, v / 1e3) for k, v in by_name.items()),
                  key=lambda kv: -kv[1])
-    return sum(ms for _, ms in top), top
+    return sum(ms for _, ms in top), wall_ms, top
 
 
 def cuda_ms(fn, iters=10, warmup=2):

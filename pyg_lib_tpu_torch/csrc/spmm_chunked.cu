@@ -9,6 +9,11 @@
 // where [lo_r, hi_r) = tile_ptr[t, 0, r : r + 2] are row r's padded slots
 // (r local to its 128-row tile t) and `scale` is optional (int8 mode).
 //
+// With `col_padded` null the same kernel reduces messages that are already
+// in padded coordinates, out[r, f] = sum_p msgs[p, f] (the TPU kernel's own
+// input, `segment_sum_chunked`): the padded-space sum of an attention layer
+// and the row sums of the softmax backward.
+//
 // Bound on the card: bytes. The sum does one add per gathered element, far
 // below the 67 TFLOP/s of f32 CUDA cores, while every edge reads a whole
 // x row (peaks of the NVIDIA H100 SXM data sheet, at its 700 W power
@@ -37,7 +42,7 @@ namespace {
 
 constexpr int K1_WARPS = 8;
 
-template <typename T, int VPL>
+template <typename T, int VPL, bool GATHER>
 __global__ void __launch_bounds__(K1_WARPS * 32)
     chunked_sum_kernel(const T* __restrict__ x,
                        const int* __restrict__ col_padded,
@@ -69,10 +74,10 @@ __global__ void __launch_bounds__(K1_WARPS * 32)
     for (int v = 0; v < VPL; ++v) acc[v] = 0.0f;
     for (int base = lo; base < hi; base += 32) {
       const int n = min(32, hi - base);
-      const int mine = lane < n ? col_padded[base + lane] : 0;
+      const int mine = (GATHER && lane < n) ? col_padded[base + lane] : 0;
 #pragma unroll 4
       for (int j = 0; j < n; ++j) {
-        const int64_t c = __shfl_sync(FULL, mine, j);
+        const int64_t c = GATHER ? __shfl_sync(FULL, mine, j) : base + j;
         const T* src = x + c * F + f0 + lane;
 #pragma unroll
         for (int v = 0; v < VPL; ++v)
@@ -86,39 +91,52 @@ __global__ void __launch_bounds__(K1_WARPS * 32)
   }
 }
 
+template <typename T, bool GATHER>
+void launch_vpl(const T* x, const int* col_padded, const int* tile_ptr,
+                const float* scale, float* out, int num_tiles, int num_rows,
+                int F, cudaStream_t stream) {
+  const int vpl = pick_vpl(F, 8);
+  const dim3 grid(num_tiles, (F + 32 * vpl - 1) / (32 * vpl));
+  const dim3 block(K1_WARPS * 32);
+  switch (vpl) {
+    case 1:
+      chunked_sum_kernel<T, 1, GATHER><<<grid, block, 0, stream>>>(
+          x, col_padded, tile_ptr, scale, out, num_rows, F);
+      break;
+    case 2:
+      chunked_sum_kernel<T, 2, GATHER><<<grid, block, 0, stream>>>(
+          x, col_padded, tile_ptr, scale, out, num_rows, F);
+      break;
+    case 4:
+      chunked_sum_kernel<T, 4, GATHER><<<grid, block, 0, stream>>>(
+          x, col_padded, tile_ptr, scale, out, num_rows, F);
+      break;
+    default:
+      chunked_sum_kernel<T, 8, GATHER><<<grid, block, 0, stream>>>(
+          x, col_padded, tile_ptr, scale, out, num_rows, F);
+  }
+}
+
 template <typename T>
 void launch(const void* x, const int* col_padded, const int* tile_ptr,
             const float* scale, float* out, int num_tiles, int num_rows,
             int F, cudaStream_t stream) {
-  const int vpl = pick_vpl(F, 8);
-  const dim3 grid(num_tiles, (F + 32 * vpl - 1) / (32 * vpl));
-  const dim3 block(K1_WARPS * 32);
   const T* xt = static_cast<const T*>(x);
-  switch (vpl) {
-    case 1:
-      chunked_sum_kernel<T, 1><<<grid, block, 0, stream>>>(
-          xt, col_padded, tile_ptr, scale, out, num_rows, F);
-      break;
-    case 2:
-      chunked_sum_kernel<T, 2><<<grid, block, 0, stream>>>(
-          xt, col_padded, tile_ptr, scale, out, num_rows, F);
-      break;
-    case 4:
-      chunked_sum_kernel<T, 4><<<grid, block, 0, stream>>>(
-          xt, col_padded, tile_ptr, scale, out, num_rows, F);
-      break;
-    default:
-      chunked_sum_kernel<T, 8><<<grid, block, 0, stream>>>(
-          xt, col_padded, tile_ptr, scale, out, num_rows, F);
-  }
+  if (col_padded != nullptr)
+    launch_vpl<T, true>(xt, col_padded, tile_ptr, scale, out, num_tiles,
+                        num_rows, F, stream);
+  else
+    launch_vpl<T, false>(xt, col_padded, tile_ptr, scale, out, num_tiles,
+                         num_rows, F, stream);
 }
 
 }  // namespace
 }  // namespace pygt
 
-// x [N, F] (f32, bf16 or int8 by x_dtype), col_padded [E_pad] int32,
-// tile_ptr [num_tiles, 8, 256] int32, scale [F] f32 or null,
-// out [num_rows, F] f32. Returns cudaGetLastError() after the launch.
+// x [N, F] (f32, bf16 or int8 by x_dtype), col_padded [E_pad] int32 or
+// null (then x is the padded messages [>= E_pad, F]), tile_ptr
+// [num_tiles, 8, 256] int32, scale [F] f32 or null, out [num_rows, F] f32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int pygt_spmm_chunked(const void* x, int x_dtype,
                                  const void* col_padded, const void* tile_ptr,
                                  const void* scale, void* out, int num_tiles,

@@ -1,0 +1,188 @@
+// K7: fused multi-range SpMM over S column ranges (FusedRangePlan).
+//
+// Replaces the TPU kernel pyg_lib_tpu/ops/pallas/spmm_range_fused.py
+// `_fused_kernel` (launched by `_fused_call`, driven by `fused_range_apply`)
+// together with the S per-range XLA gathers `take(x[lo_s:hi_s],
+// col_padded_s)` and weight products that feed it:
+//
+//   out[r, f] = scale[f] * sum_s sum_{p in [lo_rs, hi_rs)}
+//                 w[p] * x[cols[p], f]
+//
+// where [lo_rs, hi_rs) = slot_base[s] + tile_ptrs[t, s, r : r + 2] are row
+// r's slots in range s (r local to its 128-row tile t), `cols` holds every
+// range's padded column ids one after another with lo_s already added, `w`
+// the weights laid out the same way (null: all 1) and `scale` the int8
+// column scale (null: 1), applied once at the end.
+//
+// The per-range arrays come concatenated at build time (one device array
+// each, and each range's first slot in `slot_base`), not as S pointers. A
+// range with no edges in a tile has no chunks there: its rows' slot ranges
+// in that tile are empty, so they add nothing. The TPU's step tables
+// (`step_tile`, `blocks`, `posb`) are its grid schedule and are not read.
+//
+// Bound on the card: bytes. One multiply-add per gathered element, far
+// below the 67 TFLOP/s of f32 CUDA cores (NVIDIA H100 SXM data sheet, 700 W).
+// Each input read once and each output written once is N*F*elem + the
+// slot tables + rows*F*4 bytes over the 3.35 TB/s of HBM; what the kernel
+// really moves is one x row per edge, E*F*elem bytes.
+//
+// Design against that bound, as K1 (spmm_chunked.cu), which it extends:
+// * the gathers are fused: the TPU path wrote S padded message slabs;
+// * one block per (tile, F-block), one warp per output row; the warp walks
+//   the row's slots range after range, lanes over 32 neighbouring features
+//   (coalesced), VPL independent loads in flight per slot;
+// * column ids (and weights) are read 32 at a time and broadcast with
+//   shuffles;
+// * each output row is written once, after its last range, with no atomics
+//   and no partial [N, F] outputs: sums run in f32 in range and slot order,
+//   so the result is deterministic.
+#include "common.cuh"
+
+namespace pygt {
+namespace {
+
+constexpr int K7_WARPS = 8;
+
+template <typename T, int VPL, bool WEIGHTED>
+__global__ void __launch_bounds__(K7_WARPS * 32)
+    range_fused_kernel(const T* __restrict__ x, const int* __restrict__ cols,
+                       const float* __restrict__ w,
+                       const int* __restrict__ tile_ptrs,
+                       const int* __restrict__ slot_base, int S, int S8,
+                       const float* __restrict__ scale,
+                       float* __restrict__ out, int num_rows, int F) {
+  const int t = blockIdx.x;
+  const int f0 = blockIdx.y * (32 * VPL);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int* ptrs = tile_ptrs + static_cast<int64_t>(t) * S8 * TP;
+
+  bool ok[VPL];
+  float sc[VPL];
+#pragma unroll
+  for (int v = 0; v < VPL; ++v) {
+    const int f = f0 + lane + 32 * v;
+    ok[v] = f < F;
+    sc[v] = (scale != nullptr && ok[v]) ? scale[f] : 1.0f;
+  }
+
+  for (int r = warp; r < TR; r += K7_WARPS) {
+    const int64_t row = static_cast<int64_t>(t) * TR + r;
+    if (row >= num_rows) break;
+    float acc[VPL];
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) acc[v] = 0.0f;
+    for (int s = 0; s < S; ++s) {
+      const int* ptr = ptrs + s * TP;
+      const int b = slot_base[s];
+      const int lo = b + ptr[r];
+      const int hi = b + ptr[r + 1];
+      for (int base = lo; base < hi; base += 32) {
+        const int n = min(32, hi - base);
+        const int mine = lane < n ? cols[base + lane] : 0;
+        const float wmine = (WEIGHTED && lane < n) ? w[base + lane] : 1.0f;
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) {
+          const int64_t c = __shfl_sync(FULL, mine, j);
+          const float wj = WEIGHTED ? __shfl_sync(FULL, wmine, j) : 1.0f;
+          const T* src = x + c * F + f0 + lane;
+#pragma unroll
+          for (int v = 0; v < VPL; ++v)
+            if (ok[v]) {
+              if (WEIGHTED)
+                acc[v] = fmaf(wj, to_f32(src[32 * v]), acc[v]);
+              else
+                acc[v] += to_f32(src[32 * v]);
+            }
+        }
+      }
+    }
+    float* dst = out + row * F + f0 + lane;
+#pragma unroll
+    for (int v = 0; v < VPL; ++v)
+      if (ok[v]) dst[32 * v] = scale != nullptr ? acc[v] * sc[v] : acc[v];
+  }
+}
+
+template <typename T, bool WEIGHTED>
+void launch(const void* x, const int* cols, const float* w,
+            const int* tile_ptrs, const int* slot_base, int S, int S8,
+            const float* scale, float* out, int num_tiles, int num_rows,
+            int F, cudaStream_t st) {
+  const int vpl = pick_vpl(F, 8);
+  const dim3 grid(num_tiles, (F + 32 * vpl - 1) / (32 * vpl));
+  const dim3 block(K7_WARPS * 32);
+  const T* xt = static_cast<const T*>(x);
+  switch (vpl) {
+    case 1:
+      range_fused_kernel<T, 1, WEIGHTED><<<grid, block, 0, st>>>(
+          xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows, F);
+      break;
+    case 2:
+      range_fused_kernel<T, 2, WEIGHTED><<<grid, block, 0, st>>>(
+          xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows, F);
+      break;
+    case 4:
+      range_fused_kernel<T, 4, WEIGHTED><<<grid, block, 0, st>>>(
+          xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows, F);
+      break;
+    default:
+      range_fused_kernel<T, 8, WEIGHTED><<<grid, block, 0, st>>>(
+          xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows, F);
+  }
+}
+
+template <typename T>
+void launch_any(const void* x, const int* cols, const float* w,
+                const int* tile_ptrs, const int* slot_base, int S, int S8,
+                const float* scale, float* out, int num_tiles, int num_rows,
+                int F, cudaStream_t st) {
+  if (w != nullptr)
+    launch<T, true>(x, cols, w, tile_ptrs, slot_base, S, S8, scale, out,
+                    num_tiles, num_rows, F, st);
+  else
+    launch<T, false>(x, cols, w, tile_ptrs, slot_base, S, S8, scale, out,
+                     num_tiles, num_rows, F, st);
+}
+
+}  // namespace
+}  // namespace pygt
+
+// x [N, F] (f32, bf16 or int8 by x_dtype), cols [sum E_pad_s] int32 (global
+// column ids), w like cols f32 or null, tile_ptrs [num_tiles, S8, 256]
+// int32, slot_base [S] int32, scale [F] f32 or null, out [num_rows, F] f32
+// (written in full). Returns cudaGetLastError() after the launch.
+extern "C" int pygt_spmm_range_fused(const void* x, int x_dtype,
+                                     const void* cols, const void* w,
+                                     const void* tile_ptrs,
+                                     const void* slot_base, int S, int S8,
+                                     const void* scale, void* out,
+                                     int num_tiles, int num_rows, int F,
+                                     void* stream) {
+  using namespace pygt;
+  const int* c = static_cast<const int*>(cols);
+  const float* wt = static_cast<const float*>(w);
+  const int* tp = static_cast<const int*>(tile_ptrs);
+  const int* sb = static_cast<const int*>(slot_base);
+  const float* sc = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (x_dtype) {
+    case F32:
+      launch_any<float>(x, c, wt, tp, sb, S, S8, sc, o, num_tiles, num_rows,
+                        F, st);
+      break;
+    case BF16:
+      launch_any<__nv_bfloat16>(x, c, wt, tp, sb, S, S8, sc, o, num_tiles,
+                                num_rows, F, st);
+      break;
+    case I8:
+      if (wt != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      launch<int8_t, false>(x, c, wt, tp, sb, S, S8, sc, o, num_tiles,
+                            num_rows, F, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

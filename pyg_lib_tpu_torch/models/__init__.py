@@ -1,11 +1,13 @@
 """GNN models of the port."""
 
-from pyg_lib_tpu_torch.models.gnn import (GCN, SAGE, gcn_forward,
+from pyg_lib_tpu_torch.models.gnn import (GAT, GCN, SAGE, gat_forward_spmm,
+                                          gat_params_from_jax, gcn_forward,
                                           gcn_forward_spmm,
                                           gcn_params_from_jax, sage_forward,
                                           sage_maxpool_forward_spmm,
                                           sage_params_from_jax)
 
-__all__ = ['GCN', 'SAGE', 'gcn_forward', 'gcn_forward_spmm',
-           'gcn_params_from_jax', 'sage_forward', 'sage_maxpool_forward_spmm',
+__all__ = ['GAT', 'GCN', 'SAGE', 'gat_forward_spmm', 'gat_params_from_jax',
+           'gcn_forward', 'gcn_forward_spmm', 'gcn_params_from_jax',
+           'sage_forward', 'sage_maxpool_forward_spmm',
            'sage_params_from_jax']

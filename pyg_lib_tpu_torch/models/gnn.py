@@ -1,13 +1,16 @@
-"""GNN models of the port: GCN and GraphSAGE, on a planned graph and on a
-CSR batch (port of ``pyg_lib_tpu.models.gnn``: ``init_gcn``,
-``gcn_forward``, ``gcn_forward_spmm``, ``init_sage``, ``sage_forward``,
-``sage_maxpool_forward_spmm``).
+"""GNN models of the port: GCN, GraphSAGE and GAT, on a planned graph and
+(GCN, GraphSAGE) on a CSR batch (port of ``pyg_lib_tpu.models.gnn``:
+``init_gcn``, ``gcn_forward``, ``gcn_forward_spmm``, ``init_sage``,
+``sage_forward``, ``sage_maxpool_forward_spmm``, ``init_gat_spmm``,
+``gat_forward_spmm``).
 
 Parameters are the JAX package's trees with tensors for arrays:
-``{'layers': [{'w': [in, out], 'b': [out]}, ...]}`` for GCN and
+``{'layers': [{'w': [in, out], 'b': [out]}, ...]}`` for GCN,
 ``{'layers': [{'w_self', 'w_nbr': [in, out], 'b': [out]}, ...]}`` for
-GraphSAGE, so converted JAX weights (:func:`gcn_params_from_jax`,
-:func:`sage_params_from_jax`) and a module's weights run through the same
+GraphSAGE and ``{'layers': [{'w': [in, heads*out_h], 'a_src', 'a_dst':
+[heads, out_h]}, ...]}`` for GAT, so converted JAX weights
+(:func:`gcn_params_from_jax`, :func:`sage_params_from_jax`,
+:func:`gat_params_from_jax`) and a module's weights run through the same
 functional forwards.
 
 The CSR forwards take a batch as the JAX package lays it out: ``x [N, F]``,
@@ -23,12 +26,14 @@ import torch
 from torch import nn
 
 from pyg_lib_tpu_torch.ops import (segment_max_csr, segment_mean_csr,
-                                   segment_sum_csr, spmm)
+                                   segment_softmax_padded, segment_sum_csr,
+                                   segment_sum_padded, spmm)
 from pyg_lib_tpu_torch.ops.spmm import _gathered_max_padded
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['GCN', 'SAGE', 'gcn_forward', 'gcn_forward_spmm',
-           'gcn_params_from_jax', 'sage_forward', 'sage_maxpool_forward_spmm',
+__all__ = ['GAT', 'GCN', 'SAGE', 'gat_forward_spmm', 'gat_params_from_jax',
+           'gcn_forward', 'gcn_forward_spmm', 'gcn_params_from_jax',
+           'sage_forward', 'sage_maxpool_forward_spmm',
            'sage_params_from_jax']
 
 
@@ -205,3 +210,85 @@ class SAGE(nn.Module):
 
     def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
         return sage_maxpool_forward_spmm(self.params(), x, graph)
+
+
+# -- GAT ----------------------------------------------------------------------
+
+
+def gat_forward_spmm(params: Dict, x: torch.Tensor, graph) -> torch.Tensor:
+    """Full-graph GAT over a graph built ``with_edge_maps=True`` (a chunked
+    ``graph.fwd``).
+
+    Every per-edge stage runs in the plan's padded coordinates: the
+    attention logits ``leaky_relu(s_src[col] + s_dst[row], 0.2)`` as
+    ``[E_pad, heads]``, their per-row softmax (kernel K6, at the head
+    count's width), the gather ``h[col_padded]`` weighted by each head's
+    attention, and the sum into the rows (kernel K1 without the gather).
+    Heads are read per layer from ``a_src``'s shape, so the last layer may
+    have its own count; heads are concatenated, with ELU between layers.
+    """
+    plan = graph.fwd
+    layers = params['layers']
+    for i, layer in enumerate(layers):
+        heads, out_h = layer['a_src'].shape
+        h = x @ layer['w']
+        n, hf = h.shape
+        hh = h.view(n, heads, out_h)
+        s_src = (hh * layer['a_src']).sum(-1)  # [N, heads]
+        s_dst = (hh * layer['a_dst']).sum(-1)
+        logits = torch.nn.functional.leaky_relu(
+            s_src.index_select(0, plan.col_padded) +
+            s_dst.index_select(0, plan.row_padded), 0.2)  # [E_pad, heads]
+        alpha = segment_softmax_padded(logits, plan)
+        msgs = h.index_select(0, plan.col_padded).view(-1, heads, out_h)
+        msgs = (msgs * alpha[:, :, None]).view(-1, hf)
+        x = segment_sum_padded(msgs, plan)
+        if i < len(layers) - 1:
+            x = torch.nn.functional.elu(x)
+    return x
+
+
+def gat_params_from_jax(tree: Dict, device=None) -> Dict:
+    """Turn the JAX package's planned-GAT tree (``init_gat_spmm``; any
+    per-layer head count) into the port's parameters: f32 tensors on
+    ``device`` (default: the CUDA card)."""
+    return _params_from_jax(tree, ('w', 'a_src', 'a_dst'), device)
+
+
+class GAT(nn.Module):
+    """Full-graph GAT (:func:`gat_forward_spmm`), ``dims = [in, hidden...,
+    out]`` with ``heads`` heads of ``dims[i+1] // heads`` features in
+    every layer, concatenated.
+
+    Weights are Glorot-uniform from ``generator`` (``w``, ``a_src``,
+    ``a_dst``, layer by layer), as in ``init_gat_spmm``, which also
+    requires each width to be a multiple of ``heads``.
+    """
+
+    def __init__(self, dims: List[int], heads: int = 4,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = _resolve_device(device)
+        self.w = nn.ParameterList()
+        self.a_src = nn.ParameterList()
+        self.a_dst = nn.ParameterList()
+        for i, (fan_in, fan_out) in enumerate(zip(dims[:-1], dims[1:])):
+            if fan_out % heads:
+                raise ValueError(f'dims[{i + 1}]={fan_out} not divisible by '
+                                 f'heads={heads}')
+            out_h = fan_out // heads
+            self.w.append(nn.Parameter(_glorot(fan_in, heads * out_h,
+                                               generator, device)))
+            self.a_src.append(nn.Parameter(_glorot(heads, out_h, generator,
+                                                   device)))
+            self.a_dst.append(nn.Parameter(_glorot(heads, out_h, generator,
+                                                   device)))
+
+    def params(self) -> Dict:
+        """The parameters as the functional forward's tree."""
+        return {'layers': [{'w': w, 'a_src': a, 'a_dst': d}
+                           for w, a, d in zip(self.w, self.a_src,
+                                              self.a_dst)]}
+
+    def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
+        return gat_forward_spmm(self.params(), x, graph)

@@ -1,12 +1,17 @@
-"""Device ops of the port: planned SpMM over chunked and dedup plans, the
-CSR segment family, and exact max/min."""
+"""Device ops of the port: planned SpMM over chunked, dedup and
+range-split plans, the CSR segment family, exact max/min, and the
+attention primitives (``softmax_csr``, the padded-space softmax and sum,
+``sddmm``)."""
 
 from pyg_lib_tpu_torch.ops.kernels.segment_csr import (segment_sum_csr_kernel,
                                                        segment_sum_csr_plain)
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (segment_max_kernel,
                                                           segment_max_plain)
+from pyg_lib_tpu_torch.ops.kernels.segment_softmax import (
+    segment_softmax_plain, segment_softmax_planned)
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (
-    SpmmPlan, auto_chunk, build_spmm_plan, quantize_columns, spmm_chunked,
+    SpmmPlan, auto_chunk, build_spmm_plan, quantize_columns,
+    segment_sum_chunked, segment_sum_chunked_plain, spmm_chunked,
     spmm_chunked_plain, spmm_plan_apply)
 from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (DedupSpmmPlan,
                                                       build_dedup_plan,
@@ -18,25 +23,38 @@ from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import (
     DedupMinmaxPlan, build_dedup_minmax_plan, dedup_minmax,
     dedup_minmax_apply, dedup_minmax_plain, dedup_pairs,
     estimate_minmax_config)
+from pyg_lib_tpu_torch.ops.kernels.spmm_range_fused import (
+    FusedRangePlan, build_fused_range_plan, fused_range_apply,
+    fused_range_plain, fused_range_sum)
 from pyg_lib_tpu_torch.ops.segment_csr import (gather_csr, segment_add_csr,
                                                segment_csr, segment_max_csr,
                                                segment_mean_csr,
                                                segment_min_csr,
                                                segment_sum_csr)
-from pyg_lib_tpu_torch.ops.spmm import (SpmmGraph, build_spmm_graph,
+from pyg_lib_tpu_torch.ops.softmax import softmax_csr
+from pyg_lib_tpu_torch.ops.spmm import (RangeSpmmPlan, SpmmGraph,
+                                        build_spmm_graph,
+                                        build_weighted_fused_graph, sddmm,
                                         segment_max_padded,
-                                        segment_min_padded, spmm)
+                                        segment_min_padded,
+                                        segment_softmax_padded,
+                                        segment_sum_padded, spmm)
 
 __all__ = [
-    'DedupMinmaxPlan', 'DedupSpmmPlan', 'SpmmGraph', 'SpmmPlan',
-    'auto_chunk', 'build_dedup_minmax_plan', 'build_dedup_plan',
-    'build_spmm_graph', 'build_spmm_plan', 'dedup_minmax',
+    'DedupMinmaxPlan', 'DedupSpmmPlan', 'FusedRangePlan', 'RangeSpmmPlan',
+    'SpmmGraph', 'SpmmPlan', 'auto_chunk', 'build_dedup_minmax_plan',
+    'build_dedup_plan', 'build_fused_range_plan', 'build_spmm_graph',
+    'build_spmm_plan', 'build_weighted_fused_graph', 'dedup_minmax',
     'dedup_minmax_apply', 'dedup_minmax_plain', 'dedup_pairs',
     'dedup_plan_apply', 'dedup_sum', 'dedup_sum_plain', 'estimate_dedup',
-    'estimate_minmax_config', 'gather_csr', 'quantize_columns',
+    'estimate_minmax_config', 'fused_range_apply', 'fused_range_plain',
+    'fused_range_sum', 'gather_csr', 'quantize_columns', 'sddmm',
     'segment_add_csr', 'segment_csr', 'segment_max_csr',
     'segment_max_kernel', 'segment_max_padded', 'segment_max_plain',
     'segment_mean_csr', 'segment_min_csr', 'segment_min_padded',
-    'segment_sum_csr', 'segment_sum_csr_kernel', 'segment_sum_csr_plain',
-    'spmm', 'spmm_chunked', 'spmm_chunked_plain', 'spmm_plan_apply',
+    'segment_softmax_padded', 'segment_softmax_plain',
+    'segment_softmax_planned', 'segment_sum_chunked',
+    'segment_sum_chunked_plain', 'segment_sum_csr', 'segment_sum_csr_kernel',
+    'segment_sum_csr_plain', 'segment_sum_padded', 'softmax_csr', 'spmm',
+    'spmm_chunked', 'spmm_chunked_plain', 'spmm_plan_apply',
 ]

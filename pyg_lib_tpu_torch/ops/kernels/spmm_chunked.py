@@ -7,8 +7,11 @@ package. On the card, K1 computes ``out[r] = Σ x[col_padded[p]]`` over
 row ``r``'s padded slots with the gather fused into the reduction, so the
 padded message slab the TPU path materialises never exists here.
 
-:func:`spmm_chunked` is the kernel's wrapper: K1 for a CUDA tensor, the
-plain PyTorch version (:func:`spmm_chunked_plain`) for a CPU tensor.
+K1 has two wrappers, each K1 for a CUDA tensor and a plain PyTorch
+version for a CPU tensor: :func:`spmm_chunked` gathers through
+``col_padded`` (plain: :func:`spmm_chunked_plain`), and
+:func:`segment_sum_chunked` reduces messages already in padded
+coordinates, ``msgs_padded[p]`` (plain: :func:`segment_sum_chunked_plain`).
 """
 
 import ctypes
@@ -22,8 +25,8 @@ from pyg_lib_tpu_torch.utils import _resolve_device
 
 __all__ = [
     'SpmmPlan', 'build_spmm_plan', 'spmm_plan_apply', 'spmm_chunked',
-    'spmm_chunked_plain', 'segment_sum_chunked_plain', 'auto_chunk',
-    'quantize_columns',
+    'spmm_chunked_plain', 'segment_sum_chunked', 'segment_sum_chunked_plain',
+    'auto_chunk', 'quantize_columns',
 ]
 
 TR = 128  # output rows per tile
@@ -57,12 +60,16 @@ class SpmmPlan(NamedTuple):
         return self.chunk_tile.shape[0]
 
 
-def _build_padded_layout(rowptr: np.ndarray, chunk: int):
+def _build_padded_layout(rowptr: np.ndarray, chunk: int,
+                         allow_empty_tiles: bool = False):
     """Pad each TR-row tile's edge span to a multiple of ``chunk``.
 
     Returns (orig, valid, chunk_tile, tile_ptr, shift); ``shift[t]`` maps
     padded position -> original edge id (orig = padded_pos - shift).
-    Every tile gets at least one chunk, so every tile owns output rows.
+    Every tile gets at least one chunk, unless ``allow_empty_tiles``: then
+    an edgeless tile gets none, and its rows empty slot ranges. Such a
+    layout is for the fused multi-range plans (K7), where every output row
+    is written whatever its ranges hold.
     """
     num_rows = rowptr.shape[0] - 1
     num_tiles = max(-(-num_rows // TR), 1)
@@ -70,7 +77,9 @@ def _build_padded_layout(rowptr: np.ndarray, chunk: int):
     tile_lo = rowptr[tb[:-1]]
     tile_hi = rowptr[tb[1:]]
     counts = tile_hi - tile_lo
-    nchunks = np.maximum(-(-counts // chunk), 1)
+    nchunks = -(-counts // chunk)
+    if not allow_empty_tiles:
+        nchunks = np.maximum(nchunks, 1)
     padded_counts = nchunks * chunk
     padded_starts = np.zeros(num_tiles + 1, np.int64)
     np.cumsum(padded_counts, out=padded_starts[1:])
@@ -138,6 +147,7 @@ def auto_chunk(rowptr, candidates=(512, 256, 128),
 
 def build_spmm_plan(rowptr, col, chunk=512, with_edge_maps: bool = False,
                     pad_to_chunks: Optional[int] = None,
+                    allow_empty_tiles: bool = False, _layout=None,
                     device=None) -> SpmmPlan:
     """Build the chunked schedule for ``out[r] = Σ x[col[e]]`` over CSR
     rows, with its tensors on ``device`` (default: the CUDA card).
@@ -145,19 +155,22 @@ def build_spmm_plan(rowptr, col, chunk=512, with_edge_maps: bool = False,
     ``chunk='auto'`` sizes the chunk with :func:`auto_chunk`.
     ``with_edge_maps`` also stores the maps between original and padded
     edge coordinates (``edge_perm``, ``edge_pos``, ``row_padded``,
-    ``valid_mask``), which the planned ``segment_{max,min}_csr`` reads.
+    ``valid_mask``), which the planned ``segment_{max,min}_csr``, the
+    planned softmax and the padded-space primitives read.
+    ``pad_to_chunks`` appends all-pad chunks (in no row's slot range) up
+    to that chunk count, so the per-range plans of a ``RangeSpmmPlan``
+    share one shape. ``allow_empty_tiles`` and ``_layout`` (a
+    :func:`_build_padded_layout` result for the same ``rowptr``, ``chunk``
+    and ``allow_empty_tiles``) serve the fused multi-range builder.
     """
-    if pad_to_chunks is not None:
-        raise NotImplementedError(
-            'pad_to_chunks is not ported yet (ROADMAP Queue 1 items 9-10, '
-            'range-split and sharded plans)')
     device = _resolve_device(device)
     rowptr = np.asarray(rowptr, dtype=np.int64)
     col = np.asarray(col)
     if chunk == 'auto':
         chunk = auto_chunk(rowptr)
-    orig, valid, chunk_tile, tile_ptr, shift = _build_padded_layout(
-        rowptr, chunk)
+    orig, valid, chunk_tile, tile_ptr, shift = (
+        _layout if _layout is not None else _build_padded_layout(
+            rowptr, chunk, allow_empty_tiles))
     if len(col):
         col_padded = np.where(valid, col[np.minimum(orig, len(col) - 1)],
                               0).astype(np.int32)
@@ -167,6 +180,15 @@ def build_spmm_plan(rowptr, col, chunk=512, with_edge_maps: bool = False,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    extra = 0
+    if pad_to_chunks is not None:
+        extra = max(int(pad_to_chunks) - chunk_tile.shape[0], 0)
+    if extra:
+        last_tile = chunk_tile[-1] if len(chunk_tile) else 0
+        chunk_tile = np.concatenate(
+            [chunk_tile, np.full(extra, last_tile, np.int32)])
+        col_padded = np.concatenate(
+            [col_padded, np.zeros(extra * chunk, np.int32)])
     maps = {}
     if with_edge_maps:
         num_rows = rowptr.shape[0] - 1
@@ -179,9 +201,13 @@ def build_spmm_plan(rowptr, col, chunk=512, with_edge_maps: bool = False,
                 orig, len(row_of_edge) - 1)], 0).astype(np.int32)
         else:
             rp = np.zeros(orig.shape[0], np.int32)
-        maps = dict(edge_perm=dev(np.where(valid, orig, 0).astype(np.int32)),
-                    edge_pos=dev(pos), row_padded=dev(rp),
-                    valid_mask=dev(valid))
+        perm = np.where(valid, orig, 0).astype(np.int32)
+        pad = np.zeros(extra * chunk, np.int32)
+        maps = dict(edge_perm=dev(np.concatenate([perm, pad])),
+                    edge_pos=dev(pos), row_padded=dev(np.concatenate([rp,
+                                                                      pad])),
+                    valid_mask=dev(np.concatenate([valid,
+                                                   pad.astype(bool)])))
     return SpmmPlan(
         col_padded=dev(col_padded),
         chunk_tile=dev(chunk_tile),
@@ -253,6 +279,43 @@ def _check_cuda(name, t, dtype, shape=None, device=None):
                          f'{tuple(t.shape)}')
 
 
+def _launch_k1(x: torch.Tensor, idx: Optional[torch.Tensor], plan: SpmmPlan,
+               scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check K1's inputs and launch it: ``x[idx[p]]``, or ``x[p]`` when
+    ``idx`` is ``None``, summed over each row's slots."""
+    dev = x.device
+    if x.dim() != 2 or x.dtype not in DTYPE_CODE:
+        raise ValueError(f'x must be a 2-D f32/bf16/int8 tensor, got '
+                         f'{x.dtype} of shape {tuple(x.shape)}')
+    num_tiles = plan.tile_ptr.shape[0]
+    f = x.shape[1]
+    _check_cuda('x', x, x.dtype, device=dev)
+    _check_cuda('col_padded', plan.col_padded, torch.int32, device=dev)
+    _check_cuda('tile_ptr', plan.tile_ptr, torch.int32,
+                (num_tiles, PTR_SUB, TP), dev)
+    if idx is None and x.shape[0] < plan.col_padded.shape[0]:
+        raise ValueError(f'msgs_padded must have at least E_pad = '
+                         f'{plan.col_padded.shape[0]} rows, got {x.shape[0]}')
+    if scale is not None:
+        _check_cuda('scale', scale, torch.float32, (f, ), dev)
+    if x.shape[0] >= 2**31 or plan.col_padded.numel() >= 2**31:
+        raise ValueError('K1 indexes rows and slots with int32')
+    out = torch.empty((plan.num_rows, f), dtype=torch.float32, device=dev)
+    if plan.num_rows == 0 or f == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _k1_lib()(x.data_ptr(), DTYPE_CODE[x.dtype],
+                        None if idx is None else idx.data_ptr(),
+                        plan.tile_ptr.data_ptr(),
+                        None if scale is None else scale.data_ptr(),
+                        out.data_ptr(), num_tiles, plan.num_rows, f,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'K1 (spmm_chunked.cu) launch failed: CUDA error '
+                           f'{err}')
+    return out
+
+
 def spmm_chunked(x: torch.Tensor, plan: SpmmPlan,
                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: ``out[r] = scale * Σ_{p in row r} x[col_padded[p]]`` as
@@ -265,37 +328,33 @@ def spmm_chunked(x: torch.Tensor, plan: SpmmPlan,
     """
     if not x.is_cuda:
         return spmm_chunked_plain(x, plan, scale)
-    dev = x.device
-    if x.dim() != 2 or x.dtype not in DTYPE_CODE:
-        raise ValueError(f'x must be a 2-D f32/bf16/int8 tensor, got '
-                         f'{x.dtype} of shape {tuple(x.shape)}')
-    num_tiles = plan.tile_ptr.shape[0]
-    f = x.shape[1]
-    _check_cuda('x', x, x.dtype, device=dev)
-    _check_cuda('col_padded', plan.col_padded, torch.int32, device=dev)
-    _check_cuda('tile_ptr', plan.tile_ptr, torch.int32,
-                (num_tiles, PTR_SUB, TP), dev)
-    if scale is not None:
-        _check_cuda('scale', scale, torch.float32, (f, ), dev)
-    if x.shape[0] >= 2**31 or plan.col_padded.numel() >= 2**31:
-        raise ValueError('K1 indexes rows and slots with int32')
-    out = torch.empty((plan.num_rows, f), dtype=torch.float32, device=dev)
-    if plan.num_rows == 0 or f == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = _k1_lib()(x.data_ptr(), DTYPE_CODE[x.dtype],
-                        plan.col_padded.data_ptr(), plan.tile_ptr.data_ptr(),
-                        None if scale is None else scale.data_ptr(),
-                        out.data_ptr(), num_tiles, plan.num_rows, f,
-                        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'K1 (spmm_chunked.cu) launch failed: CUDA error '
-                           f'{err}')
+    out = _launch_k1(x, plan.col_padded, plan, scale)
     spmm_chunked.launches += 1
     return out
 
 
 spmm_chunked.launches = 0
+
+
+def segment_sum_chunked(msgs_padded: torch.Tensor,
+                        plan: SpmmPlan) -> torch.Tensor:
+    """K1 without the gather: ``out[r] = Σ_{p in row r} msgs_padded[p]`` as
+    ``[num_rows, F]`` f32, for messages already in the plan's padded
+    coordinates (``[E_pad, F]``, f32, bf16 or int8; pad slots are read by
+    no row).
+
+    A CUDA tensor launches K1 with no column index; a CPU tensor runs
+    :func:`segment_sum_chunked_plain`. ``segment_sum_chunked.launches``
+    counts these launches, apart from :func:`spmm_chunked`'s.
+    """
+    if not msgs_padded.is_cuda:
+        return segment_sum_chunked_plain(msgs_padded, plan)
+    out = _launch_k1(msgs_padded, None, plan, None)
+    segment_sum_chunked.launches += 1
+    return out
+
+
+segment_sum_chunked.launches = 0
 
 
 def spmm_plan_apply(x: torch.Tensor, plan: SpmmPlan,

@@ -1,12 +1,13 @@
 """Planned SpMM — the fused full-graph message-passing aggregation.
 
-Port of ``pyg_lib_tpu/ops/spmm.py`` (sum/add/mean over the chunked and
-the deduplicated plans, max/min over the chunked and the dedup min/max
-plans, and the padded-space max/min). :func:`build_spmm_graph` builds the
-forward plan and the plan of the transposed graph on the host once per
-graph; :func:`spmm` runs them. The sum's gradient is the same kernel over
-the transpose plan, d/dx (A @ x) = Aᵀ @ g; the max/min gradient goes to
-each row's winning source row only.
+Port of ``pyg_lib_tpu/ops/spmm.py`` (sum/add/mean over the chunked, the
+deduplicated and the range-split plans, max/min over the chunked and the
+dedup min/max plans, and the padded-space primitives of attention layers).
+:func:`build_spmm_graph` builds the forward plan and the plan of the
+transposed graph on the host once per graph; :func:`spmm` runs them. The
+sum's gradient is the same kernel over the transpose plan,
+d/dx (A @ x) = Aᵀ @ g; the max/min gradient goes to each row's winning
+source row only.
 """
 
 from typing import NamedTuple, Optional, Union
@@ -16,9 +17,12 @@ import torch
 
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (POS_NONE,
                                                           segment_max_kernel)
+from pyg_lib_tpu_torch.ops.kernels.segment_softmax import (
+    segment_softmax_planned)
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (TR, SpmmPlan,
                                                         auto_chunk,
                                                         build_spmm_plan,
+                                                        segment_sum_chunked,
                                                         spmm_plan_apply)
 from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (DedupSpmmPlan,
                                                       build_dedup_plan,
@@ -27,12 +31,31 @@ from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (DedupSpmmPlan,
 from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import (
     DedupMinmaxPlan, build_dedup_minmax_plan, dedup_minmax, dedup_pairs,
     estimate_minmax_config)
+from pyg_lib_tpu_torch.ops.kernels.spmm_range_fused import (
+    FusedRangePlan, _column_range_csrs, _equal_ranges, build_fused_range_plan,
+    fused_range_apply)
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['SpmmGraph', 'build_spmm_graph', 'segment_max_padded',
-           'segment_min_padded', 'spmm']
+__all__ = ['RangeSpmmPlan', 'SpmmGraph', 'build_spmm_graph',
+           'build_weighted_fused_graph', 'sddmm', 'segment_max_padded',
+           'segment_min_padded', 'segment_softmax_padded',
+           'segment_sum_padded', 'spmm']
 
-Plan = Union[SpmmPlan, DedupSpmmPlan]
+
+class RangeSpmmPlan(NamedTuple):
+    """Column-range-partitioned schedule: one chunked plan per source-node
+    range ``[lo, hi)`` over the edges whose column falls in it (columns
+    rebased, every range padded to one chunk count); applying it sums the
+    per-range K1 results over ``x[lo:hi]``. The JAX package splits so
+    that each gather reads a smaller table on the TPU; the port keeps it
+    for parity (``range_fused=True`` gives the one-pass K7 plan)."""
+    plans: tuple  # per-range SpmmPlan, cols rebased to the range
+    bounds: tuple  # ((lo, hi), ...) source-node ranges
+    num_rows: int
+    num_edges: int
+
+
+Plan = Union[SpmmPlan, DedupSpmmPlan, RangeSpmmPlan, FusedRangePlan]
 
 
 class SpmmGraph(NamedTuple):
@@ -63,9 +86,79 @@ def _transpose_csr(rowptr, col, num_cols, return_order: bool = False):
     return t_ptr, t_col
 
 
+def _plan_chunks(rp, chunk: int) -> int:
+    """Chunk count of the (floored) padded layout of ``rp``."""
+    num_rows = rp.shape[0] - 1
+    tb = np.minimum(
+        np.arange(num_rows // TR + (num_rows % TR > 0) + 1) * TR, num_rows)
+    counts = rp[tb[1:]] - rp[tb[:-1]]
+    return int(np.maximum(-(-counts // chunk), 1).sum())
+
+
+def _build_range_plan(rowptr, col, num_cols: int, range_split: int, chunk,
+                      pad_to_chunks: Optional[int] = None,
+                      device=None) -> RangeSpmmPlan:
+    bounds = _equal_ranges(num_cols, range_split)
+    csrs = _column_range_csrs(rowptr, col, bounds)
+    if chunk == 'auto':  # sized on the per-range CSRs, ~1/S as dense
+        chunk = max(auto_chunk(rp) for rp, _, _ in csrs)
+    # Every range padded to one chunk count, as in the JAX package (where
+    # it lets the S applications share one compiled kernel).
+    cmax = max(_plan_chunks(rp, chunk) for rp, _, _ in csrs)
+    if pad_to_chunks is not None:
+        cmax = max(cmax, pad_to_chunks)
+    plans = [build_spmm_plan(rp, cl, chunk=chunk, pad_to_chunks=cmax,
+                             device=device) for rp, cl, _ in csrs]
+    return RangeSpmmPlan(plans=tuple(plans), bounds=tuple(bounds),
+                         num_rows=int(rowptr.shape[0] - 1),
+                         num_edges=int(col.shape[0]))
+
+
+def _range_plan_apply(x: torch.Tensor, rp: RangeSpmmPlan,
+                      precision: Optional[str] = None) -> torch.Tensor:
+    """K1 per range over the row slice ``x[lo:hi]`` (a view), partial
+    results added."""
+    out = None
+    for (lo, hi), plan in zip(rp.bounds, rp.plans):
+        o = spmm_plan_apply(x[lo:hi], plan, precision=precision)
+        out = o if out is None else out + o
+    return out
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1 '
                                f'item {item})')
+
+
+def build_weighted_fused_graph(rowptr, col, num_cols: int, bounds,
+                               edge_weight, chunk='auto', bounds_t=None,
+                               device=None) -> SpmmGraph:
+    """A fused-range :class:`SpmmGraph` with per-edge weights baked in:
+    ``out[r] = Σ_e w_e · x[col_e]`` over the explicit column ``bounds``
+    (kernel K7 on both sides), with its tensors on ``device`` (default:
+    the CUDA card).
+
+    Differentiable through :func:`spmm`: the transpose plan carries the
+    same weights, so ``grad_x = Σ_e w_e · g[row_e]``; the weights are plan
+    constants. ``bounds_t`` range-partitions the transpose plan the same
+    way (destination-row ranges of the forward graph).
+    """
+    device = _resolve_device(device)
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    col = np.asarray(col, dtype=np.int64)
+    edge_weight = np.asarray(edge_weight, dtype=np.float32)
+    num_rows = rowptr.shape[0] - 1
+    fwd = build_fused_range_plan(rowptr, col, num_cols, 1, chunk=chunk,
+                                 bounds=bounds, edge_weight=edge_weight,
+                                 device=device)
+    t_ptr, t_col, order = _transpose_csr(rowptr, col, num_cols,
+                                         return_order=True)
+    bwd = build_fused_range_plan(t_ptr, t_col, num_rows, 1, chunk=chunk,
+                                 bounds=bounds_t,
+                                 edge_weight=edge_weight[order],
+                                 device=device)
+    deg = torch.from_numpy(np.diff(rowptr).astype(np.float32)).to(device)
+    return SpmmGraph(fwd=fwd, bwd=bwd, deg=deg)
 
 
 def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
@@ -95,11 +188,15 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
     :func:`estimate_minmax_config`. Without it, max/min need a chunked
     ``fwd``.
 
-    ``range_split``, ``range_fused`` and ``reorder`` are not ported yet
-    and raise ``NotImplementedError``.
+    ``range_split=S`` (S > 1) builds :class:`RangeSpmmPlan` schedules
+    over S equal source-node ranges (K1 per range, sum/mean only);
+    ``range_fused=True`` builds ``FusedRangePlan`` schedules instead, which
+    kernel K7 applies in one pass that writes each output row once.
+    ``chunk='auto'`` is then sized on the per-range CSRs. Both refuse
+    ``with_edge_maps`` and ``dedup``.
+
+    ``reorder`` is not ported yet and raises ``NotImplementedError``.
     """
-    if range_split > 1 or range_fused:
-        raise _not_ported('range_split / range_fused', '9')
     if reorder not in ('off', False):
         raise _not_ported("reorder != 'off'", '12 (partition/)')
     if dedup not in ('off', 'auto', 'on', False, True):
@@ -127,12 +224,12 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
             mm = build_dedup_minmax_plan(rp_d, cl_d, ec=ec_mm, uc=uc_mm,
                                          _pre_deduped=True, device=device)
             mm = mm._replace(num_edges=int(col.shape[0]))
-        elif dedup != 'off':
+        elif dedup != 'off' or range_split > 1:
             mm = build_spmm_plan(rp_d, cl_d, chunk=512, device=device)
     if edge_weight is not None and dedup == 'off':
         raise ValueError('edge_weight requires dedup="on"/"auto"')
     if dedup != 'off':
-        if with_edge_maps:
+        if with_edge_maps or range_split > 1:
             raise ValueError('dedup is incompatible with with_edge_maps '
                              'and range_split')
         ec = auto_chunk(rowptr) if chunk == 'auto' else int(chunk)
@@ -152,6 +249,23 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
 
         return SpmmGraph(fwd=side(rowptr, col, edge_weight),
                          bwd=side(t_ptr, t_col, t_weight), deg=deg, mm=mm)
+    if range_split > 1:
+        if with_edge_maps:
+            raise ValueError('range_split is incompatible with '
+                             'with_edge_maps (padded-space ops need the '
+                             'single-plan edge layout)')
+        t_ptr, t_col = _transpose_csr(rowptr, col, num_cols)
+        if range_fused:
+            fwd = build_fused_range_plan(rowptr, col, num_cols, range_split,
+                                         chunk, device=device)
+            bwd = build_fused_range_plan(t_ptr, t_col, num_rows, range_split,
+                                         chunk, device=device)
+        else:
+            fwd = _build_range_plan(rowptr, col, num_cols, range_split, chunk,
+                                    device=device)
+            bwd = _build_range_plan(t_ptr, t_col, num_rows, range_split,
+                                    chunk, device=device)
+        return SpmmGraph(fwd=fwd, bwd=bwd, deg=deg, mm=mm)
     if chunk == 'auto':
         chunk = auto_chunk(rowptr)
     fwd = build_spmm_plan(rowptr, col, chunk=chunk,
@@ -166,6 +280,10 @@ def _plan_apply_any(x: torch.Tensor, plan: Plan,
                     precision: Optional[str] = None) -> torch.Tensor:
     if isinstance(plan, DedupSpmmPlan):
         return dedup_plan_apply(x, plan, precision=precision)
+    if isinstance(plan, FusedRangePlan):
+        return fused_range_apply(x, plan, precision=precision)
+    if isinstance(plan, RangeSpmmPlan):
+        return _range_plan_apply(x, plan, precision=precision)
     return spmm_plan_apply(x, plan, precision=precision)
 
 
@@ -220,8 +338,8 @@ def spmm(x: torch.Tensor, graph: SpmmGraph, reduce: str = 'sum',
         if not isinstance(plan, (SpmmPlan, DedupMinmaxPlan)):
             raise ValueError(
                 "spmm reduce='max'/'min' needs a single-plan graph or one "
-                "built with minmax='auto'/'on' (dedup plans carry no "
-                'min/max schedule of their own)')
+                "built with minmax='auto'/'on' (range_split/dedup plans "
+                'carry no min/max schedule of their own)')
         empty = (graph.deg < 0.5)[:, None]
         idx = plan.col_padded if isinstance(plan, SpmmPlan) else None
         return _ExactMax.apply(x, plan, idx, reduce == 'min',
@@ -299,3 +417,91 @@ def _gathered_max_padded(src: torch.Tensor,
     values and gradient are the same."""
     return _ExactMax.apply(src, plan, plan.col_padded, False,
                            ~_rows_nonempty(plan)[:, None])
+
+
+# -- padded-space primitives (attention layers) -------------------------------
+#
+# These work in a chunked plan's padded edge coordinates, so a GAT layer
+# (gather, attention logits, per-row softmax, weighted aggregation) needs no
+# per-edge permutation: one gather in, one write of the output rows.
+
+
+def _need_edge_maps(plan, what: str):
+    if not isinstance(plan, SpmmPlan) or plan.row_padded is None:
+        raise ValueError(f'{what} needs a plan built with_edge_maps=True '
+                         f'(the VJP uses row_padded)')
+
+
+class _SegmentSumPadded(torch.autograd.Function):
+    """K1 over padded messages; the gradient of slot ``p`` is its row's
+    cotangent, 0 at pad slots."""
+
+    @staticmethod
+    def forward(ctx, msgs_padded, plan):
+        ctx.plan, ctx.dtype = plan, msgs_padded.dtype
+        return segment_sum_chunked(msgs_padded.contiguous(), plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        # Pad slots alias row 0 through row_padded: the mask zeroes them
+        # (in place, so one [E_pad, F] slab is written, not two).
+        grad = g.index_select(0, plan.row_padded)
+        grad.mul_(plan.valid_mask[:, None])
+        return grad.to(ctx.dtype), None
+
+
+def segment_sum_padded(msgs_padded: torch.Tensor,
+                       plan: SpmmPlan) -> torch.Tensor:
+    """``out[r] = Σ msgs_padded[slots of row r]`` as ``[num_rows, F]`` f32
+    (kernel K1 without the gather). Needs a plan built
+    ``with_edge_maps=True``; the backward is ``g[row_padded]`` with pad
+    slots 0."""
+    _need_edge_maps(plan, 'segment_sum_padded')
+    return _SegmentSumPadded.apply(msgs_padded, plan)
+
+
+class _SegmentSoftmaxPadded(torch.autograd.Function):
+    """K6 forward; the closed-form backward ``out * (g - Σ_row(out·g))``
+    with the row sums through K1."""
+
+    @staticmethod
+    def forward(ctx, x_padded, plan):
+        out = segment_softmax_planned(x_padded.contiguous(), plan)
+        ctx.save_for_backward(out)
+        ctx.plan = plan
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out, ) = ctx.saved_tensors
+        plan = ctx.plan
+        og = out * g
+        s = segment_sum_chunked(og.contiguous(), plan)
+        grad = out.float() * (g.float() - s.index_select(0, plan.row_padded))
+        return grad.to(out.dtype), None
+
+
+def segment_softmax_padded(x_padded: torch.Tensor,
+                           plan: SpmmPlan) -> torch.Tensor:
+    """Per-row softmax in padded edge coordinates (kernel K6), ``[E_pad,
+    F]`` in ``x_padded``'s type with pad slots 0. Needs a plan built
+    ``with_edge_maps=True``. The backward is the closed form
+    ``out * (g - Σ_row(out·g))``, its row sums through K1."""
+    _need_edge_maps(plan, 'segment_softmax_padded')
+    return _SegmentSoftmaxPadded.apply(x_padded, plan)
+
+
+def sddmm(x: torch.Tensor, y: torch.Tensor, graph: SpmmGraph) -> torch.Tensor:
+    """Sampled dense-dense matmul, ``out[e] = <x[row_e], y[col_e]>``, as
+    ``[num_edges]`` in the original edge order: per-edge scores from node
+    embeddings (attention logits, link prediction). Runs in the forward
+    plan's padded coordinates (``with_edge_maps=True``) with plain
+    PyTorch gathers, as the JAX package has no kernel for it;
+    differentiable by autograd."""
+    plan = graph.fwd
+    if not isinstance(plan, SpmmPlan) or plan.row_padded is None:
+        raise ValueError('sddmm needs build_spmm_graph(with_edge_maps=True)')
+    xs = x.index_select(0, plan.row_padded)
+    ys = y.index_select(0, plan.col_padded)
+    return (xs * ys).sum(-1).index_select(0, plan.edge_pos)

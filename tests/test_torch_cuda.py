@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1, K2, K2h, K3, K4 and K5 against their plain
-versions, on the card.
+"""The port's CUDA kernels K1 (and its ``msgs_padded`` entry), K2, K2h, K3,
+K4, K5, K6 and K7 against their plain versions, on the card.
 
 Every test here needs an NVIDIA card with ``nvcc`` (marker ``cuda``) and
 skips without one. The file imports nothing of JAX, so it also runs where
@@ -13,7 +13,15 @@ from run to run), so ``|kernel - plain| <= 1e-5 * Σ|terms| + 1e-5``
 elementwise, with ``Σ|terms|`` the plain version's sum of absolute values.
 K3 in bf16 rounds that sum to bf16 once, so one bf16 step of the result,
 ``2**-8 * |plain|``, is added there. K4 and K5 are exact: values and
-positions equal bit for bit (``-0.0`` and ``+0.0`` told apart).
+positions equal bit for bit (``-0.0`` and ``+0.0`` told apart). K7 adds
+``w·x`` with a fused multiply-add where its plain version rounds the
+product first, inside the same bound. K6 and its plain version compute
+each value as ``exp(x - max) / Σ``: the exponentials differ by a few f32
+ulps and the sums of a row of ``n`` slots, added in another order, by at
+most ``n·2**-24`` of the sum each, so
+``|kernel - plain| <= (1e-5 + n·2**-23)·|plain| + 1e-7`` (plus one bf16
+step, ``2**-7·|plain|``, in bf16), and NaN exactly where the plain
+version has NaN.
 """
 
 import functools
@@ -376,3 +384,213 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops.segment_max_kernel(x[:10], plan)
     with pytest.raises(ValueError, match='contiguous'):
         ops.dedup_minmax(torch.randn((8, 3000), device=dev).t(), mplan)
+
+
+# -- K6, K1's msgs_padded entry, K7 -------------------------------------------
+
+
+def _k6_check(got, ref, plan):
+    """K6 against its plain version within the bound of the docstring."""
+    slot, row = ops.kernels.spmm_chunked._padded_rows(plan.tile_ptr)
+    slot, row = slot.cpu(), row.cpu()
+    if got.shape[0] != plan.col_padded.shape[0]:  # index mode
+        slot = plan.edge_perm.cpu()[slot].long()
+    counts = torch.bincount(row, minlength=max(plan.num_rows, 1))
+    n = torch.zeros(ref.shape[0])
+    n[slot] = counts[row].float()
+    bf16 = got.dtype == torch.bfloat16
+    got, ref = got.float().cpu(), ref.float().cpu()
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    mag = ref.abs().masked_fill(nan, 0.0)
+    tol = (1e-5 + n[:, None] * 2.0**-23 + (2.0**-7 if bf16 else 0.0)) * mag
+    err = (got - ref).abs().masked_fill(nan, 0.0)
+    return bool((err <= tol + 1e-7).all())
+
+
+def _k6_values(rows, f, seed, device, dtype):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randn((rows, f), generator=gen, device=device) * 4
+    v[::13] += 80.0  # rows far above and far below the rest
+    v[5::17] -= 80.0
+    v[3::11, 0] = float('-inf')
+    return v.to(dtype)
+
+
+@pytest.mark.parametrize('graph', list(GRAPHS))
+@pytest.mark.parametrize('f', [1, 4, 47, 512])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('mode', ['padded', 'edge_perm'])
+def test_k6_matches_plain(dev, graph, f, dtype, mode):
+    rowptr, col = GRAPHS[graph]()
+    plan = ops.build_spmm_plan(rowptr, col, chunk=128, with_edge_maps=True,
+                               device=dev)
+    idx = None if mode == 'padded' else plan.edge_perm
+    rows = plan.col_padded.shape[0] if idx is None else max(col.shape[0], 1)
+    src = _k6_values(rows, f, f, dev, dtype)
+    got = ops.segment_softmax_planned(src, plan, idx)
+    torch.cuda.synchronize()
+    ref = ops.segment_softmax_plain(src, plan, idx)
+    assert got.shape == ref.shape and got.dtype == dtype
+    if idx is None:
+        pads = ~plan.valid_mask
+        assert not bool(got[pads].float().abs().sum())
+    assert _k6_check(got, ref, plan)
+
+
+@pytest.mark.parametrize('graph', list(GRAPHS))
+@pytest.mark.parametrize('f', [1, 47, 300])
+@pytest.mark.parametrize('mode', ['f32', 'bf16', 'int8'])
+def test_k1_msgs_entry_matches_plain(dev, graph, f, mode):
+    plan = _plan(f'k1_{graph}', dev)
+    xm, _ = _inputs(plan.col_padded.shape[0], f, mode, dev)
+    got = ops.segment_sum_chunked(xm, plan)
+    torch.cuda.synchronize()
+    ref = ops.segment_sum_chunked_plain(xm, plan)
+    mag = ops.segment_sum_chunked_plain(xm.abs(), plan)
+    assert got.shape == ref.shape == (plan.num_rows, f)
+    assert bool(((got - ref).abs() <= RTOL * mag + ATOL).all())
+
+
+def _k7_plan(kind, device):
+    if kind == 'empty':
+        rowptr, col = GRAPHS['empty']()
+        return ops.build_fused_range_plan(rowptr, col, 200, 4, chunk=128,
+                                          device=device), 200
+    rowptr, col = GRAPHS['powerlaw']()
+    w = np.random.default_rng(6).normal(size=col.shape[0]).astype(np.float32)
+    if kind == 'skewed':  # ranges 0 and 3 only, each empty in half the tiles
+        row = np.repeat(np.arange(3000), np.diff(rowptr))
+        col = np.where(row < 1500, col % 700, 2300 + col % 700)
+    kw = {'S1': dict(range_split=1), 'S2': dict(range_split=2),
+          'S4': dict(range_split=4), 'skewed': dict(range_split=4),
+          'bounds': dict(range_split=1, bounds=[(0, 7), (7, 1500),
+                                                (1500, 3000)]),
+          'weighted': dict(range_split=3, edge_weight=w)}[kind]
+    s = kw.pop('range_split')
+    return ops.build_fused_range_plan(rowptr, col, 3000, s, chunk=128,
+                                      device=device, **kw), 3000
+
+
+@pytest.mark.parametrize('kind', ['S1', 'S2', 'S4', 'skewed', 'bounds',
+                                  'weighted', 'empty'])
+@pytest.mark.parametrize('f', [1, 47, 300])
+@pytest.mark.parametrize('mode', ['f32', 'bf16', 'int8'])
+def test_k7_matches_plain(dev, kind, f, mode):
+    plan, n = _k7_plan(kind, dev)
+    if kind == 'weighted' and mode == 'int8':
+        with pytest.raises(ValueError, match='int8'):
+            ops.fused_range_sum(torch.zeros((n, f), dtype=torch.int8,
+                                            device=dev), plan)
+        return
+    xm, scale = _inputs(n, f, mode, dev)
+    got = ops.fused_range_sum(xm, plan, scale)
+    torch.cuda.synchronize()
+    ref = ops.fused_range_plain(xm, plan, scale)
+    absw = plan if plan.weights is None else plan._replace(
+        weights=tuple(w.abs() for w in plan.weights))
+    mag = ops.fused_range_plain(xm.abs(), absw,
+                                None if scale is None else scale.abs())
+    assert got.shape == ref.shape == (plan.num_rows, f)
+    assert bool(((got - ref).abs() <= RTOL * mag + ATOL).all())
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('precision', [None, 'bf16', 'int8'])
+def test_range_spmm_and_grad_match_cpu(dev, fused, precision):
+    rowptr, col = GRAPHS['powerlaw']()
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3000, 40)).astype(np.float32)
+    cot = rng.normal(size=(3000, 40)).astype(np.float32)
+    outs = []
+    for device in ('cpu', dev):
+        graph = ops.build_spmm_graph(rowptr, col, chunk='auto', range_split=4,
+                                     range_fused=fused, device=device)
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        out = ops.spmm(xt, graph, 'mean', precision)
+        (grad, ) = torch.autograd.grad(
+            (out * torch.tensor(cot, device=device)).sum(), xt)
+        outs.append((out.detach().cpu(), grad.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-4)
+
+
+def test_attention_and_range_launches_are_counted(dev):
+    from pyg_lib_tpu_torch.models import GAT
+
+    rowptr, col = GRAPHS['powerlaw']()
+    graph = ops.build_spmm_graph(rowptr, col, with_edge_maps=True,
+                                 device=dev)
+    model = GAT([16, 8, 4], heads=4,
+                generator=torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn((3000, 16), device=dev)
+
+    def count():
+        return (ops.segment_softmax_planned.launches,
+                ops.segment_sum_chunked.launches, ops.spmm_chunked.launches,
+                ops.fused_range_sum.launches)
+
+    before = count()
+    model(x, graph).sum().backward()
+    # Forward: K6 and K1-msgs per layer; backward: K1-msgs for the softmax
+    # row sums per layer.
+    assert tuple(a - b for a, b in zip(count(), before)) == (2, 4, 0, 0)
+    fused = ops.build_spmm_graph(rowptr, col, range_split=4, range_fused=True,
+                                 device=dev)
+    xs = torch.randn((3000, 16), device=dev, requires_grad=True)
+    before = count()
+    ops.spmm(xs, fused).sum().backward()
+    assert tuple(a - b for a, b in zip(count(), before)) == (0, 0, 0, 2)
+    split = ops.build_spmm_graph(rowptr, col, range_split=4, device=dev)
+    before = count()
+    ops.spmm(xs, split).sum().backward()
+    assert tuple(a - b for a, b in zip(count(), before)) == (0, 0, 8, 0)
+    before = count()
+    ptr = torch.arange(0, 70001, 7, device=dev)
+    ops.softmax_csr(torch.randn((70000, 4), device=dev), ptr)
+    assert tuple(a - b for a, b in zip(count(), before)) == (1, 0, 0, 0)
+
+
+@pytest.mark.parametrize('graph', ['ragged', 'powerlaw'])
+def test_gat_forward_and_grads_match_cpu(dev, graph):
+    from pyg_lib_tpu_torch.models import GAT
+
+    rowptr, col = GRAPHS[graph]()
+    n = rowptr.shape[0] - 1
+    x = np.random.default_rng(8).normal(size=(n, 32)).astype(np.float32)
+    outs = []
+    for device in ('cpu', dev):
+        g = ops.build_spmm_graph(rowptr, col, with_edge_maps=True,
+                                 device=device)
+        model = GAT([32, 16, 8], heads=4,
+                    generator=torch.Generator().manual_seed(1), device=device)
+        out = model(torch.tensor(x, device=device), g)
+        grads = torch.autograd.grad(out.square().sum(),
+                                    list(model.parameters()))
+        outs.append([out.detach().cpu()] + [t.cpu() for t in grads])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(a.abs().max())))
+
+
+def test_attention_and_range_wrappers_refuse(dev):
+    rowptr, col = GRAPHS['ragged']()
+    plan = ops.build_spmm_plan(rowptr, col, chunk=128, with_edge_maps=True,
+                               device=dev)
+    e_pad = plan.col_padded.shape[0]
+    with pytest.raises(ValueError, match='f32/bf16'):
+        ops.segment_softmax_planned(torch.zeros((e_pad, 4), device=dev,
+                                                dtype=torch.float64), plan)
+    with pytest.raises(ValueError, match='E_pad'):
+        ops.segment_softmax_planned(torch.zeros((e_pad - 1, 4), device=dev),
+                                    plan)
+    with pytest.raises(ValueError, match='index'):
+        ops.segment_softmax_planned(torch.zeros((12000, 4), device=dev), plan,
+                                    plan.edge_perm.long())
+    with pytest.raises(ValueError, match='msgs_padded'):
+        ops.segment_sum_chunked(torch.zeros((e_pad - 1, 4), device=dev), plan)
+    fplan, n = _k7_plan('S2', dev)
+    with pytest.raises(ValueError, match='rows'):
+        ops.fused_range_sum(torch.zeros((n - 1, 4), device=dev), fplan)
+    with pytest.raises(ValueError, match='contiguous'):
+        ops.fused_range_sum(torch.zeros((4, n), device=dev).t(), fplan)

@@ -22,8 +22,8 @@ import pyg_lib_tpu_torch
 from pyg_lib_tpu import ops as jops
 from pyg_lib_tpu.models import gnn as jgnn
 from pyg_lib_tpu_torch import ops
-from pyg_lib_tpu_torch.models import (GCN, SAGE, gcn_forward_spmm,
-                                      gcn_params_from_jax,
+from pyg_lib_tpu_torch.models import (GAT, GCN, SAGE, gat_params_from_jax,
+                                      gcn_forward_spmm, gcn_params_from_jax,
                                       sage_params_from_jax)
 from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
 from test_torch_spmm import (ATOL, RTOL, features, powerlaw_graph,
@@ -136,7 +136,10 @@ def test_package_imports_neither_jax_nor_reference():
             'pyg_lib_tpu_torch.ops.kernels.plan_cache, '
             'pyg_lib_tpu_torch.ops.kernels.segment_csr, '
             'pyg_lib_tpu_torch.ops.kernels.segment_minmax, '
-            'pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax; '
+            'pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax, '
+            'pyg_lib_tpu_torch.ops.softmax, '
+            'pyg_lib_tpu_torch.ops.kernels.segment_softmax, '
+            'pyg_lib_tpu_torch.ops.kernels.spmm_range_fused; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyg_lib_tpu')); "
             'assert not bad, bad')
@@ -160,7 +163,8 @@ def test_sources_import_neither_jax_nor_reference():
     files.append(REPO / 'chip_smoke.py')
     names = {p.name for p in files}
     assert {'segment_csr.py', 'segment_minmax.py', 'spmm_dedup_minmax.py',
-            'plan_cache.py', 'gnn.py'} <= names and len(files) > 14
+            'plan_cache.py', 'gnn.py', 'softmax.py', 'segment_softmax.py',
+            'spmm_range_fused.py'} <= names and len(files) > 17
     for path in files:
         bad = _imported_roots(path) & {'jax', 'jaxlib', 'pyg_lib_tpu'}
         assert not bad, f'{path.relative_to(REPO)} imports {bad}'
@@ -177,7 +181,15 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
                   lambda: plan_for_ptr(rowptr),
                   lambda: GCN(DIMS), lambda: SAGE(DIMS),
                   lambda: gcn_params_from_jax(_jax_params(2)),
-                  lambda: sage_params_from_jax(_jax_params(2))):
+                  lambda: sage_params_from_jax(_jax_params(2)),
+                  lambda: ops.build_spmm_graph(rowptr, col, range_split=2),
+                  lambda: ops.build_spmm_graph(rowptr, col, range_split=2,
+                                               range_fused=True),
+                  lambda: ops.build_fused_range_plan(rowptr, col, 50, 2),
+                  lambda: ops.build_weighted_fused_graph(
+                      rowptr, col, 50, [(0, 50)], np.ones(len(col))),
+                  lambda: GAT([8, 8, 4]),
+                  lambda: gat_params_from_jax(_jax_params(2))):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             build()
     assert pyg_lib_tpu_torch.cuda_version() == ''
@@ -193,12 +205,13 @@ def test_spmm_refuses_mixed_devices_and_unported_options():
             ops.spmm(bad, graph)
     with pytest.raises(ValueError, match='reduce must be'):
         ops.spmm(torch.zeros((50, 4)), graph, reduce='prod')
-    for kw in (dict(range_split=2), dict(range_fused=True),
-               dict(reorder='rcm')):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ops.build_spmm_graph(rowptr, col, device='cpu', **kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ops.build_spmm_plan(rowptr, col, pad_to_chunks=4, device='cpu')
+    # range_split, range_fused and build_spmm_plan(pad_to_chunks=...) are
+    # ported (tests/test_torch_range.py); reorder and the dedup plan's
+    # pad_to_chunks still name their ROADMAP items.
+    with pytest.raises(NotImplementedError, match='ROADMAP.*12'):
+        ops.build_spmm_graph(rowptr, col, device='cpu', reorder='rcm')
+    with pytest.raises(NotImplementedError, match='ROADMAP.*10'):
+        ops.build_dedup_plan(rowptr, col, pad_to_chunks=4, device='cpu')
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
