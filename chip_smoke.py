@@ -31,7 +31,9 @@ The script:
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (empty rows, partial tiles, -inf rows, ties and both
    zeros, rows far above and below the rest, empty ranges and empty
-   tiles; f32, bf16 and int8 where the kernel takes them);
+   tiles, a hub tile of hundreds of chunks, F=600 for K2, a hot_w
+   replaced or changed after a K2h call, a K2 plan whose uc leaves room
+   for one slab; f32, bf16 and int8 where the kernel takes them);
 3. builds the graphs and holds each kernel against its plain version at
    the main paths' shapes (F=512 and F=47; F=4, the head count, for K6);
 4. drives each path with every launch count set to 0 just before it and
@@ -40,9 +42,10 @@ The script:
    plain versions;
 6. times each kernel at F=512 beside its plain version, one PyTorch call
    that computes the same function (timed here only, never used by the
-   port) and its bound, and times ``spmm`` by ``bench.py``'s useful-bytes
-   metric. Each training path also gets one profiled step (device time
-   by kernel, idle share; peak memory for GAT).
+   port; for K4 and K5, which gather x themselves, the gather and the
+   reduce in one call) and its bound, and times ``spmm`` by ``bench.py``'s
+   useful-bytes metric. Each training path also gets one profiled step
+   (device time by kernel, idle share; peak memory for GAT).
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -381,24 +384,53 @@ def main():
     hot_i8 = ops.build_dedup_plan(rp_p, cl_p, ec=256)
     if hot_i8.hot_w is None or hot_i8.hot_w.dtype != torch.int8:
         raise AssertionError('small power-law plan has no int8 hot level')
+    # The transposed power-law graph: its hub rows give one tile hundreds
+    # of chunks, which K2's chunk ranges split at many points.
+    t_rp = np.zeros(3001, np.int64)
+    np.cumsum(np.bincount(cl_p, minlength=3000), out=t_rp[1:])
+    t_cl = np.repeat(np.arange(3000), np.diff(rp_p))[
+        np.argsort(cl_p, kind='stable')]
+    hub_dedup = ops.build_dedup_plan(t_rp, t_cl, ec=128, uc=64, hot='off')
+    if np.bincount(hub_dedup.chunk_tile.cpu().numpy()).max() < 100:
+        raise AssertionError('the hub-tile K2 plan has no tile of 100 '
+                             'chunks')
+    with torch.inference_mode():  # tables cached without version counters
+        hot_inf = ops.build_dedup_plan(rp_p, cl_p, ec=256)
     k2_plans = [
         ('K2', 'plain', plain_dedup),
+        # f32 x leaves room for one slab of 1024 unique rows, not two.
+        ('K2', 'one slab', ops.build_dedup_plan(rp_p, cl_p, ec=1024, uc=1024,
+                                                hot='off')),
         ('K2', 'weighted', ops.build_dedup_plan(rp_p, cl_p, ec=256,
                                                 hot='off', edge_weight=w_p)),
+        ('K2', 'hub tiles', hub_dedup),
         ('K2h', 'hot int8', hot_i8),
         ('K2h', 'hot bf16', hot_i8._replace(
             hot_w=hot_i8.hot_w.to(torch.bfloat16))),
         ('K2h', 'hot f32 weighted', ops.build_dedup_plan(
             rp_p, cl_p, ec=256, edge_weight=w_p)),
+        ('K2h', 'hot int8, built under inference_mode', hot_inf),
     ]
-    for f in (47, 128):
+    for f in (47, 128, 600):
         x = torch.randn((3000, f), generator=gen, device=dev)
         for mode, xm, scale in modes(x):
-            for gname, plan in k1_plans:
-                check(f'{gname} F={f} {mode}', 'K1', xm[:1000] if
-                      gname == 'uniform' else xm, plan, scale)
+            if f != 600:
+                for gname, plan in k1_plans:
+                    check(f'{gname} F={f} {mode}', 'K1', xm[:1000] if
+                          gname == 'uniform' else xm, plan, scale)
             for kid, pname, plan in k2_plans:
                 check(f'{pname} F={f} {mode}', kid, xm, plan, scale)
+        # K2h caches the row list of hot_w's non-zeros: it must follow a
+        # hot_w given by _replace after a first call, and one changed in
+        # place.
+        plan = hot_i8._replace(hot_w=hot_i8.hot_w.clone())
+        kernel(x, plan)
+        plan = plan._replace(hot_w=plan.hot_w.roll(37, 0))
+        check(f'hot int8, hot_w replaced after a call, F={f} f32', 'K2h', x,
+              plan)
+        plan.hot_w[plan.hot_w == 1] = 2
+        plan.hot_w[:5] = 1
+        check(f'hot int8, hot_w changed in place, F={f} f32', 'K2h', x, plan)
 
     # K3 over a ragged CSR with 5 leading and 9 trailing positions of no
     # row; K4 in its three index modes; K5 on a plain plan, on the
@@ -409,10 +441,6 @@ def main():
     k4_modes = [('padded', k4_plan.col_padded.shape[0], None),
                 ('col_padded', 1000, k4_plan.col_padded),
                 ('edge_perm', cl_r.shape[0], k4_plan.edge_perm)]
-    t_rp = np.zeros(3001, np.int64)
-    np.cumsum(np.bincount(cl_p, minlength=3000), out=t_rp[1:])
-    t_cl = np.repeat(np.arange(3000), np.diff(rp_p))[
-        np.argsort(cl_p, kind='stable')]
     k5_plans = [
         ('plain', 3000, ops.build_dedup_minmax_plan(rp_p, cl_p, ec=256,
                                                     uc=96)),
@@ -1080,6 +1108,11 @@ def main():
         row(kid, label, lambda: kernel(xb, plan), lambda: plain(xb, plan),
             lambda: torch.sparse.mm(lib, xb), nbytes, flops,
             'torch.sparse.mm')
+    for kid, label, plan in (('K2h', 'powerlaw fwd', g_p.fwd),
+                             ('K2', 'powerlaw bwd', g_p.bwd)):
+        _, _, top = device_time_by_kernel(lambda: kernel(xb, plan))
+        print(f'  {kid} {label} F={F_BENCH}: one call by kernel (ms): '
+              + '; '.join(f'{name} {t:.3f}' for name, t in top), flush=True)
 
     # K7 on the uniform graph's S=4f plan; beside it the weighted fused
     # plan (against torch.sparse.mm over the weighted CSR) and the
@@ -1104,8 +1137,11 @@ def main():
     del csr, a_w
     torch.cuda.empty_cache()
 
-    # K3 and K4 on the uniform graph, K5 on the power-law min/max plan;
-    # the library call reduces the same messages gathered beforehand.
+    # K3 on the uniform graph's messages (its input is the messages). K4
+    # on the uniform graph and K5 on the power-law min/max plan gather x
+    # themselves, so their library call gathers and reduces in one timed
+    # call; the reduce alone, over messages gathered beforehand, is
+    # printed beside it.
     ptr_f = N_NODES * F_BENCH * 4
     msgs = xb[row_u]
     row('K3', 'uniform CSR', lambda: ops.segment_sum_csr_kernel(msgs, ptr_u),
@@ -1117,26 +1153,39 @@ def main():
         msgs, csr_plan, csr_plan.edge_perm))
     print(f'  K4 uniform CSR edge_perm (sage_forward max) F={F_BENCH}: '
           f'{k4_csr_ms:.3f} ms', flush=True)
+    reduce_only = cuda_ms(lambda: torch.segment_reduce(
+        msgs, 'max', offsets=ptr_u, axis=0))
+    del msgs
+    torch.cuda.empty_cache()
     plan = g_u.fwd
     row('K4', 'uniform fwd col_padded',
         lambda: ops.segment_max_kernel(xb, plan, plan.col_padded),
         lambda: ops.segment_max_plain(xb, plan, plan.col_padded),
-        lambda: torch.segment_reduce(msgs, 'max', offsets=ptr_u, axis=0),
+        lambda: torch.segment_reduce(xb[row_u], 'max', offsets=ptr_u, axis=0),
         ptr_f + plan.col_padded.numel() * 4 + plan.tile_ptr.shape[0] * 129 * 4
-        + 2 * ptr_f, e_u * F_BENCH, 'torch.segment_reduce max')
-    del msgs
+        + 2 * ptr_f, e_u * F_BENCH, 'gather + torch.segment_reduce max')
+    print(f'  K4 library without the gather (torch.segment_reduce max over '
+          f'messages gathered beforehand): {reduce_only:.3f} ms', flush=True)
     torch.cuda.empty_cache()
     mm = g_p.mm
     rp_d, cl_d = ops.dedup_pairs(rp_p, cl_p)
     ptr_d = torch.tensor(rp_d, device=dev)
-    msgs = xb[torch.tensor(cl_d, device=dev)]
+    idx_d = torch.tensor(cl_d, device=dev)
+    msgs = xb[idx_d]
+    reduce_only = cuda_ms(lambda: torch.segment_reduce(
+        msgs, 'max', offsets=ptr_d, axis=0))
+    del msgs
+    torch.cuda.empty_cache()
     row('K5', 'powerlaw mm', lambda: ops.dedup_minmax(xb, mm),
         lambda: ops.dedup_minmax_plain(xb, mm),
-        lambda: torch.segment_reduce(msgs, 'max', offsets=ptr_d, axis=0),
+        lambda: torch.segment_reduce(xb[idx_d], 'max', offsets=ptr_d,
+                                     axis=0),
         ptr_f + mm.uniq_cols.numel() * 4 + mm.num_chunks * 2 * mm.ec * 4 +
         mm.num_chunks * 4 + 2 * ptr_f, cl_d.shape[0] * F_BENCH,
-        'torch.segment_reduce max')
-    del msgs
+        'gather + torch.segment_reduce max')
+    print(f'  K5 library without the gather (torch.segment_reduce max over '
+          f'messages gathered beforehand): {reduce_only:.3f} ms', flush=True)
+    del idx_d
     torch.cuda.empty_cache()
 
     # K6 at the head count's width on the uniform forward plan (GAT's
@@ -1163,9 +1212,22 @@ def main():
         src_tp, plan_tp, plan_tp.edge_perm))
     hub_bound = (2 * e_p * HEADS * 4 + e_p * 4 +
                  plan_tp.tile_ptr.shape[0] * 129 * 4) / HBM_BYTES_PER_S * 1e3
+    # Its library call: torch.sparse.softmax over a hybrid COO tensor of
+    # the transpose CSR's rows, built as the uniform one above.
+    row_of = torch.repeat_interleave(torch.arange(N_NODES, device=dev),
+                                     ptr_tp[1:] - ptr_tp[:-1])
+    place = torch.arange(e_p, device=dev) - ptr_tp[row_of]
+    coo = torch.sparse_coo_tensor(
+        torch.stack([row_of, place]), src_tp,
+        (N_NODES, int(place.max()) + 1, HEADS)).coalesce()
+    del row_of, place
+    hub_lib_ms = cuda_ms(lambda: torch.sparse.softmax(coo, 1))
+    del coo
     print(f'  K6 powerlaw transpose CSR through edge_perm (softmax_csr, '
           f'hub rows up to {int(np.diff(t_ptr_p).max())} edges) F={HEADS}: '
-          f'{hub_ms:.3f} ms, bound {hub_bound:.3f} ms', flush=True)
+          f'{hub_ms:.3f} ms, bound {hub_bound:.3f} ms; '
+          f'torch.sparse.softmax (hybrid COO) {hub_lib_ms:.3f} ms',
+          flush=True)
 
     # K1's msgs_padded entry on the uniform forward plan's padded messages
     # (pad slots 0, as GAT's); the library call is index_add_ over
@@ -1184,10 +1246,13 @@ def main():
 
 def work(plan, f):
     """Bytes (each input read once, the output written once) and f32
-    operations that one K1/K2 call on ``plan`` at width ``f`` needs."""
-    import torch
-
+    operations that one K1/K2 call on ``plan`` at width ``f`` needs. K2
+    and K2h read, besides x and the unique-column lists, the tables their
+    wrapper derives from a dedup plan once (the real edges sorted by row,
+    the row list of ``hot_w``'s non-zeros), not its padded ``edge_meta``
+    and dense ``hot_w``: those tables are what is counted."""
     from pyg_lib_tpu_torch.ops import DedupSpmmPlan
+    from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import cold_edges, hot_list
 
     x_bytes = N_NODES * f * 4
     out_bytes = plan.num_rows * f * 4
@@ -1195,16 +1260,14 @@ def work(plan, f):
         # col_padded, and row 0 of tile_ptr (TR + 1 lanes of each tile)
         tables = plan.col_padded.numel() * 4 + plan.tile_ptr.shape[0] * 129 * 4
         return x_bytes + tables + out_bytes, plan.num_edges * f
-    used_rows = 3 if plan.weighted else 2  # edge_meta rows that carry data
-    tables = (plan.uniq_cols.numel() * 4 +
-              plan.num_chunks * used_rows * plan.ec * 4 +
-              plan.chunk_tile.numel() * 4)
-    cold = int((plan.edge_meta[:, 0, :] >= 0).sum())
-    flops = cold * f * (2 if plan.weighted else 1)
+    edges = cold_edges(plan)
+    tables = plan.uniq_cols.numel() * 4 + plan.chunk_tile.numel() * 4
+    tables += sum(t.numel() * 4 for t in edges if t is not None)
+    flops = edges.code.numel() * f * (2 if plan.weighted else 1)
     if plan.num_hot:
-        tables += (plan.hot_cols.numel() * 4 +
-                   plan.hot_w.numel() * plan.hot_w.element_size())
-        flops += int(torch.count_nonzero(plan.hot_w)) * f * 2
+        hot = hot_list(plan)
+        tables += hot.ptr.numel() * 4 + hot.val.numel() * 8
+        flops += hot.val.numel() * f * 2
     return x_bytes + tables + out_bytes, flops
 
 

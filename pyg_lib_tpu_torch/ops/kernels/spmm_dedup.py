@@ -10,10 +10,13 @@ the JAX package, and the ``'auto'`` thresholds are the JAX package's.
 
 :func:`dedup_sum` is the kernels' wrapper: K2 (or K2h for a hot plan) for
 a CUDA tensor, the plain PyTorch version (:func:`dedup_sum_plain`) for a
-CPU tensor.
+CPU tensor. The kernels read tables derived once from the plan and
+cached: each chunk's edges sorted by row (:func:`cold_edges`) and, for
+K2h, the row list of ``hot_w``'s non-zeros (:func:`hot_list`).
 """
 
 import ctypes
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,11 +29,13 @@ from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (DTYPE_CODE, TR,
 from pyg_lib_tpu_torch.utils import _resolve_device
 
 __all__ = [
-    'DedupSpmmPlan', 'build_dedup_plan', 'dedup_plan_apply', 'dedup_sum',
-    'dedup_sum_plain', 'estimate_dedup',
+    'ColdEdges', 'DedupSpmmPlan', 'HotList', 'build_dedup_plan',
+    'cold_edges', 'cold_pass_fits', 'dedup_plan_apply', 'dedup_sum', 'dedup_sum_plain',
+    'estimate_dedup', 'hot_list',
 ]
 
 META_SUB = 8  # rows of the edge-metadata block (3 used)
+K2_MAX_SMEM = 232448  # shared memory a block may use on the H100 (bytes)
 
 
 class DedupSpmmPlan(NamedTuple):
@@ -345,13 +350,124 @@ def dedup_sum_plain(x: torch.Tensor, plan: DedupSpmmPlan,
     return out if scale is None else out * scale[None, :]
 
 
+class HotList(NamedTuple):
+    """The row list of a hot plan's ``hot_w`` non-zeros (CSR), read by
+    K2h in place of the dense ``hot_w``."""
+    ptr: torch.Tensor  # [num_tiles*TR + 1] int32 — row r's entries
+    src: torch.Tensor  # [nnz] int32 — row of x (hot_cols resolved)
+    val: torch.Tensor  # [nnz] f32 — the count or weight sum, exact
+
+
+class ColdEdges(NamedTuple):
+    """A plan's chunk edges as K2 reads them: each chunk's real edges
+    (pads dropped), sorted by row (stable), packed."""
+    ptr: torch.Tensor  # [C + 1] int32 — chunk c's edges
+    code: torch.Tensor  # [E] int32 — unique id << 7 | local row
+    w: Optional[torch.Tensor]  # [E] f32 — weights of a weighted plan
+    num_uniq: torch.Tensor  # [C] int32 — unique ids the edges name
+
+
+def _derive_hot_list(hot_w: torch.Tensor,
+                     hot_cols: torch.Tensor) -> HotList:
+    rows, h = torch.nonzero(hot_w, as_tuple=True)
+    if rows.numel() >= 2**31:
+        raise ValueError('K2h indexes the hot list with int32')
+    ptr = torch.zeros(hot_w.shape[0] + 1, dtype=torch.int64,
+                      device=hot_w.device)
+    torch.cumsum(torch.bincount(rows, minlength=hot_w.shape[0]), 0,
+                 out=ptr[1:])
+    return HotList(ptr=ptr.int(), src=hot_cols[h].int(),
+                   val=hot_w[rows, h].float())
+
+
+def _derive_cold_edges(edge_meta: torch.Tensor,
+                       weighted: bool) -> ColdEdges:
+    rows = edge_meta[:, 0, :]
+    order = torch.sort(torch.where(rows >= 0, rows, TR), dim=1,
+                       stable=True).indices
+    rows = torch.gather(rows, 1, order)
+    keep = rows >= 0  # the pads, last in each chunk
+    lids = torch.gather(edge_meta[:, 1, :], 1, order)
+    # A chunk's edges name unique ids 0, 1, ...: the rest pad it.
+    num_uniq = (torch.where(keep, lids, -1).amax(1) + 1).int()
+    code = (lids << 7 | rows)[keep]
+    if code.numel() >= 2**31:
+        raise ValueError('K2 indexes the edges with int32')
+    ptr = torch.zeros(edge_meta.shape[0] + 1, dtype=torch.int64,
+                      device=edge_meta.device)
+    torch.cumsum(keep.sum(1), 0, out=ptr[1:])
+    w = None
+    if weighted:
+        w = torch.gather(edge_meta[:, 2, :], 1, order)[keep].view(
+            torch.float32)
+    return ColdEdges(ptr=ptr.int(), code=code, w=w, num_uniq=num_uniq)
+
+
+# (what, id of each source tensor) -> (weak references to the sources,
+# their _version counters, the derived tables); an entry goes when one of
+# its sources is freed.
+_derived = {}
+
+
+def _cached(what, sources, make):
+    """``make(*sources)``, cached per source tensor object (a weak
+    reference, not its address, which a freed buffer hands on) and its
+    in-place version: a plan given another tensor by ``_replace``, or one
+    changed in place, gets fresh tables. An inference tensor has no
+    version counter and is keyed on its object alone: a change made to it
+    in place under ``torch.inference_mode`` is not seen."""
+    key = (what, ) + tuple(id(t) for t in sources)
+    version = tuple(None if t.is_inference() else t._version
+                    for t in sources)
+    hit = _derived.get(key)
+    if (hit is not None and all(r() is t for r, t in zip(hit[0], sources))
+            and hit[1] == version):
+        return hit[2]
+
+    def drop(ref, key=key):
+        entry = _derived.get(key)
+        if entry is not None and any(r is ref for r in entry[0]):
+            del _derived[key]
+
+    value = make(*sources)
+    _derived[key] = (tuple(weakref.ref(t, drop) for t in sources), version,
+                     value)
+    return value
+
+
+def hot_list(plan: DedupSpmmPlan) -> HotList:
+    """The row list of ``plan.hot_w``'s non-zeros, on its device, derived
+    with tensor ops on first use and cached per ``hot_w`` and
+    ``hot_cols`` (:func:`_cached`). The plan itself is left as the JAX
+    package builds it."""
+    return _cached('hot', (plan.hot_w, plan.hot_cols), _derive_hot_list)
+
+
+def cold_edges(plan: DedupSpmmPlan) -> ColdEdges:
+    """``plan.edge_meta``'s real edges, each chunk's sorted by row and
+    packed, on its device; derived and cached like :func:`hot_list`."""
+    return _cached(('cold', plan.weighted), (plan.edge_meta, ),
+                   lambda meta: _derive_cold_edges(meta, plan.weighted))
+
+
+def cold_pass_fits(plan: DedupSpmmPlan, x_dtype: torch.dtype) -> bool:
+    """Whether K2's cold pass fits a block's shared memory for ``plan``
+    and an ``x`` of ``x_dtype`` at its narrowest, 32 features and one slab
+    of unique rows (``cold_smem`` in ``csrc/spmm_dedup.cu``). Unweighted
+    with ``uc == ec``, f32 fits up to 1,496 and bf16 up to 2,696."""
+    item = torch.empty((), dtype=x_dtype).element_size()
+    smem = (TR * 32 * 4 + plan.uc * 32 * item + 2 * plan.uc * 4 +
+            2 * (2 if plan.weighted else 1) * plan.ec * 4)
+    return smem <= K2_MAX_SMEM
+
+
 def _k2_lib():
     lib = _build.load('spmm_dedup')
     fn = lib.pygt_dedup_sum
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, i, i, i, i, vp, vp, i, i, vp, vp,
-                       i, i, vp]
+        fn.argtypes = [vp, i, vp, vp, i, i, vp, vp, vp, vp, i, vp, vp, vp,
+                       vp, vp, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -363,8 +479,11 @@ def dedup_sum(x: torch.Tensor, plan: DedupSpmmPlan,
 
     ``x`` is f32, bf16 or int8. A CUDA ``x`` launches the kernel (and
     raises on anything it does not take); a CPU ``x`` runs
-    :func:`dedup_sum_plain`. ``dedup_sum.launches`` and
-    ``dedup_sum.hot_launches`` count the launches of K2 and K2h.
+    :func:`dedup_sum_plain`. The kernels read the chunk edges from
+    :func:`cold_edges` and K2h the hot term from :func:`hot_list`, both
+    derived from the plan once and cached. ``dedup_sum.launches`` and
+    ``dedup_sum.hot_launches`` count the calls of K2 and K2h, one per call
+    whatever the number of CUDA launches in it.
     """
     if not x.is_cuda:
         return dedup_sum_plain(x, plan, scale)
@@ -383,29 +502,36 @@ def dedup_sum(x: torch.Tensor, plan: DedupSpmmPlan,
     _check_cuda('chunk_tile', plan.chunk_tile, torch.int32, (c, ), dev)
     hot = plan.num_hot > 0
     if hot:
-        if plan.hot_w.dtype not in DTYPE_CODE or plan.num_hot % 8:
-            raise ValueError('hot_w must be f32/bf16/int8 with a multiple '
-                             'of 8 hot columns')
         _check_cuda('hot_cols', plan.hot_cols, torch.int32,
                     (plan.num_hot, ), dev)
         _check_cuda('hot_w', plan.hot_w, plan.hot_w.dtype,
                     (num_tiles * TR, plan.num_hot), dev)
+        hl = hot_list(plan)
     if scale is not None:
         _check_cuda('scale', scale, torch.float32, (f, ), dev)
-    if x.shape[0] >= 2**31:
-        raise ValueError('K2 indexes rows with int32')
-    # Zero-filled: blocks that share a tile add into it with atomics.
-    out = torch.zeros((plan.num_rows, f), dtype=torch.float32, device=dev)
+    if x.shape[0] >= 2**31 or plan.uc >= 2**24:
+        raise ValueError('K2 indexes rows with int32 and unique ids with '
+                         '24 bits')
+    if not cold_pass_fits(plan, x.dtype):
+        raise ValueError(f'K2 cannot hold a chunk of uc={plan.uc} unique '
+                         f'rows and ec={plan.ec} edges of {x.dtype} x in '
+                         f'shared memory; build the plan with a smaller uc '
+                         f'or ec')
+    edges = cold_edges(plan)
+    # Not zero-filled: the kernel writes every row.
+    out = torch.empty((plan.num_rows, f), dtype=torch.float32, device=dev)
     if plan.num_rows == 0 or f == 0:
         return out
     with torch.cuda.device(dev):
         err = _k2_lib()(
             x.data_ptr(), DTYPE_CODE[x.dtype], plan.uniq_cols.data_ptr(),
-            plan.edge_meta.data_ptr(), plan.chunk_tile.data_ptr(), c,
-            plan.ec, plan.uc, int(plan.weighted),
-            plan.hot_cols.data_ptr() if hot else None,
-            plan.hot_w.data_ptr() if hot else None,
-            DTYPE_CODE[plan.hot_w.dtype] if hot else 0, plan.num_hot,
+            plan.chunk_tile.data_ptr(), c, plan.uc, edges.ptr.data_ptr(),
+            edges.code.data_ptr(),
+            None if edges.w is None else edges.w.data_ptr(),
+            edges.num_uniq.data_ptr(), plan.ec,
+            hl.ptr.data_ptr() if hot else None,
+            hl.src.data_ptr() if hot else None,
+            hl.val.data_ptr() if hot else None,
             None if scale is None else scale.data_ptr(), out.data_ptr(),
             plan.num_rows, f,
             torch.cuda.current_stream(dev).cuda_stream)

@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Time versions of K2 and K2h (``csrc/spmm_dedup.cu``) against each other.
+
+    python3 pyg_lib_tpu_torch/tools/time_dedup.py A.cu B.cu B.cu A.cu
+
+Each argument is a source with the C interface of ``csrc/spmm_dedup.cu``
+(``pygt_dedup_sum``), built as ``_build.py`` builds it (``nvcc`` for
+sm_90a, ``-I csrc``), all in parallel, into ``_build/``. On
+``chip_smoke.py``'s power-law graph (``bench.py``'s ``child_realistic``
+generator, 262,144 nodes, 4,194,304 edges) built ``dedup='auto'``,
+``dedup_sum`` runs at F=512 f32 through each source in the order given, so
+listing them as ``A B B A`` interleaves two versions on one card: the
+forward plan (K2h) and its transpose (K2), each held against
+``dedup_sum_plain`` within ``1e-5 * sum|terms| + 1e-5`` and timed by CUDA
+events (mean of 20 calls after 3). Prints the card's name and power limit,
+then one line per argument. Needs one card.
+"""
+
+import ctypes
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (the bench graph and the CUDA-event timer)
+
+F = 512
+
+
+def _build_all(paths):
+    """Build every distinct source once, in parallel; return {path: .so}."""
+    from pyg_lib_tpu_torch import _build
+
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    libs, procs = {}, []
+    for p in dict.fromkeys(paths):
+        digest = hashlib.sha256(Path(p).read_bytes()).hexdigest()[:16]
+        so = _build.BUILD_DIR / f'time_dedup-{digest}.so'
+        libs[p] = so
+        if not so.exists():
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(_build.CSRC),
+                   '-o', str(so), p]
+            procs.append((p, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT,
+                                              text=True)))
+    for p, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed for {p}:\n{out}')
+    return libs
+
+
+def main(paths):
+    import torch
+
+    from pyg_lib_tpu_torch import _build, ops
+    from pyg_lib_tpu_torch.ops.kernels import spmm_dedup
+
+    if not torch.cuda.is_available():
+        raise SystemExit('no CUDA card')
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    libs = _build_all(paths)
+    rp, cl = chip_smoke.powerlaw_graph(chip_smoke.N_NODES, chip_smoke.N_EDGES)
+    graph = ops.build_spmm_graph(rp, cl, dedup='auto')
+    dev = torch.device('cuda')
+    x = torch.randn((chip_smoke.N_NODES, F),
+                    generator=torch.Generator(dev).manual_seed(0), device=dev)
+    plans = {'K2h': graph.fwd, 'K2': graph.bwd}
+    refs = {}
+    for kid, plan in plans.items():
+        ref = spmm_dedup.dedup_sum_plain(x, plan)
+        mag = spmm_dedup.dedup_sum_plain(x.abs(), plan)
+        refs[kid] = (ref, 1e-5 * mag + 1e-5)
+    for p in paths:
+        # The wrapper takes its library from _build's table of loaded ones.
+        _build._loaded['spmm_dedup'] = ctypes.CDLL(str(libs[p]))
+        line = []
+        for kid, plan in plans.items():
+            got = spmm_dedup.dedup_sum(x, plan)
+            ref, tol = refs[kid]
+            err = (got - ref).abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(f'{p} {kid} disagrees with '
+                                     f'dedup_sum_plain: {float(err.max())}')
+            ms = chip_smoke.cuda_ms(lambda: spmm_dedup.dedup_sum(x, plan),
+                                    iters=20, warmup=3)
+            line.append(f'{kid} {ms:.3f} ms (max_abs_err '
+                        f'{float(err.max()):.3g})')
+        print(f'{p}: ' + ', '.join(line), flush=True)
+
+
+if __name__ == '__main__':
+    if len(sys.argv) < 2:
+        raise SystemExit(__doc__)
+    main(sys.argv[1:])

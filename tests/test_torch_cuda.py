@@ -77,22 +77,40 @@ def _plan(kind, device):
         return ops.build_spmm_plan(rowptr, col, chunk=128, device=device)
     graph = 'empty' if kind == 'empty' else 'powerlaw'
     rowptr, col = GRAPHS[graph]()
+    if kind == 'hub_tiles':
+        # The transpose of a power-law graph: its hub rows give one tile
+        # hundreds of chunks, which the kernel's chunk ranges split at
+        # many points.
+        rowptr, col = _csr(col, np.repeat(np.arange(3000), np.diff(rowptr)),
+                           3000)
     w = np.random.default_rng(3).normal(size=col.shape[0]).astype(
         np.float32)
     kw = {
         'plain': dict(ec=256, hot='off'),
         'uc64': dict(ec=128, uc=64, hot='off'),
+        'hub_tiles': dict(ec=128, uc=64, hot='off'),
         'weighted': dict(ec=256, hot='off', edge_weight=w),
         'hot_int8': dict(ec=256),
         'hot_bf16': dict(ec=256),
+        'hot_replaced': dict(ec=256),
         'hot_f32_weighted': dict(ec=512, edge_weight=w),
+        'hot_inference': dict(ec=256),
+        # f32 x leaves room for one slab of 1024 unique rows, not two.
+        'one_slab': dict(ec=1024, uc=1024, hot='off'),
         'empty': dict(ec=128),
     }[kind]
-    plan = ops.build_dedup_plan(rowptr, col, device=device, **kw)
+    if kind == 'hot_inference':  # no version counters to key the cache on
+        with torch.inference_mode():
+            plan = ops.build_dedup_plan(rowptr, col, device=device, **kw)
+    else:
+        plan = ops.build_dedup_plan(rowptr, col, device=device, **kw)
     if kind.startswith('hot'):
         want = {'hot_int8': torch.int8, 'hot_bf16': torch.int8,
+                'hot_replaced': torch.int8, 'hot_inference': torch.int8,
                 'hot_f32_weighted': torch.float32}[kind]
         assert plan.num_hot > 0 and plan.hot_w.dtype == want
+    if kind == 'hub_tiles':
+        assert np.bincount(plan.chunk_tile.cpu().numpy()).max() >= 100
     if kind == 'hot_bf16':
         plan = plan._replace(hot_w=plan.hot_w.to(torch.bfloat16))
     return plan
@@ -136,13 +154,27 @@ def test_k1_matches_plain(dev, graph, f, mode):
     _check(ops.spmm_chunked, ops.spmm_chunked_plain, xm, plan, scale)
 
 
-@pytest.mark.parametrize('kind', ['plain', 'uc64', 'weighted', 'hot_int8',
-                                  'hot_bf16', 'hot_f32_weighted', 'empty'])
-@pytest.mark.parametrize('f', [1, 47, 300])
+@pytest.mark.parametrize('kind', ['plain', 'uc64', 'hub_tiles', 'weighted',
+                                  'hot_int8', 'hot_bf16', 'hot_replaced',
+                                  'hot_f32_weighted', 'hot_inference',
+                                  'one_slab', 'empty'])
+@pytest.mark.parametrize('f', [1, 47, 300, 600])
 @pytest.mark.parametrize('mode', ['f32', 'bf16', 'int8'])
 def test_k2_matches_plain(dev, kind, f, mode):
     plan = _plan(kind, dev)
     xm, scale = _inputs(plan.num_rows, f, mode, dev)
+    if kind == 'hot_replaced':
+        # K2h caches the row list of hot_w's non-zeros: it must follow a
+        # hot_w given by _replace after a first call, and one changed in
+        # place.
+        plan = plan._replace(hot_w=plan.hot_w.clone())
+        ops.dedup_sum(xm, plan, scale)
+        plan = plan._replace(hot_w=plan.hot_w.roll(37, 0))
+        _check(ops.dedup_sum, ops.dedup_sum_plain, xm, plan, scale)
+        plan.hot_w[plan.hot_w == 1] = 2
+        plan.hot_w[:5] = 1
+    if kind == 'hot_inference':
+        _check(ops.dedup_sum, ops.dedup_sum_plain, xm, plan, scale)
     _check(ops.dedup_sum, ops.dedup_sum_plain, xm, plan, scale)
 
 
@@ -203,6 +235,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match='scale'):
         ops.dedup_sum(torch.zeros((3000, 8), dtype=torch.int8, device=dev),
                       dplan, torch.ones(7, device=dev))
+    rp_p, cl_p = GRAPHS['powerlaw']()
+    wide = ops.build_dedup_plan(rp_p, cl_p, ec=1504, uc=1504, hot='off',
+                                device=dev)
+    with pytest.raises(ValueError, match='shared memory'):
+        ops.dedup_sum(torch.zeros((3000, 8), device=dev), wide)
     graph = ops.build_spmm_graph(rowptr, col, device='cpu')
     with pytest.raises(ValueError, match='is on'):
         ops.spmm(x, graph)
