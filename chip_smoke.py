@@ -33,7 +33,9 @@ The script:
    zeros, rows far above and below the rest, empty ranges and empty
    tiles, a hub tile of hundreds of chunks, F=600 for K2, a hot_w
    replaced or changed after a K2h call, a K2 plan whose uc leaves room
-   for one slab; f32, bf16 and int8 where the kernel takes them);
+   for one slab, a hub row of 120,000 edges and a src that is not
+   16-byte aligned for K3 and K4; f32, bf16 and int8 where the kernel
+   takes them);
 3. builds the graphs and holds each kernel against its plain version at
    the main paths' shapes (F=512 and F=47; F=4, the head count, for K6);
 4. drives each path with every launch count set to 0 just before it and
@@ -43,7 +45,9 @@ The script:
 6. times each kernel at F=512 beside its plain version, one PyTorch call
    that computes the same function (timed here only, never used by the
    port; for K4 and K5, which gather x themselves, the gather and the
-   reduce in one call) and its bound, and times ``spmm`` by ``bench.py``'s
+   reduce in one call) and its bound, times K3 and K4 (through
+   ``edge_perm``) on the power-law transpose CSR's hub rows beside
+   ``torch.segment_reduce``, and times ``spmm`` by ``bench.py``'s
    useful-bytes metric. Each training path also gets one profiled step
    (device time by kernel, idle share; peak memory for GAT).
 
@@ -178,6 +182,14 @@ def tie_values(n, f, gen, dev):
     return v
 
 
+def card():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
 
@@ -193,10 +205,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
 
     # -- 1. build -------------------------------------------------------
@@ -470,6 +479,42 @@ def main():
                 for negate in (False, True):
                     check_k5(f'{pname} F={f} {values} negate={negate}', x,
                              plan, negate)
+
+    # K3 and K4 on a hub row of 120,000 edges among 2,000 short rows (a
+    # third of them empty), from a src at the start of its storage and
+    # from one a single element into it (not 16-byte aligned: the kernels'
+    # scalar branch), at F = 1, 3, 47 and 600.
+    rng_h = np.random.default_rng(5)
+    deg_h = rng_h.geometric(0.1, 2000) - 1
+    deg_h[rng_h.random(2000) < 0.33] = 0
+    deg_h[700] = 120_000
+    rp_h = np.zeros(2001, np.int64)
+    np.cumsum(deg_h, out=rp_h[1:])
+    cl_h = rng_h.integers(0, 2000, int(rp_h[-1]))
+    ptr_h = torch.tensor(rp_h + 3, device=dev)  # a gap of 3, a pad of 5
+    hub_plan = ops.build_spmm_plan(rp_h, cl_h, chunk=128, with_edge_maps=True)
+    hub_modes = [('padded', hub_plan.col_padded.shape[0], None),
+                 ('col_padded', 2000, hub_plan.col_padded),
+                 ('edge_perm', cl_h.shape[0], hub_plan.edge_perm)]
+    for f in (1, 3, 47, 600):
+        e = int(rp_h[-1]) + 8
+        for dtype in (torch.float32, torch.bfloat16):
+            big = torch.randn(e * f + 1, generator=gen, device=dev).to(dtype)
+            for where, src in (('aligned', big[:-1].view(e, f)),
+                               ('unaligned', big[1:].view(e, f))):
+                check_k3(f'hub row {where} F={f} {str(dtype)[6:]}', src,
+                         ptr_h)
+        for values in ('normal', 'ties'):
+            for mode, rows, idx in hub_modes:
+                big = (tie_values(rows + 1, f, gen, dev) if values == 'ties'
+                       else torch.randn((rows + 1, f), generator=gen,
+                                        device=dev)).reshape(-1)
+                for where, src in (
+                        ('aligned', big[:rows * f].view(rows, f)),
+                        ('unaligned', big[1:rows * f + 1].view(rows, f))):
+                    check_k4(f'hub row {mode} {where} F={f} {values}', src,
+                             hub_plan, idx, negate=where == 'unaligned')
+    del big, src
 
     # K6 over a ragged plan (empty rows, a partial tile), a uniform plan
     # and the transposed power-law graph (hub rows of many chunks), in the
@@ -1149,6 +1194,11 @@ def main():
         lambda: torch.segment_reduce(msgs, 'sum', offsets=ptr_u, axis=0),
         e_u * F_BENCH * 4 + (N_NODES + 1) * 8 + ptr_f, e_u * F_BENCH,
         'torch.segment_reduce sum')
+    busy_ms, wall_ms, top = device_time_by_kernel(
+        lambda: ops.segment_sum_csr_kernel(msgs, ptr_u))
+    print(f'  K3 uniform CSR F={F_BENCH}: one call by kernel (ms): '
+          + '; '.join(f'{name} {t:.3f}' for name, t in top)
+          + f'; device busy {busy_ms:.3f} of {wall_ms:.3f} ms', flush=True)
     k4_csr_ms = cuda_ms(lambda: ops.segment_max_kernel(
         msgs, csr_plan, csr_plan.edge_perm))
     print(f'  K4 uniform CSR edge_perm (sage_forward max) F={F_BENCH}: '
@@ -1157,6 +1207,40 @@ def main():
         msgs, 'max', offsets=ptr_u, axis=0))
     del msgs
     torch.cuda.empty_cache()
+    # K3 and K4 through edge_perm (segment_max_csr) on the power-law
+    # transpose CSR's [E, 512] messages (8.6 GB; hub rows up to 810,552
+    # edges), each held against its plain version first; beside each,
+    # torch.segment_reduce on the same messages.
+    msgs = torch.randn((e_p, F_BENCH), generator=gen, device=dev)
+    hub_k3_err = check_k3(f'powerlaw transpose CSR F={F_BENCH} f32', msgs,
+                          ptr_tp)
+    check_k4(f'powerlaw transpose CSR edge_perm F={F_BENCH}', msgs, plan_tp,
+             plan_tp.edge_perm)
+    torch.cuda.empty_cache()
+    hub = {
+        'K3': cuda_ms(lambda: ops.segment_sum_csr_kernel(msgs, ptr_tp)),
+        'sum': cuda_ms(lambda: torch.segment_reduce(msgs, 'sum',
+                                                    offsets=ptr_tp, axis=0)),
+        'K4': cuda_ms(lambda: ops.segment_max_kernel(msgs, plan_tp,
+                                                     plan_tp.edge_perm)),
+        'max': cuda_ms(lambda: torch.segment_reduce(msgs, 'max',
+                                                    offsets=ptr_tp, axis=0)),
+    }
+    del msgs
+    torch.cuda.empty_cache()
+    out_b = 2 * ptr_f  # K4 writes values and positions
+    k3_b = e_p * F_BENCH * 4 + (N_NODES + 1) * 8 + ptr_f
+    k4_b = (e_p * F_BENCH * 4 + plan_tp.edge_perm.numel() * 4 +
+            plan_tp.tile_ptr.shape[0] * 129 * 4 + out_b)
+    print(f'  K3 powerlaw transpose CSR (hub rows up to '
+          f'{int(np.diff(t_ptr_p).max())} edges) F={F_BENCH} f32: '
+          f'{hub["K3"]:.3f} ms, bound {k3_b / HBM_BYTES_PER_S * 1e3:.3f} '
+          f'ms, max_abs_err {hub_k3_err:.3g}; torch.segment_reduce sum '
+          f'{hub["sum"]:.3f} ms', flush=True)
+    print(f'  K4 powerlaw transpose CSR edge_perm (segment_max_csr on hub '
+          f'rows) F={F_BENCH} f32: {hub["K4"]:.3f} ms, bound '
+          f'{k4_b / HBM_BYTES_PER_S * 1e3:.3f} ms; torch.segment_reduce max '
+          f'{hub["max"]:.3f} ms', flush=True)
     plan = g_u.fwd
     row('K4', 'uniform fwd col_padded',
         lambda: ops.segment_max_kernel(xb, plan, plan.col_padded),
@@ -1297,13 +1381,19 @@ def device_time_by_kernel(fn):
     return sum(ms for _, ms in top), wall_ms, top
 
 
-def cuda_ms(fn, iters=10, warmup=2):
-    """Mean ms per call of ``fn`` on the card, by CUDA events."""
+def cuda_ms(fn, iters=10, warmup=2, warm_s=0.1):
+    """Mean ms per call of ``fn`` on the card, by CUDA events, after at
+    least ``warmup`` calls and ``warm_s`` seconds of calls: a function
+    timed first after a pause (host work, ``empty_cache``) read 3-7% slow
+    over 20 calls on the H100 (PERF.md)."""
     import torch
 
-    for _ in range(warmup):
+    t0 = time.perf_counter()
+    done = 0
+    while done < warmup or time.perf_counter() - t0 < warm_s:
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        done += 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

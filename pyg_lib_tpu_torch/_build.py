@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ['build', 'load', 'sources', 'BUILD_DIR']
+__all__ = ['build', 'build_variants', 'load', 'sources', 'BUILD_DIR']
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / 'csrc'
@@ -55,37 +55,63 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
+def _run(jobs):
+    """Start one ``nvcc`` per job ``(source, library, log)``,
+    all at once, and wait for all of them; each library is written under a
+    temporary name and moved into place once built, and ``nvcc``'s output
+    (with ``ptxas``'s register, shared memory and spill report) goes to
+    the log. Raises if any build failed."""
+    procs = []
+    for src, so, log in jobs:
+        tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
+               str(src)]
+        procs.append((src, so, log, tmp,
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, so, log, tmp, proc in procs:
+        out, _ = proc.communicate()
+        log.write_text(out)
+        if proc.returncode != 0:
+            failed.append(f'{src}:\n{out}')
+            continue
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Build the named sources (default: all) that are not built yet.
 
     Starts one ``nvcc`` per missing library, all at once, and waits for
-    all of them. ``nvcc``'s output (with ``ptxas``'s register and shared
-    memory report) goes to ``_build/<name>.log``. Returns the library
-    path of every name.
+    all of them. ``nvcc``'s output goes to ``_build/<name>.log``. Returns
+    the library path of every name.
     """
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(exist_ok=True)
     targets = {n: _target(n) for n in names}
-    procs = {}
-    for name, so in targets.items():
-        if so.exists():
-            continue
-        tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
-               str(CSRC / f'{name}.cu')]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT,
-                                             text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        (BUILD_DIR / f'{name}.log').write_text(out)
-        if proc.returncode != 0:
-            failed.append(f'{name}.cu:\n{out}')
-            continue
-        os.replace(tmp, targets[name])
-    if failed:
-        raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
+    _run([(CSRC / f'{n}.cu', so, BUILD_DIR / f'{n}.log')
+          for n, so in targets.items() if not so.exists()])
+    return targets
+
+
+def build_variants(paths: Iterable[str]) -> Dict[str, Path]:
+    """Build versions of a kernel source kept anywhere, to time them
+    against each other. Each distinct source not built yet is built once,
+    as :func:`build` builds (in parallel, ``-I csrc``), into
+    ``_build/variant-<digest>.so`` with its log beside it as
+    ``variant-<digest>.log``. Returns the library path of every path."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    targets = {}
+    for path in dict.fromkeys(paths):
+        h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+        h.update(Path(path).read_bytes())
+        for p in sorted(CSRC.glob('*.cuh')):
+            h.update(p.read_bytes())
+        targets[path] = BUILD_DIR / f'variant-{h.hexdigest()[:16]}.so'
+    _run([(Path(path), so, so.with_suffix('.log'))
+          for path, so in targets.items() if not so.exists()])
     return targets
 
 

@@ -23,19 +23,28 @@
 // the 67 TFLOP/s of f32 CUDA cores (NVIDIA H100 SXM data sheet, 700 W).
 // Each input read once and each output written once is N*F*4 + E_pad*4 +
 // rows*F*8 bytes over 3.35 TB/s of HBM; what the kernel really moves is
-// one source row per slot, E*F*4 bytes, mostly from HBM at the bench
+// one source row piece per slot, E*F*4 bytes, mostly from HBM at the bench
 // shape (a 512 MB table, ten times the 50 MB L2).
 //
-// Design against that bound, as K1 (spmm_chunked.cu):
-// * the gather is fused: at F=512 on the bench graph the padded slab would
-//   be 9.2 GB written and read back; here each source row goes straight
-//   from memory into registers;
-// * one block per (128-row tile, F-block), one warp per output row: the
-//   32 lanes read 32 neighbouring features of a row (coalesced), each lane
-//   keeps VPL (at most 4: the 8-wide variant spilled) independent loads
-//   in flight per slot;
-// * slots are walked in order, so the first winner needs no extra
-//   comparison of positions; each row is written once, with no atomics.
+// Design against that bound:
+// * the gather is fused: each source row goes straight from memory into
+//   registers, and the padded slab never exists;
+// * a block takes one (128-row tile, slice of 128 features); blockIdx.x
+//   (the tile) runs fastest. A warp walks a row's slots in order, a lane a
+//   float4 of the slice, and loads CHUNK slots before it compares them,
+//   with 16-byte loads. Narrower slices, whose slice of x would stay in
+//   L2, and slot groups that split a warp over a row's slots lost this
+//   design's A/B (tools/time_segment.py on the H100, PERF.md): their
+//   merges and per-row work cost more than their L2 hits saved;
+// * a row of more than LONG slots is cut into pieces of LONG slots (a
+//   table the wrapper derives), one warp each in blocks past the tiles,
+//   each written to a partial table; a second launch merges a row's pieces
+//   in order by the rule: a taken slot beats POS_NONE, the greater value
+//   wins, an equal value with the smaller slot wins. The rule is
+//   associative and keeps the first winner and its bits;
+// * each row is written once, with no atomics. A scalar branch of the same
+//   kernel takes an F or a src address that does not allow float4, over
+//   a slice of 32, 64 or 128 features (the least that holds F).
 #include "common.cuh"
 
 namespace pygt {
@@ -43,66 +52,190 @@ namespace {
 
 constexpr int K4_WARPS = 8;
 constexpr int POS_NONE = 1 << 30;
+constexpr int LONG = 512;  // slots above which a row is cut (K4_LONG)
+constexpr int CHUNK = 4;   // slots loaded before they are compared
 
-template <int VPL>
-__global__ void __launch_bounds__(K4_WARPS * 32)
+template <int W>
+struct Load;
+
+template <>
+struct Load<4> {
+  static __device__ __forceinline__ void get(const float* p, float* v) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+};
+
+template <>
+struct Load<1> {
+  static __device__ __forceinline__ void get(const float* p, float* v) {
+    v[0] = __ldg(p);
+  }
+};
+
+// A warp's (best, pos) for its NV vectors of W features a lane: a slice of
+// 32 * W * NV features.
+template <int W, int NV>
+struct K4 {
+  static constexpr int FW = 32 * W * NV;
+
+  float best[NV][W];
+  int bpos[NV][W];
+
+  // Slots [lo, hi) of one row (or piece), in order, with the first-winner
+  // update: a slot is taken when its value is greater than the best so
+  // far, or equal to it while no slot has been taken.
+  __device__ __forceinline__ void run(const float* __restrict__ src,
+                                      const int* __restrict__ idx, int lo,
+                                      int hi, int negate, int F, int fl,
+                                      const bool (&ok)[NV], int lane) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        best[v][k] = neg_inf();
+        bpos[v][k] = POS_NONE;
+      }
+    for (int base = lo; base < hi; base += 32) {
+      const int n = min(32, hi - base);
+      int mine = 0;
+      if (lane < n) mine = idx != nullptr ? idx[base + lane] : base + lane;
+#pragma unroll
+      for (int s0 = 0; s0 < 32; s0 += CHUNK) {
+        if (s0 >= n) break;  // the same for the whole warp
+        float raw[CHUNK][NV][W];
+#pragma unroll
+        for (int s = 0; s < CHUNK; ++s) {
+          const int64_t c = __shfl_sync(FULL, mine, s0 + s);
+          const float* p = src + c * F + fl;
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+            if (s0 + s < n && ok[v]) Load<W>::get(p + v * 32 * W, raw[s][v]);
+        }
+#pragma unroll
+        for (int s = 0; s < CHUNK; ++s) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            if (!(s0 + s < n && ok[v])) continue;
+#pragma unroll
+            for (int k = 0; k < W; ++k) {
+              const float m = negate ? -raw[s][v][k] : raw[s][v][k];
+              if (m > best[v][k] ||
+                  (m == best[v][k] && bpos[v][k] == POS_NONE)) {
+                best[v][k] = m;
+                bpos[v][k] = base + s0 + s;
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void write(float* __restrict__ vals,
+                                        int* __restrict__ pos, int64_t row,
+                                        int F, int fl,
+                                        const bool (&ok)[NV]) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (!ok[v]) continue;
+      const int64_t at = row * F + fl + v * 32 * W;
+      if constexpr (W == 4) {
+        *reinterpret_cast<float4*>(vals + at) =
+            make_float4(best[v][0], best[v][1], best[v][2], best[v][3]);
+        *reinterpret_cast<int4*>(pos + at) =
+            make_int4(bpos[v][0], bpos[v][1], bpos[v][2], bpos[v][3]);
+      } else {
+        vals[at] = best[v][0];
+        pos[at] = bpos[v][0];
+      }
+    }
+  }
+};
+
+// Blocks [0, num_tiles) take a tile each, a warp per row of up to LONG
+// slots; the blocks past them take a piece of a longer row per warp,
+// written to the partial tables.
+template <int W, int NV>
+__global__ void __launch_bounds__(K4_WARPS * 32, 1)
     segment_max_kernel(const float* __restrict__ src,
                        const int* __restrict__ idx,
                        const int* __restrict__ tile_ptr, int negate,
                        float* __restrict__ vals, int* __restrict__ pos,
-                       int num_rows, int F) {
+                       int num_tiles, int num_rows, int F,
+                       const int* __restrict__ pieces, int num_pieces,
+                       float* __restrict__ part_val,
+                       int* __restrict__ part_pos) {
+  using S = K4<W, NV>;
   const int t = blockIdx.x;
-  const int f0 = blockIdx.y * (32 * VPL);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int* ptr = tile_ptr + static_cast<int64_t>(t) * PTR_SUB * TP;
-
-  bool ok[VPL];
+  const int fl = blockIdx.y * S::FW + lane * W;  // lane's first feature
+  bool ok[NV];
 #pragma unroll
-  for (int v = 0; v < VPL; ++v) ok[v] = f0 + lane + 32 * v < F;
-
+  for (int v = 0; v < NV; ++v) ok[v] = fl + v * 32 * W < F;
+  S st;
+  if (t >= num_tiles) {
+    const int q = (t - num_tiles) * K4_WARPS + warp;
+    if (q >= num_pieces) return;
+    st.run(src, idx, pieces[3 * q + 1], pieces[3 * q + 2], negate, F, fl, ok,
+           lane);
+    st.write(part_val, part_pos, q, F, fl, ok);
+    return;
+  }
+  const int* ptr = tile_ptr + static_cast<int64_t>(t) * PTR_SUB * TP;
   for (int r = warp; r < TR; r += K4_WARPS) {
     const int64_t row = static_cast<int64_t>(t) * TR + r;
     if (row >= num_rows) break;
     const int lo = ptr[r];
     const int hi = ptr[r + 1];
-    float best[VPL];
-    int bpos[VPL];
-#pragma unroll
-    for (int v = 0; v < VPL; ++v) {
-      best[v] = neg_inf();
-      bpos[v] = POS_NONE;
-    }
-    for (int base = lo; base < hi; base += 32) {
-      const int n = min(32, hi - base);
-      int mine = 0;
-      if (lane < n) mine = idx != nullptr ? idx[base + lane] : base + lane;
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const int64_t c = __shfl_sync(FULL, mine, j);
-        const float* s = src + c * F + f0 + lane;
-#pragma unroll
-        for (int v = 0; v < VPL; ++v) {
-          if (!ok[v]) continue;
-          const float raw = s[32 * v];
-          const float m = negate ? -raw : raw;
-          if (m > best[v] || (m == best[v] && bpos[v] == POS_NONE)) {
-            best[v] = m;
-            bpos[v] = base + j;
-          }
-        }
-      }
-    }
-    float* dv = vals + row * F + f0 + lane;
-    int* dp = pos + row * F + f0 + lane;
-#pragma unroll
-    for (int v = 0; v < VPL; ++v) {
-      if (ok[v]) {
-        dv[32 * v] = best[v];
-        dp[32 * v] = bpos[v];
-      }
-    }
+    if (hi - lo > LONG) continue;  // cut into pieces
+    st.run(src, idx, lo, hi, negate, F, fl, ok, lane);
+    st.write(vals, pos, row, F, fl, ok);
   }
+}
+
+// Takes (ov, op) over (bv, bp) by the merge rule.
+__device__ __forceinline__ void merge(float& bv, int& bp, float ov, int op) {
+  if (op != POS_NONE && (bp == POS_NONE || ov > bv || (ov == bv && op < bp))) {
+    bv = ov;
+    bp = op;
+  }
+}
+
+// One thread per (row longer than LONG slots, feature): the row's pieces
+// merged in order, the result written to (vals, pos).
+__global__ void segment_max_pieces(const int* __restrict__ long_rows,
+                                   const float* __restrict__ part_val,
+                                   const int* __restrict__ part_pos,
+                                   float* __restrict__ vals,
+                                   int* __restrict__ pos, int F) {
+  const int f = blockIdx.y * blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const int* lr = long_rows + 3 * blockIdx.x;  // (row, first piece, count)
+  float bv = neg_inf();
+  int bp = POS_NONE;
+  for (int q = lr[1]; q < lr[1] + lr[2]; ++q)
+    merge(bv, bp, part_val[static_cast<int64_t>(q) * F + f],
+          part_pos[static_cast<int64_t>(q) * F + f]);
+  vals[static_cast<int64_t>(lr[0]) * F + f] = bv;
+  pos[static_cast<int64_t>(lr[0]) * F + f] = bp;
+}
+
+template <int W, int NV>
+void launch(const float* s, const int* ix, const int* tp, int negate,
+            float* v, int* p, int num_tiles, int num_rows, int F,
+            const int* pieces, int num_pieces, float* part_val, int* part_pos,
+            cudaStream_t st) {
+  constexpr int FW = K4<W, NV>::FW;
+  const dim3 grid(num_tiles + (num_pieces + K4_WARPS - 1) / K4_WARPS,
+                  (F + FW - 1) / FW);
+  segment_max_kernel<W, NV><<<grid, K4_WARPS * 32, 0, st>>>(
+      s, ix, tp, negate, v, p, num_tiles, num_rows, F, pieces, num_pieces,
+      part_val, part_pos);
 }
 
 }  // namespace
@@ -110,34 +243,52 @@ __global__ void __launch_bounds__(K4_WARPS * 32)
 
 // src [M, F] f32 (M >= E_pad when idx is null), idx [E_pad] int32 or null,
 // tile_ptr [num_tiles, 8, 256] int32, vals [num_rows, F] f32 and
-// pos [num_rows, F] int32 (written in full). Returns cudaGetLastError()
-// after the launch.
+// pos [num_rows, F] int32 (written in full). The rows longer than LONG
+// slots come as a derived table (k4_pieces in the wrapper): pieces
+// [num_pieces, 3] int32 (row, first slot, end slot), LONG slots each but
+// a row's last, a row's pieces in order, and long_rows [num_long, 3] int32
+// (row, first piece, piece count); part_val [num_pieces, F] f32 and
+// part_pos [num_pieces, F] int32 are scratch. Returns cudaGetLastError()
+// after the launches.
 extern "C" int pygt_segment_max(const void* src, const void* idx,
                                 const void* tile_ptr, int negate, void* vals,
                                 void* pos, int num_tiles, int num_rows, int F,
+                                const void* pieces, int num_pieces,
+                                const void* long_rows, int num_long,
+                                void* part_val, void* part_pos,
                                 void* stream) {
   using namespace pygt;
-  const int vpl = pick_vpl(F, 4);  // the 8-wide variant spilled
-  const dim3 grid(num_tiles, (F + 32 * vpl - 1) / (32 * vpl));
-  const dim3 block(K4_WARPS * 32);
   const float* s = static_cast<const float*>(src);
   const int* ix = static_cast<const int*>(idx);
   const int* tp = static_cast<const int*>(tile_ptr);
+  const int* pc = static_cast<const int*>(pieces);
   float* v = static_cast<float*>(vals);
   int* p = static_cast<int*>(pos);
+  float* pv = static_cast<float*>(part_val);
+  int* pp = static_cast<int*>(part_pos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (vpl) {
-    case 1:
-      segment_max_kernel<1><<<grid, block, 0, st>>>(s, ix, tp, negate, v, p,
-                                                     num_rows, F);
-      break;
-    case 2:
-      segment_max_kernel<2><<<grid, block, 0, st>>>(s, ix, tp, negate, v, p,
-                                                     num_rows, F);
-      break;
-    default:
-      segment_max_kernel<4><<<grid, block, 0, st>>>(s, ix, tp, negate, v, p,
-                                                     num_rows, F);
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && F % 4 == 0) {
+    launch<4, 1>(s, ix, tp, negate, v, p, num_tiles, num_rows, F, pc,
+                 num_pieces, pv, pp, st);
+  } else {  // a slice as narrow as F allows: fewer registers, more warps
+    switch (pick_vpl(F, 4)) {
+      case 1:
+        launch<1, 1>(s, ix, tp, negate, v, p, num_tiles, num_rows, F, pc,
+                     num_pieces, pv, pp, st);
+        break;
+      case 2:
+        launch<1, 2>(s, ix, tp, negate, v, p, num_tiles, num_rows, F, pc,
+                     num_pieces, pv, pp, st);
+        break;
+      default:
+        launch<1, 4>(s, ix, tp, negate, v, p, num_tiles, num_rows, F, pc,
+                     num_pieces, pv, pp, st);
+    }
+  }
+  if (num_long > 0) {
+    const dim3 grid(num_long, (F + 127) / 128);
+    segment_max_pieces<<<grid, 128, 0, st>>>(static_cast<const int*>(long_rows),
+                                              pv, pp, v, p, F);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,26 +19,73 @@ first slot. Ties, ``-0.0`` against ``+0.0`` included, go to the first
 slot, and the value is that slot's own bits. ``negate=True`` takes the
 maximum of ``-message`` (for min: the caller negates the values back).
 
+K4 walks each row's slots with one warp; a row of more than ``K4_LONG``
+slots is cut into pieces of ``K4_LONG`` (:func:`k4_pieces`), a warp each,
+whose results are merged in order by :func:`k4_merge`.
+:func:`segment_max_split` runs that schedule with PyTorch, so the tests
+can hold its merge against the plain version bit for bit.
+
 :func:`segment_max_kernel` is the wrapper: K4 for a CUDA tensor, the
 plain PyTorch version (:func:`segment_max_plain`, the counterpart of
 ``_minmax_padded_xla``) for a CPU tensor.
 """
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from pyg_lib_tpu_torch import _build
-from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (PTR_SUB, TP,
+from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (PTR_SUB, TP, TR,
                                                         SpmmPlan,
                                                         _check_cuda,
                                                         _padded_rows)
+from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import _cached
 
-__all__ = ['NEG', 'POS_NONE', 'segment_max_kernel', 'segment_max_plain']
+__all__ = ['NEG', 'POS_NONE', 'K4Pieces', 'k4_merge', 'k4_pieces',
+           'segment_max_kernel', 'segment_max_plain', 'segment_max_split']
 
 NEG = float('-inf')
 POS_NONE = 1 << 30  # position of a row with no slots
+# The row length above which K4 cuts a row into pieces of K4_LONG slots, a
+# warp each (LONG in csrc/segment_minmax.cu).
+K4_LONG = 512
+
+
+class K4Pieces(NamedTuple):
+    """The rows longer than ``K4_LONG`` slots, cut into pieces."""
+    pieces: torch.Tensor  # [P, 3] int32: row, first slot, end slot
+    rows: torch.Tensor  # [L, 3] int32: row, first piece, piece count
+
+
+def _row_bounds(tile_ptr, num_rows):
+    """Each row's first padded slot and slot count, read off ``tile_ptr``."""
+    bounds = tile_ptr[:, 0, :TR + 1].long()
+    lo = bounds[:, :-1].reshape(-1)[:num_rows]
+    return lo, (bounds[:, 1:] - bounds[:, :-1]).reshape(-1)[:num_rows]
+
+
+def _derive_pieces(tile_ptr, num_rows) -> K4Pieces:
+    lo, n = _row_bounds(tile_ptr, num_rows)
+    rows = torch.nonzero(n > K4_LONG).reshape(-1)
+    count = -(-n[rows] // K4_LONG)
+    first = torch.cumsum(count, 0) - count
+    of = torch.repeat_interleave(torch.arange(rows.shape[0],
+                                              device=rows.device), count)
+    start = lo[rows][of] + (torch.arange(of.shape[0], device=rows.device) -
+                            first[of]) * K4_LONG
+    end = torch.minimum(start + K4_LONG, (lo + n)[rows][of])
+    return K4Pieces(
+        pieces=torch.stack([rows[of], start, end], 1).int().contiguous(),
+        rows=torch.stack([rows, first, count], 1).int().contiguous())
+
+
+def k4_pieces(plan: SpmmPlan) -> K4Pieces:
+    """The piece table K4 reads for ``plan``'s rows of more than
+    ``K4_LONG`` slots, derived with tensor ops on ``plan.tile_ptr``'s
+    device on first use and cached per ``tile_ptr`` (as K2's tables)."""
+    return _cached(('k4_pieces', plan.num_rows, K4_LONG), (plan.tile_ptr, ),
+                   lambda tp: _derive_pieces(tp, plan.num_rows))
 
 
 def winner_values(src, rows, hit, negate):
@@ -77,12 +124,55 @@ def segment_max_plain(src: torch.Tensor, plan: SpmmPlan,
                          hit, negate), pos
 
 
+def k4_merge(bv, bp, ov, op):
+    """K4's merge of two partial results ``(value, slot)``: a taken slot
+    beats ``POS_NONE``, the greater value wins, an equal value (``-0.0``
+    and ``+0.0`` included) with the smaller slot wins. Associative and
+    commutative; the winner keeps its own bits."""
+    take = (op != POS_NONE) & ((bp == POS_NONE) | (ov > bv) |
+                               ((ov == bv) & (op < bp)))
+    return torch.where(take, ov, bv), torch.where(take, op, bp)
+
+
+def segment_max_split(src: torch.Tensor, plan: SpmmPlan,
+                      idx: Optional[torch.Tensor] = None,
+                      negate: bool = False):
+    """K4's schedule run with PyTorch: a row of more than ``K4_LONG`` slots
+    is cut into pieces of ``K4_LONG``; each piece (or shorter row) is
+    walked in slot order with the first-winner update, and a row's pieces
+    are merged in order by :func:`k4_merge`."""
+    slot, row = _padded_rows(plan.tile_ptr)
+    f = src.shape[1]
+    lo, _ = _row_bounds(plan.tile_ptr, plan.num_rows)
+    k = slot - lo[row]
+    piece, step = k // K4_LONG, k % K4_LONG
+    npieces = int(piece.max()) + 1 if piece.numel() else 1
+    msgs = src[slot if idx is None else idx[slot].long()].float()
+    if negate:
+        msgs = -msgs
+    best = torch.full((plan.num_rows, npieces, f), NEG, device=src.device)
+    bpos = torch.full((plan.num_rows, npieces, f), POS_NONE,
+                      dtype=torch.int32, device=src.device)
+    for t in range(int(step.max()) + 1 if step.numel() else 0):
+        sel = step == t
+        at = (row[sel], piece[sel])
+        m, b, p = msgs[sel], best[at], bpos[at]
+        take = (m > b) | ((m == b) & (p == POS_NONE))
+        best[at] = torch.where(take, m, b)
+        bpos[at] = torch.where(take, slot[sel, None].to(torch.int32), p)
+    vals, pos = best[:, 0], bpos[:, 0]
+    for p in range(1, npieces):
+        vals, pos = k4_merge(vals, pos, best[:, p], bpos[:, p])
+    return vals, pos
+
+
 def _k4_lib():
     lib = _build.load('segment_minmax')
     fn = lib.pygt_segment_max
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, i, vp, vp, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, i, vp, vp, i, i, i, vp, i, vp, i, vp, vp,
+                       vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -121,12 +211,18 @@ def segment_max_kernel(src: torch.Tensor, plan: SpmmPlan,
     pos = torch.empty((plan.num_rows, f), dtype=torch.int32, device=dev)
     if plan.num_rows == 0 or f == 0:
         return vals, pos
+    cut = k4_pieces(plan)
+    npieces = cut.pieces.shape[0]
+    part_val = torch.empty((npieces, f), dtype=torch.float32, device=dev)
+    part_pos = torch.empty((npieces, f), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _k4_lib()(src.data_ptr(),
                         None if idx is None else idx.data_ptr(),
                         plan.tile_ptr.data_ptr(), int(negate),
                         vals.data_ptr(), pos.data_ptr(), num_tiles,
-                        plan.num_rows, f,
+                        plan.num_rows, f, cut.pieces.data_ptr(), npieces,
+                        cut.rows.data_ptr(), cut.rows.shape[0],
+                        part_val.data_ptr(), part_pos.data_ptr(),
                         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'K4 (segment_minmax.cu) launch failed: CUDA '

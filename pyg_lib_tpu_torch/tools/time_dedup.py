@@ -4,8 +4,8 @@
     python3 pyg_lib_tpu_torch/tools/time_dedup.py A.cu B.cu B.cu A.cu
 
 Each argument is a source with the C interface of ``csrc/spmm_dedup.cu``
-(``pygt_dedup_sum``), built as ``_build.py`` builds it (``nvcc`` for
-sm_90a, ``-I csrc``), all in parallel, into ``_build/``. On
+(``pygt_dedup_sum``), built by ``_build.build_variants`` (as the package's
+own sources, all in parallel, into ``_build/``). On
 ``chip_smoke.py``'s power-law graph (``bench.py``'s ``child_realistic``
 generator, 262,144 nodes, 4,194,304 edges) built ``dedup='auto'``,
 ``dedup_sum`` runs at F=512 f32 through each source in the order given, so
@@ -17,8 +17,6 @@ then one line per argument. Needs one card.
 """
 
 import ctypes
-import hashlib
-import subprocess
 import sys
 from pathlib import Path
 
@@ -30,29 +28,6 @@ import chip_smoke  # noqa: E402  (the bench graph and the CUDA-event timer)
 F = 512
 
 
-def _build_all(paths):
-    """Build every distinct source once, in parallel; return {path: .so}."""
-    from pyg_lib_tpu_torch import _build
-
-    _build.BUILD_DIR.mkdir(exist_ok=True)
-    libs, procs = {}, []
-    for p in dict.fromkeys(paths):
-        digest = hashlib.sha256(Path(p).read_bytes()).hexdigest()[:16]
-        so = _build.BUILD_DIR / f'time_dedup-{digest}.so'
-        libs[p] = so
-        if not so.exists():
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(_build.CSRC),
-                   '-o', str(so), p]
-            procs.append((p, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT,
-                                              text=True)))
-    for p, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed for {p}:\n{out}')
-    return libs
-
-
 def main(paths):
     import torch
 
@@ -61,10 +36,8 @@ def main(paths):
 
     if not torch.cuda.is_available():
         raise SystemExit('no CUDA card')
-    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    libs = _build_all(paths)
+    print(chip_smoke.card(), flush=True)
+    libs = _build.build_variants(paths)
     rp, cl = chip_smoke.powerlaw_graph(chip_smoke.N_NODES, chip_smoke.N_EDGES)
     graph = ops.build_spmm_graph(rp, cl, dedup='auto')
     dev = torch.device('cuda')

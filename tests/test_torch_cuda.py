@@ -322,6 +322,91 @@ def test_k4_matches_plain(dev, mode, graph, f, values, negate):
     _assert_same(got, ops.segment_max_plain(src, plan, idx, negate))
 
 
+def _hub_csr():
+    """2,000 short rows (a third of them empty) and row 700 of 120,000
+    edges: K3's warps share the hub row, K4's block splits it."""
+    rng = np.random.default_rng(5)
+    deg = rng.geometric(0.1, 2000) - 1
+    deg[rng.random(2000) < 0.33] = 0
+    deg[700] = 120_000
+    rowptr = np.zeros(2001, np.int64)
+    np.cumsum(deg, out=rowptr[1:])
+    return rowptr, rng.integers(0, 2000, int(rowptr[-1]))
+
+
+def _unaligned(shape, seed, device, values='normal'):
+    """A contiguous view one element into its storage: not 16-byte
+    aligned, so the kernels take their scalar branch."""
+    v = _values(values, shape[0] + 1, shape[1], seed, device)
+    return v.reshape(-1)[1:1 + shape[0] * shape[1]].view(shape)
+
+
+@pytest.mark.parametrize('case', ['hub', 'unaligned'])
+@pytest.mark.parametrize('f', [1, 3, 47, 600])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k3_hub_rows_and_alignment(dev, case, f, dtype):
+    rowptr, _ = _hub_csr() if case == 'hub' else GRAPHS['ragged']()
+    rowptr = rowptr + 3  # a leading gap, and 5 trailing positions
+    e = int(rowptr[-1]) + 5
+    ptr = torch.tensor(rowptr, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    if case == 'unaligned':  # one element into its storage
+        big = torch.randn(e * f + 1, generator=gen, device=dev).to(dtype)
+        src = big[1:].view(e, f)
+        assert src.data_ptr() % 16 != 0
+    else:
+        src = torch.randn((e, f), generator=gen, device=dev).to(dtype)
+    got = ops.segment_sum_csr_kernel(src, ptr)
+    torch.cuda.synchronize()
+    ref = ops.segment_sum_csr_plain(src, ptr)
+    mag = ops.segment_sum_csr_plain(src.abs().float(), ptr)
+    assert got.dtype == dtype and got.shape == ref.shape
+    tol = RTOL * mag + ATOL
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0**-8 * ref.float().abs()
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize('graph', ['uniform', 'hub'])
+def test_k3_same_bits_on_two_calls(dev, graph):
+    if graph == 'hub':
+        rowptr, _ = _hub_csr()
+    else:  # 20,000 rows of 0 to 31 edges
+        deg = np.random.default_rng(6).integers(0, 32, 20_000)
+        rowptr = np.zeros(20_001, np.int64)
+        np.cumsum(deg, out=rowptr[1:])
+    ptr = torch.tensor(rowptr, device=dev)
+    src = torch.randn((int(rowptr[-1]), 512), device=dev)
+    a = ops.segment_sum_csr_kernel(src, ptr)
+    b = ops.segment_sum_csr_kernel(src, ptr)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize('case', ['hub', 'unaligned'])
+@pytest.mark.parametrize('mode', ['padded', 'col_padded', 'edge_perm'])
+@pytest.mark.parametrize('f', [1, 3, 47, 600])
+@pytest.mark.parametrize('values', ['normal', 'ties'])
+def test_k4_hub_rows_and_alignment(dev, case, mode, f, values):
+    # Ties: -inf rows, both zeros and repeated values; the hub CSR and the
+    # ragged graph both hold empty rows.
+    rowptr, col = _hub_csr() if case == 'hub' else GRAPHS['ragged']()
+    plan = ops.build_spmm_plan(rowptr, col, chunk=128, with_edge_maps=True,
+                               device=dev)
+    rows, idx = {'padded': (plan.col_padded.shape[0], None),
+                 'col_padded': (plan.num_rows, plan.col_padded),
+                 'edge_perm': (col.shape[0], plan.edge_perm)}[mode]
+    if case == 'unaligned':
+        src = _unaligned((rows, f), f, dev, values)
+        assert src.data_ptr() % 16 != 0
+    else:
+        src = _values(values, rows, f, f, dev)
+    for negate in (False, True):
+        got = ops.segment_max_kernel(src, plan, idx, negate)
+        torch.cuda.synchronize()
+        _assert_same(got, ops.segment_max_plain(src, plan, idx, negate))
+
+
 @functools.lru_cache(maxsize=None)
 def _k5_plan(kind, device):
     if kind == 'empty':
