@@ -22,7 +22,18 @@ The port's paths, each at the full width of its model on the two graphs of
 * range-split plans: a GCN [512, 512, 47] trains over the uniform graph
   built ``range_split=4, range_fused=True, chunk='auto'`` (K7 forward and
   backward), and ``spmm`` runs forward and backward on a weighted fused
-  graph (K7 with weights) and on a ``range_split=4`` graph (K1 per range).
+  graph (K7 with weights) and on a ``range_split=4`` graph (K1 per range);
+* fused multi-aggregation: ``fused_scatter_reduce`` with ``['sum',
+  'mean', 'min', 'max']`` and with ``['mean', 'min']`` runs forward and
+  backward over the uniform graph's messages in destination order (F=512,
+  the index a host array): K4s, the max pass that also sums, for max and
+  sum, and for min in its negated form when the sums are still missing;
+  the sum-less K4 for min beside a max+sum pass;
+* the sorted-COO sums: ``segment_sum_coo`` and ``segment_mean_coo`` over
+  the same messages (K3);
+* the padded-batch GAT: a ``GATBatch`` [512, 128, 47] with 4 heads, as
+  ``init_gat`` builds it, trains on the uniform graph as one padded batch
+  of 4,128,768 edge slots (K3).
 
 The script:
 
@@ -39,17 +50,23 @@ The script:
 3. builds the graphs and holds each kernel against its plain version at
    the main paths' shapes (F=512 and F=47; F=4, the head count, for K6);
 4. drives each path with every launch count set to 0 just before it and
-   read just after: each kernel of the path must have launched in it;
+   read just after: each kernel of the path must have launched in it (and
+   on the fused path, K4s in both its forms);
 5. holds each path's result against the same computation through the
-   plain versions;
+   plain versions (where a model's gradient jumps at a kink, a ReLU or
+   leaky_relu, the plain computation takes the branch the kernel path
+   took: the two paths' rounding would otherwise switch a few of the
+   millions of branches at random);
 6. times each kernel at F=512 beside its plain version, one PyTorch call
    that computes the same function (timed here only, never used by the
    port; for K4 and K5, which gather x themselves, the gather and the
    reduce in one call) and its bound, times K3 and K4 (through
    ``edge_perm``) on the power-law transpose CSR's hub rows beside
    ``torch.segment_reduce``, and times ``spmm`` by ``bench.py``'s
-   useful-bytes metric. Each training path also gets one profiled step
-   (device time by kernel, idle share; peak memory for GAT).
+   useful-bytes metric and the fused path against the composite (one
+   scatter per reduction) forward and forward+backward. Each training
+   path also gets one profiled step (device time by kernel, idle share;
+   peak memory for GAT and the padded-batch GAT).
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -85,6 +102,12 @@ DIMS = [512, 512, 47]
 # GAT: ogbn-products' 47 classes rounded up to a multiple of the heads,
 # which every width must be (init_gat_spmm).
 GAT_DIMS, HEADS = [512, 512, 48], 4
+# The padded-batch GAT as init_gat builds it: hidden layers concatenate 4
+# heads of 128, the last averages 4 heads of 47 (ogbn-products' classes).
+GAT_BATCH_DIMS = [512, 128, 47]
+EDGE_BUDGET = 65536  # edge slots of a padded batch come in these steps
+FUSED_LISTS = (['sum', 'mean', 'min', 'max'], ['mean', 'min'])
+FUSED_CALLS = 2  # forward + backward calls of each list on the fused path
 RANGES = 4  # range_split of the range paths (bench_range_split's "S=4f")
 HOT_COLUMNS = 4096  # hot level of the power-law forward plan
 STEPS = 3
@@ -95,6 +118,7 @@ COUNTERS = {'K1': ('spmm_chunked', 'launches'),
             'K2h': ('dedup_sum', 'hot_launches'),
             'K3': ('segment_sum_csr_kernel', 'launches'),
             'K4': ('segment_max_kernel', 'launches'),
+            'K4s': ('segment_max_kernel', 'sum_launches'),
             'K5': ('dedup_minmax', 'launches'),
             'K6': ('segment_softmax_planned', 'launches'),
             'K7': ('fused_range_sum', 'launches'),
@@ -107,6 +131,8 @@ SOURCES = {
            'pyg_lib_tpu/ops/pallas/segment_csr_kernel.py:47'),
     'K4': ('segment_minmax.cu',
            'pyg_lib_tpu/ops/pallas/segment_minmax_kernel.py:59'),
+    'K4s': ('segment_minmax.cu',
+            'pyg_lib_tpu/ops/pallas/segment_minmax_kernel.py:59'),
     'K5': ('spmm_dedup_minmax.cu',
            'pyg_lib_tpu/ops/pallas/spmm_dedup_minmax.py:292'),
     'K6': ('segment_softmax.cu',
@@ -182,6 +208,69 @@ def tie_values(n, f, gen, dev):
     return v
 
 
+def leaky_relu_signs(fn):
+    """Run ``fn()``; return its result and, for each ``leaky_relu`` call
+    it made, in order, which inputs were > 0 (the branch taken)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    signs = []
+
+    class Record(TorchFunctionMode):
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.nn.functional.leaky_relu:
+                signs.append(args[0].detach() > 0)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        result = fn()
+    return result, signs
+
+
+def plain_gat_batch(params, x, rowptr, row, col, signs=None):
+    """``gat_forward`` through the plain versions: the plain K3
+    (``segment_sum_csr_plain``) in place of K3. With ``signs``, from
+    :func:`leaky_relu_signs` on the kernel path, each layer's leaky_relu
+    takes the kernel path's branch: a logit within the two paths'
+    rounding difference of 0 would otherwise switch slope (1 or 0.2) and
+    move an attention-weight gradient by 0.8 |g·h|. Returns the output
+    and the count of edge logits (pad edges left out) whose own branch
+    differs from ``signs``."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    heads, n = params['heads'], x.shape[0]
+    switched = 0
+    src, dst = row.clamp(max=n - 1), col.clamp(max=n - 1)
+    pad = (col >= n)[:, None]
+    layers = params['layers']
+    for i, layer in enumerate(layers):
+        d = layer['att_src'].shape[-1]
+        h = (x @ layer['w']).view(n, heads, d)
+        a_s = (h * layer['att_src']).sum(-1)
+        a_d = (h * layer['att_dst']).sum(-1)
+        pre = a_s[src] + a_d[dst]
+        if signs is None:
+            logits = torch.nn.functional.leaky_relu(pre, 0.2)
+        else:
+            switched += int(((signs[i] != (pre > 0)) & ~pad).sum())
+            logits = torch.where(signs[i], pre, 0.2 * pre)
+        del pre
+        logits = logits.masked_fill(pad, float('-inf'))
+        alpha = ops.scatter_softmax(logits, dst, 0, n).masked_fill(pad, 0.0)
+        msgs = (h[src] * alpha[:, :, None]).reshape(src.shape[0], -1)
+        agg = ops.segment_sum_csr_plain(msgs, rowptr).view(n, heads, d)
+        del msgs
+        if i < len(layers) - 1:
+            x = torch.nn.functional.elu(agg.reshape(n, heads * d) +
+                                        layer['b'])
+        else:
+            x = agg.mean(1) + layer['b']
+    return x, switched
+
+
 def card():
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -197,10 +286,12 @@ def main():
         raise SystemExit('chip_smoke: no CUDA device is available')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pyg_lib_tpu_torch import _build, ops
-    from pyg_lib_tpu_torch.models import GAT, GCN, SAGE, sage_forward
+    from pyg_lib_tpu_torch.models import (GAT, GCN, SAGE, GATBatch,
+                                          sage_forward)
     from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
     from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
     from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
+    from pyg_lib_tpu_torch.ops.scatter_reduce import _fused as fused_closure
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -312,6 +403,30 @@ def main():
         got = ops.segment_max_kernel(src, plan, idx, negate)
         ref = by_columns(ops.segment_max_plain, src, plan, idx, negate)
         return check_exact(label, 'K4', got, ref)
+
+    def check_k4s(label, src, plan, idx, negate=False):
+        """K4s: values and positions bit for bit those of the sum-less K4
+        and of the plain version, sums within the sum tolerance (equal
+        where the plain sum is infinite)."""
+        got = ops.segment_max_kernel(src, plan, idx, negate, with_sum=True)
+        sumless = ops.segment_max_kernel(src, plan, idx, negate)
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(g), bits(r))
+                   for g, r in zip(got[:2], sumless)):
+            raise AssertionError(f'K4s {label}: values or positions differ '
+                                 f'from the sum-less K4')
+        ref = by_columns(lambda s, *a: ops.segment_max_plain(
+            s, *a, with_sum=True), src, plan, idx, negate)
+        check_exact(f'{label} (values, positions)', 'K4s', got[:2], ref[:2])
+        fin = torch.isfinite(ref[2])
+        if not torch.equal(got[2][~fin], ref[2][~fin]):
+            raise AssertionError(f'K4s {label}: infinite sums differ')
+        mag = by_columns(lambda s, *a: ops.segment_max_plain(
+            s, *a, with_sum=True)[2], src.abs().nan_to_num(posinf=0.0), plan,
+            idx)
+        return check_sum(f'{label} (sums of finite rows)', 'K4s',
+                         torch.where(fin, got[2], 0.0),
+                         torch.where(fin, ref[2], 0.0), mag)
 
     def check_k5(label, x, plan, negate=False):
         got = ops.dedup_minmax(x, plan, negate)
@@ -473,6 +588,8 @@ def main():
                 for negate in (False, True):
                     check_k4(f'{mode} F={f} {values} negate={negate}', src,
                              k4_plan, idx, negate)
+                    check_k4s(f'{mode} F={f} {values} negate={negate}', src,
+                              k4_plan, idx, negate)
             for pname, rows, plan in k5_plans:
                 x = (tie_values(rows, f, gen, dev) if values == 'ties'
                      else torch.randn((rows, f), generator=gen, device=dev))
@@ -514,6 +631,10 @@ def main():
                         ('unaligned', big[1:rows * f + 1].view(rows, f))):
                     check_k4(f'hub row {mode} {where} F={f} {values}', src,
                              hub_plan, idx, negate=where == 'unaligned')
+                    for negate in (False, True):
+                        check_k4s(f'hub row {mode} {where} F={f} {values} '
+                                  f'negate={negate}', src, hub_plan, idx,
+                                  negate)
     del big, src
 
     # K6 over a ragged plan (empty rows, a partial tile), a uniform plan
@@ -666,6 +787,10 @@ def main():
         found.append(('K3', check_k3(f'uniform CSR F={f} f32', msgs, ptr_u)))
         found.append(('K4', check_k4(f'uniform CSR edge_perm F={f}', msgs,
                                      csr_plan, csr_plan.edge_perm)))
+        for negate in (False, True):
+            found.append(('K4s', check_k4s(
+                f'uniform CSR edge_perm F={f} negate={negate}', msgs,
+                csr_plan, csr_plan.edge_perm, negate)))
         for kid, e in found:
             main_errs[kid] = max(main_errs[kid], e)
         del x, msgs
@@ -725,10 +850,12 @@ def main():
     labels = torch.randint(0, DIMS[-1], (N_NODES, ), generator=gen,
                            device=dev)
 
-    def train(models, gdict, split=None):
+    def train(models, gdict, split=None, call=False):
         """``STEPS`` SGD steps per graph; ms per step after the first.
         ``split`` (a dict with a ``'kid'``) also counts that kernel's
-        launches in the forwards and in the backwards apart."""
+        launches in the forwards and in the backwards apart. With
+        ``call``, each ``gdict`` value is the tuple of batch tensors the
+        model takes after ``x``."""
         def count():
             return 0 if split is None else getattr(
                 getattr(ops, COUNTERS[split['kid']][0]),
@@ -744,8 +871,8 @@ def main():
                     t0 = time.perf_counter()
                 opt.zero_grad()
                 c0 = count()
-                loss = torch.nn.functional.cross_entropy(model(x, graph),
-                                                         labels)
+                out = model(x, *graph) if call else model(x, graph)
+                loss = torch.nn.functional.cross_entropy(out, labels)
                 c1 = count()
                 loss.backward()
                 if split is not None:
@@ -771,15 +898,15 @@ def main():
     print(f'  {STEPS} SAGE max-pool {DIMS} training steps per graph; ms per '
           f'step after the first {sage_ms}', flush=True)
 
-    def profile_step(label, model, graph, ms, top_n=8):
+    def profile_step(label, model, graph, ms, top_n=8, call=None):
         """Where a training step's time goes: device time by kernel over
         one profiled step, against that step's own wall time (the idle
         share) and the unprofiled step time ``ms``; peak device memory of
-        the step."""
+        the step. ``call`` replaces ``model(x, graph)``."""
         def step():
             model.zero_grad()
-            torch.nn.functional.cross_entropy(model(x, graph),
-                                              labels).backward()
+            out = model(x, graph) if call is None else call()
+            torch.nn.functional.cross_entropy(out, labels).backward()
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1103,6 +1230,166 @@ def main():
     del xr, xd, cr, rs_res
     torch.cuda.empty_cache()
 
+    # -- 5c. fused multi-aggregation, COO sums, padded-batch GAT ---------
+    # The uniform graph's messages x[src] in destination order (F=512);
+    # its destinations as a host array (the fused path's index) and on
+    # the card (the COO index).
+    dst_np = np.repeat(np.arange(N_NODES), np.diff(rp_u))
+    dst_u = torch.tensor(dst_np, device=dev)
+    msgs_f = x[row_u].requires_grad_(True)
+    f_msg = msgs_f.shape[1]
+    fused_cot = {len(rl): torch.randn((N_NODES, f_msg * len(rl)),
+                                      generator=gen, device=dev)
+                 for rl in FUSED_LISTS}
+    fused_split = {}
+
+    def fused_path():
+        res = {}
+        for rl in FUSED_LISTS:
+            c0 = (ops.segment_max_kernel.launches,
+                  ops.segment_max_kernel.sum_launches)
+            for _ in range(FUSED_CALLS):
+                out = ops.fused_scatter_reduce(msgs_f, dst_np, N_NODES, rl)
+                (grad, ) = torch.autograd.grad(
+                    (out * fused_cot[len(rl)]).sum(), msgs_f)
+            torch.cuda.synchronize()
+            fused_split[tuple(rl)] = (
+                ops.segment_max_kernel.launches - c0[0],
+                ops.segment_max_kernel.sum_launches - c0[1])
+            res[tuple(rl)] = (out.detach(), grad)
+        return res
+
+    fused_res = run_path('fused_scatter_reduce', ('K4s', 'K4'), fused_path)
+    print(f'  {FUSED_CALLS} forward + backward calls per list; (K4, K4s) '
+          f'launches by list: {fused_split}', flush=True)
+    # [sum, mean, min, max]: one K4s max+sum pass and one sum-less negated
+    # K4 a call; [mean, min]: one negated K4s pass and no K4.
+    if (fused_split[tuple(FUSED_LISTS[0])] != (FUSED_CALLS, FUSED_CALLS)
+            or fused_split[tuple(FUSED_LISTS[1])] != (0, FUSED_CALLS)):
+        raise AssertionError('the fused path did not launch K4s in its '
+                             'max+sum and negated forms and K4 as expected')
+
+    # Against the composite through the plain versions (one scatter per
+    # reduction and BLOCK columns at a time): sum and mean within the sum
+    # tolerance, min and max bit for bit, the input gradient within
+    # GCN_RTOL.
+    msgs_d = msgs_f.detach()
+    counts_u = (ptr_u[1:] - ptr_u[:-1]).clamp(min=1)[:, None].float()
+    mag_u = by_columns(ops.segment_sum_csr_plain, msgs_d.abs(), ptr_u)
+    for rl in FUSED_LISTS:
+        out, grad = fused_res.pop(tuple(rl))
+        cot = fused_cot[len(rl)]
+        grad_ref = torch.zeros_like(msgs_d)
+        for bi, r in enumerate(rl):
+            got = out[:, bi * f_msg:(bi + 1) * f_msg]
+            parts = []
+            for f0 in range(0, f_msg, BLOCK):
+                blk = slice(f0, f0 + BLOCK)
+                src = msgs_d[:, blk].contiguous().requires_grad_(True)
+                o = ops.fused_scatter_reduce(src, dst_u, N_NODES, [r])
+                cb = cot[:, bi * f_msg + f0:bi * f_msg + f0 + BLOCK]
+                (g, ) = torch.autograd.grad((o * cb).sum(), src)
+                grad_ref[:, blk] += g
+                parts.append(o.detach())
+                del src, o, g
+            ref = torch.cat(parts, 1)
+            if r in ('min', 'max'):
+                check_exact(f'fused {"+".join(rl)}: {r}', 'K4s', (got, ),
+                            (ref, ))
+            else:
+                mag = mag_u / counts_u if r == 'mean' else mag_u
+                check_sum(f'fused {"+".join(rl)}: {r}', 'K4s', got, ref, mag)
+            del ref, parts
+        close(f'fused {"+".join(rl)} input gradient', grad, grad_ref)
+        del out, grad, grad_ref
+        torch.cuda.empty_cache()
+    del mag_u
+
+    def coo_path():
+        return (ops.segment_sum_coo(msgs_d, dst_u, dim_size=N_NODES),
+                ops.segment_mean_coo(msgs_d, dst_u, dim_size=N_NODES))
+
+    coo_sum, coo_mean = run_path('segment_sum_coo/segment_mean_coo', ('K3', ),
+                                 coo_path)
+    ref = by_columns(ops.segment_sum_csr_plain, msgs_d, ptr_u)
+    mag = by_columns(ops.segment_sum_csr_plain, msgs_d.abs(), ptr_u)
+    check_sum('segment_sum_coo', 'K3', coo_sum, ref, mag)
+    check_sum('segment_mean_coo', 'K3', coo_mean, ref / counts_u,
+              mag / counts_u)
+    del coo_sum, coo_mean, ref, mag
+
+    # The fused path against the composite, forward and forward+backward.
+    fused_ms = {}
+    for rl in FUSED_LISTS:
+        cot = fused_cot[len(rl)]
+        key = '+'.join(rl)
+
+        def fwd_bwd(index):
+            out = ops.fused_scatter_reduce(msgs_f, index, N_NODES, rl)
+            torch.autograd.grad((out * cot).sum(), msgs_f)
+
+        closure = fused_closure(dst_np, N_NODES, tuple(rl))
+        with torch.no_grad():
+            fused_ms[key] = {
+                'fused fwd': cuda_ms(lambda: ops.fused_scatter_reduce(
+                    msgs_d, dst_np, N_NODES, rl), iters=5),
+                'fused fwd, cached closure': cuda_ms(lambda: closure(msgs_d),
+                                                     iters=5),
+                'composite fwd': cuda_ms(lambda: ops.fused_scatter_reduce(
+                    msgs_d, dst_u, N_NODES, rl), iters=2, warmup=1)}
+        torch.cuda.empty_cache()
+        fused_ms[key]['fused fwd+bwd'] = cuda_ms(lambda: fwd_bwd(dst_np),
+                                                 iters=5)
+        fused_ms[key]['composite fwd+bwd'] = cuda_ms(
+            lambda: fwd_bwd(dst_u), iters=2, warmup=1)
+        torch.cuda.empty_cache()
+    print(f'fused_scatter_reduce F={f_msg} over {e_u} messages into '
+          f'{N_NODES} rows, ms: {fused_ms}', flush=True)
+    del msgs_f, msgs_d, fused_cot, fused_res, dst_u
+    torch.cuda.empty_cache()
+
+    # The padded-batch GAT: the uniform graph as one batch of
+    # EDGE_BUDGET-sized edge slots; pad slots carry row == col == N.
+    e_slots = -(-e_u // EDGE_BUDGET) * EDGE_BUDGET
+    row_b = torch.full((e_slots, ), N_NODES, dtype=torch.int64, device=dev)
+    col_b = torch.full((e_slots, ), N_NODES, dtype=torch.int64, device=dev)
+    row_b[:e_u] = row_u
+    col_b[:e_u] = torch.tensor(dst_np, device=dev)
+    batch_b = (ptr_u, row_b, col_b)
+    gat_b = GATBatch(GAT_BATCH_DIMS, heads=HEADS, generator=cpu_gen,
+                     device=dev)
+    gat_b_ms = run_path('GATBatch padded', ('K3', ), lambda: train(
+        {'uniform': gat_b}, {'uniform': batch_b}, call=True))['uniform']
+    print(f'  {STEPS} GATBatch {GAT_BATCH_DIMS} ({HEADS} heads) training '
+          f'steps on the uniform graph as one padded batch of {e_slots} '
+          f'edge slots; ms per step after the first {gat_b_ms:.3f}',
+          flush=True)
+
+    gat_leaves = list(gat_b.parameters())
+    out, signs = leaky_relu_signs(lambda: gat_b(x, *batch_b))
+    if len(signs) != len(gat_b.w):
+        raise AssertionError(f'GATBatch made {len(signs)} leaky_relu calls '
+                             f'for {len(gat_b.w)} layers')
+    grads = torch.autograd.grad((out * cot47).sum(), gat_leaves)
+    out = out.detach()
+    torch.cuda.empty_cache()
+    ref, switched = plain_gat_batch(gat_b.params(), x, *batch_b, signs)
+    del signs
+    print(f'GATBatch: {switched} of {len(gat_b.w) * e_u * HEADS} edge '
+          f'logits would take the other leaky_relu branch on the plain path',
+          flush=True)
+    refs = torch.autograd.grad((ref * cot47).sum(), gat_leaves)
+    close('GATBatch forward uniform', out, ref.detach())
+    names = [n for n, _ in gat_b.named_parameters()]
+    for name, g, r in zip(names, grads, refs):
+        close(f'  GATBatch grad {name}', g, r)
+    del out, grads, ref, refs
+    torch.cuda.empty_cache()
+    profile_step('GATBatch uniform', gat_b, None, gat_b_ms, top_n=16,
+                 call=lambda: gat_b(x, *batch_b))
+    del gat_b, row_b, col_b, batch_b
+    torch.cuda.empty_cache()
+
     # -- 6. timing ------------------------------------------------------
     csr = {}
     for gname, (rp, cl) in {'uniform': (rp_u, cl_u),
@@ -1203,6 +1490,19 @@ def main():
         msgs, csr_plan, csr_plan.edge_perm))
     print(f'  K4 uniform CSR edge_perm (sage_forward max) F={F_BENCH}: '
           f'{k4_csr_ms:.3f} ms', flush=True)
+    # K4s on the same messages through the same plan (the fused path's
+    # pass); its library call is torch.segment_reduce's sum and max, two
+    # calls timed together.
+    row('K4s', 'uniform CSR edge_perm', lambda: ops.segment_max_kernel(
+        msgs, csr_plan, csr_plan.edge_perm, with_sum=True),
+        lambda: ops.segment_max_plain(msgs, csr_plan, csr_plan.edge_perm,
+                                      with_sum=True),
+        lambda: (torch.segment_reduce(msgs, 'sum', offsets=ptr_u, axis=0),
+                 torch.segment_reduce(msgs, 'max', offsets=ptr_u, axis=0)),
+        e_u * F_BENCH * 4 + csr_plan.edge_perm.numel() * 4 +
+        csr_plan.tile_ptr.shape[0] * 129 * 4 + 3 * ptr_f, 2 * e_u * F_BENCH,
+        'torch.segment_reduce sum + max')
+    torch.cuda.empty_cache()
     reduce_only = cuda_ms(lambda: torch.segment_reduce(
         msgs, 'max', offsets=ptr_u, axis=0))
     del msgs

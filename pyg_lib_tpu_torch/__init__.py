@@ -10,11 +10,16 @@ Entry points put their tensors on ``cuda`` unless the caller passes
 PyTorch version; on CUDA tensors it launches the kernel or raises.
 
 * ``pyg_lib_tpu_torch.ops`` — planned SpMM (``build_spmm_graph``,
-  ``spmm``: sum/mean over the chunked and the deduplicated plans, exact
-  max/min over the chunked and the dedup min/max plans), the CSR segment
-  family (``segment_*_csr``, ``gather_csr``) and the padded-space max.
-* ``pyg_lib_tpu_torch.models`` — GCN and GraphSAGE (mean, max and
-  full-graph max-pool).
+  ``spmm``: sum/mean over the chunked, deduplicated and range-split
+  plans, exact max/min over the chunked and the dedup min/max plans), the
+  CSR segment family (``segment_*_csr``, ``gather_csr``), the
+  padded-space primitives, the attention ops (``softmax_csr``,
+  ``sddmm``), the scatter family (``scatter_*``), the sorted-COO family
+  (``segment_*_coo``, ``gather_coo``), the scatter composites
+  (``scatter_softmax``, ``scatter_log_softmax``, ``scatter_std``,
+  ``scatter_logsumexp``) and ``fused_scatter_reduce``.
+* ``pyg_lib_tpu_torch.models`` — GCN, GraphSAGE (mean, max and
+  full-graph max-pool), the full-graph GAT and the padded-batch GAT.
 
 This package never imports ``jax`` or ``pyg_lib_tpu``.
 """

@@ -1,22 +1,24 @@
 """GNN models of the port: GCN, GraphSAGE and GAT, on a planned graph and
-(GCN, GraphSAGE) on a CSR batch (port of ``pyg_lib_tpu.models.gnn``:
+(GCN, GraphSAGE, GAT) on a CSR batch (port of ``pyg_lib_tpu.models.gnn``:
 ``init_gcn``, ``gcn_forward``, ``gcn_forward_spmm``, ``init_sage``,
-``sage_forward``, ``sage_maxpool_forward_spmm``, ``init_gat_spmm``,
-``gat_forward_spmm``).
+``sage_forward``, ``sage_maxpool_forward_spmm``, ``init_gat``,
+``gat_forward``, ``init_gat_spmm``, ``gat_forward_spmm``).
 
 Parameters are the JAX package's trees with tensors for arrays:
 ``{'layers': [{'w': [in, out], 'b': [out]}, ...]}`` for GCN,
 ``{'layers': [{'w_self', 'w_nbr': [in, out], 'b': [out]}, ...]}`` for
-GraphSAGE and ``{'layers': [{'w': [in, heads*out_h], 'a_src', 'a_dst':
-[heads, out_h]}, ...]}`` for GAT, so converted JAX weights
+GraphSAGE, ``{'layers': [{'w': [in, heads*out_h], 'a_src', 'a_dst':
+[heads, out_h]}, ...]}`` for the planned GAT and ``{'layers': [{'w',
+'att_src', 'att_dst': [1, heads, out], 'b'}, ...], 'heads': heads}`` for
+the padded-batch GAT, so converted JAX weights
 (:func:`gcn_params_from_jax`, :func:`sage_params_from_jax`,
-:func:`gat_params_from_jax`) and a module's weights run through the same
-functional forwards.
+:func:`gat_params_from_jax`, :func:`gat_batch_params_from_jax`) and a
+module's weights run through the same functional forwards.
 
 The CSR forwards take a batch as the JAX package lays it out: ``x [N, F]``,
 ``rowptr [N+1]`` over destination nodes and ``row [E]`` the source of each
-edge, sorted by destination; pad edges (``row == N``) sit past
-``rowptr[-1]`` and belong to no row.
+edge, sorted by destination (``col [E]``, its destination, for GAT); pad
+edges (``row == col == N``) sit past ``rowptr[-1]`` and belong to no row.
 """
 
 from typing import Dict, List, Optional
@@ -25,13 +27,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from pyg_lib_tpu_torch.ops import (segment_max_csr, segment_mean_csr,
-                                   segment_softmax_padded, segment_sum_csr,
-                                   segment_sum_padded, spmm)
+from pyg_lib_tpu_torch.ops import (scatter_softmax, segment_max_csr,
+                                   segment_mean_csr, segment_softmax_padded,
+                                   segment_sum_csr, segment_sum_padded, spmm)
 from pyg_lib_tpu_torch.ops.spmm import _gathered_max_padded
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['GAT', 'GCN', 'SAGE', 'gat_forward_spmm', 'gat_params_from_jax',
+__all__ = ['GAT', 'GATBatch', 'GCN', 'SAGE', 'gat_batch_params_from_jax',
+           'gat_forward', 'gat_forward_spmm', 'gat_params_from_jax',
            'gcn_forward', 'gcn_forward_spmm', 'gcn_params_from_jax',
            'sage_forward', 'sage_maxpool_forward_spmm',
            'sage_params_from_jax']
@@ -292,3 +295,96 @@ class GAT(nn.Module):
 
     def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
         return gat_forward_spmm(self.params(), x, graph)
+
+
+# -- GAT on a padded batch ----------------------------------------------------
+
+
+def gat_forward(params: Dict, x: torch.Tensor, rowptr: torch.Tensor,
+                row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """Graph attention over a padded CSR batch: each destination's
+    softmax over its incoming edges (``scatter_softmax``), the weighted
+    messages summed over the destination CSR by ``segment_sum_csr``
+    (kernel K3 on the card). Hidden layers concatenate their heads and
+    apply ELU; the last averages them. Pad edges carry ``col == N``: their
+    ends are clamped to ``N - 1`` and their logits set to ``-inf``, so
+    they get no attention."""
+    heads = params['heads']
+    n = x.shape[0]
+    layers = params['layers']
+    src = row.clamp(max=n - 1)
+    dst = col.clamp(max=n - 1)
+    pad = (col >= n)[:, None]
+    for i, layer in enumerate(layers):
+        out_dim = layer['att_src'].shape[-1]
+        h = (x @ layer['w']).view(n, heads, out_dim)
+        a_src = (h * layer['att_src']).sum(-1)  # [N, H]
+        a_dst = (h * layer['att_dst']).sum(-1)
+        # index_select, not h[src]: its backward is an index_add_, while
+        # advanced indexing's backward sorts the indices first (most of
+        # the step's device time on the H100, PERF.md).
+        logits = torch.nn.functional.leaky_relu(
+            a_src.index_select(0, src) + a_dst.index_select(0, dst), 0.2)
+        logits = logits.masked_fill(pad, float('-inf'))  # [E, H]
+        alpha = scatter_softmax(logits, dst, dim=0, dim_size=n)
+        alpha = alpha.masked_fill(pad, 0.0)
+        msgs = h.index_select(0, src) * alpha[:, :, None]  # [E, H, D]
+        agg = segment_sum_csr(msgs.reshape(msgs.shape[0], -1),
+                              rowptr)[:n].view(n, heads, out_dim)
+        if i < len(layers) - 1:
+            x = torch.nn.functional.elu(agg.reshape(n, heads * out_dim) +
+                                        layer['b'])
+        else:
+            x = agg.mean(1) + layer['b']
+    return x
+
+
+def gat_batch_params_from_jax(tree: Dict, device=None) -> Dict:
+    """Turn the JAX package's padded-batch GAT tree (``init_gat``: ``w``,
+    ``att_src``/``att_dst`` ``[1, heads, out]``, ``b`` and ``heads``) into
+    the port's parameters: f32 tensors on ``device`` (default: the CUDA
+    card)."""
+    params = _params_from_jax(tree, ('w', 'att_src', 'att_dst', 'b'), device)
+    params['heads'] = int(tree['heads'])
+    return params
+
+
+class GATBatch(nn.Module):
+    """GAT over a padded CSR batch (:func:`gat_forward`), ``dims = [in,
+    hidden..., out]`` with ``heads`` heads of ``dims[i+1]`` features in
+    every layer: hidden layers concatenate them (the next layer takes
+    ``heads * dims[i]``), the last averages them.
+
+    Weights are Glorot-uniform from ``generator`` (``w``, ``att_src``,
+    ``att_dst``, layer by layer) and biases zero, as in ``init_gat``.
+    """
+
+    def __init__(self, dims: List[int], heads: int = 4,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = _resolve_device(device)
+        self.heads = heads
+        self.w = nn.ParameterList()
+        self.att_src = nn.ParameterList()
+        self.att_dst = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for i, (fan_in, out) in enumerate(zip(dims[:-1], dims[1:])):
+            in_dim = fan_in if i == 0 else heads * fan_in
+            self.w.append(nn.Parameter(_glorot(in_dim, heads * out,
+                                               generator, device)))
+            for att in (self.att_src, self.att_dst):
+                att.append(nn.Parameter(_glorot(heads, out, generator,
+                                                device).view(1, heads, out)))
+            width = out * heads if i < len(dims) - 2 else out
+            self.b.append(nn.Parameter(torch.zeros(width, device=device)))
+
+    def params(self) -> Dict:
+        """The parameters as the functional forward's tree."""
+        return {'layers': [{'w': w, 'att_src': a, 'att_dst': d, 'b': b}
+                           for w, a, d, b in zip(self.w, self.att_src,
+                                                 self.att_dst, self.b)],
+                'heads': self.heads}
+
+    def forward(self, x: torch.Tensor, rowptr: torch.Tensor,
+                row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+        return gat_forward(self.params(), x, rowptr, row, col)

@@ -1,8 +1,12 @@
 """Device ops of the port: planned SpMM over chunked, dedup and
-range-split plans, the CSR segment family, exact max/min, and the
-attention primitives (``softmax_csr``, the padded-space softmax and sum,
-``sddmm``)."""
+range-split plans, the CSR segment family, exact max/min, the attention
+primitives (``softmax_csr``, the padded-space softmax and sum,
+``sddmm``), the scatter and sorted-COO families, the scatter composites
+and ``fused_scatter_reduce``."""
 
+from pyg_lib_tpu_torch.ops.composite import (scatter_log_softmax,
+                                             scatter_logsumexp,
+                                             scatter_softmax, scatter_std)
 from pyg_lib_tpu_torch.ops.kernels.segment_csr import (segment_sum_csr_kernel,
                                                        segment_sum_csr_plain)
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (segment_max_kernel,
@@ -26,6 +30,16 @@ from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import (
 from pyg_lib_tpu_torch.ops.kernels.spmm_range_fused import (
     FusedRangePlan, build_fused_range_plan, fused_range_apply,
     fused_range_plain, fused_range_sum)
+from pyg_lib_tpu_torch.ops.scatter import (scatter, scatter_add,
+                                           scatter_max, scatter_mean,
+                                           scatter_min, scatter_mul,
+                                           scatter_sum)
+from pyg_lib_tpu_torch.ops.scatter_reduce import fused_scatter_reduce
+from pyg_lib_tpu_torch.ops.segment_coo import (gather_coo, segment_add_coo,
+                                               segment_coo, segment_max_coo,
+                                               segment_mean_coo,
+                                               segment_min_coo,
+                                               segment_sum_coo)
 from pyg_lib_tpu_torch.ops.segment_csr import (gather_csr, segment_add_csr,
                                                segment_csr, segment_max_csr,
                                                segment_mean_csr,
@@ -48,13 +62,18 @@ __all__ = [
     'dedup_minmax_apply', 'dedup_minmax_plain', 'dedup_pairs',
     'dedup_plan_apply', 'dedup_sum', 'dedup_sum_plain', 'estimate_dedup',
     'estimate_minmax_config', 'fused_range_apply', 'fused_range_plain',
-    'fused_range_sum', 'gather_csr', 'quantize_columns', 'sddmm',
-    'segment_add_csr', 'segment_csr', 'segment_max_csr',
-    'segment_max_kernel', 'segment_max_padded', 'segment_max_plain',
-    'segment_mean_csr', 'segment_min_csr', 'segment_min_padded',
-    'segment_softmax_padded', 'segment_softmax_plain',
+    'fused_range_sum', 'fused_scatter_reduce', 'gather_coo', 'gather_csr',
+    'quantize_columns', 'scatter', 'scatter_add', 'scatter_log_softmax',
+    'scatter_logsumexp', 'scatter_max', 'scatter_mean', 'scatter_min',
+    'scatter_mul', 'scatter_softmax', 'scatter_std', 'scatter_sum', 'sddmm',
+    'segment_add_coo', 'segment_add_csr', 'segment_coo', 'segment_csr',
+    'segment_max_coo', 'segment_max_csr', 'segment_max_kernel',
+    'segment_max_padded', 'segment_max_plain', 'segment_mean_coo',
+    'segment_mean_csr', 'segment_min_coo', 'segment_min_csr',
+    'segment_min_padded', 'segment_softmax_padded', 'segment_softmax_plain',
     'segment_softmax_planned', 'segment_sum_chunked',
-    'segment_sum_chunked_plain', 'segment_sum_csr', 'segment_sum_csr_kernel',
-    'segment_sum_csr_plain', 'segment_sum_padded', 'softmax_csr', 'spmm',
-    'spmm_chunked', 'spmm_chunked_plain', 'spmm_plan_apply',
+    'segment_sum_chunked_plain', 'segment_sum_coo', 'segment_sum_csr',
+    'segment_sum_csr_kernel', 'segment_sum_csr_plain', 'segment_sum_padded',
+    'softmax_csr', 'spmm', 'spmm_chunked', 'spmm_chunked_plain',
+    'spmm_plan_apply',
 ]

@@ -6,7 +6,8 @@ import torch
 
 Array = torch.Tensor
 
-__all__ = ['Array', 'indptr_to_index', 'max_identity', 'min_identity']
+__all__ = ['Array', 'broadcast_index', 'canonicalize_dim', 'indptr_to_index',
+           'infer_dim_size', 'max_identity', 'min_identity']
 
 
 def _resolve_device(device: Optional[Union[str, torch.device]]
@@ -23,6 +24,35 @@ def _resolve_device(device: Optional[Union[str, torch.device]]
                 'the plain PyTorch versions on the CPU')
         return torch.device('cuda')
     return torch.device(device)
+
+
+def canonicalize_dim(dim: int, ndim: int) -> int:
+    """``dim`` in ``[0, ndim)``; a negative ``dim`` counts from the end."""
+    if dim < -ndim or dim >= ndim:
+        raise ValueError(f'dim {dim} out of range for ndim {ndim}')
+    return dim + ndim if dim < 0 else dim
+
+
+def infer_dim_size(index: torch.Tensor, dim_size: Optional[int]) -> int:
+    """The output size along the reduction axis: ``dim_size`` when given,
+    else ``index.max() + 1`` (0 for an empty index), the reference's
+    minimal size. On a CUDA index this reads back one scalar."""
+    if dim_size is not None:
+        return int(dim_size)
+    if index.numel() == 0:
+        return 0
+    return int(index.max()) + 1
+
+
+def broadcast_index(index: torch.Tensor, src_shape, dim: int) -> torch.Tensor:
+    """A 1-D ``index`` laid along ``dim`` of ``src_shape`` and broadcast to
+    it (the reference's ``_broadcast``); any other index is broadcast as it
+    is."""
+    if index.dim() == 1 and len(src_shape) > 1:
+        shape = [1] * len(src_shape)
+        shape[dim] = src_shape[dim]
+        index = index.reshape(shape)
+    return torch.broadcast_to(index, tuple(src_shape))
 
 
 def min_identity(dtype: torch.dtype) -> torch.Tensor:

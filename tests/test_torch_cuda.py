@@ -1,5 +1,7 @@
 """The port's CUDA kernels K1 (and its ``msgs_padded`` entry), K2, K2h, K3,
-K4, K5, K6 and K7 against their plain versions, on the card.
+K4 (and its row-sum form K4s), K5, K6 and K7 against their plain versions,
+on the card, and the paths of the scatter family, ``fused_scatter_reduce``
+and the padded-batch GAT against the CPU.
 
 Every test here needs an NVIDIA card with ``nvcc`` (marker ``cuda``) and
 skips without one. The file imports nothing of JAX, so it also runs where
@@ -13,7 +15,9 @@ from run to run), so ``|kernel - plain| <= 1e-5 * Σ|terms| + 1e-5``
 elementwise, with ``Σ|terms|`` the plain version's sum of absolute values.
 K3 in bf16 rounds that sum to bf16 once, so one bf16 step of the result,
 ``2**-8 * |plain|``, is added there. K4 and K5 are exact: values and
-positions equal bit for bit (``-0.0`` and ``+0.0`` told apart). K7 adds
+positions equal bit for bit (``-0.0`` and ``+0.0`` told apart); K4s's
+values and positions are those of K4 bit for bit, and its sums are within
+the sum bound (equal where the plain sum is infinite). K7 adds
 ``w·x`` with a fused multiply-add where its plain version rounds the
 product first, inside the same bound. K6 and its plain version compute
 each value as ``exp(x - max) / Σ``: the exponentials differ by a few f32
@@ -716,3 +720,155 @@ def test_attention_and_range_wrappers_refuse(dev):
         ops.fused_range_sum(torch.zeros((n - 1, 4), device=dev), fplan)
     with pytest.raises(ValueError, match='contiguous'):
         ops.fused_range_sum(torch.zeros((4, n), device=dev).t(), fplan)
+
+
+# -- K4s, the fused multi-reduction, the COO sums and the padded GAT -----------
+
+
+def _assert_k4s(src, plan, idx, negate):
+    got = ops.segment_max_kernel(src, plan, idx, negate, with_sum=True)
+    sumless = ops.segment_max_kernel(src, plan, idx, negate)
+    torch.cuda.synchronize()
+    ref = ops.segment_max_plain(src, plan, idx, negate, with_sum=True)
+    _assert_same(got[:2], sumless)
+    _assert_same(got[:2], ref[:2])
+    finite = torch.isfinite(ref[2])
+    assert torch.equal(got[2][~finite], ref[2][~finite])
+    mag = ops.segment_max_plain(src.abs().nan_to_num(posinf=0.0), plan, idx,
+                                with_sum=True)[2]
+    err = (got[2] - ref[2]).abs()[finite]
+    assert bool((err <= RTOL * mag[finite] + ATOL).all())
+
+
+@pytest.mark.parametrize('mode', ['padded', 'col_padded', 'edge_perm'])
+@pytest.mark.parametrize('graph', list(GRAPHS))
+@pytest.mark.parametrize('f', [1, 47, 300])
+@pytest.mark.parametrize('values', ['normal', 'ties'])
+@pytest.mark.parametrize('negate', [False, True])
+def test_k4s_matches_k4_and_plain(dev, mode, graph, f, values, negate):
+    plan, rows, idx = _k4_case(mode, graph, dev)
+    _assert_k4s(_values(values, rows, f, f, dev), plan, idx, negate)
+
+
+@pytest.mark.parametrize('case', ['hub', 'unaligned'])
+@pytest.mark.parametrize('mode', ['padded', 'col_padded', 'edge_perm'])
+@pytest.mark.parametrize('f', [1, 3, 47, 600])
+@pytest.mark.parametrize('values', ['normal', 'ties'])
+def test_k4s_hub_rows_and_alignment(dev, case, mode, f, values):
+    rowptr, col = _hub_csr() if case == 'hub' else GRAPHS['ragged']()
+    plan = ops.build_spmm_plan(rowptr, col, chunk=128, with_edge_maps=True,
+                               device=dev)
+    rows, idx = {'padded': (plan.col_padded.shape[0], None),
+                 'col_padded': (plan.num_rows, plan.col_padded),
+                 'edge_perm': (col.shape[0], plan.edge_perm)}[mode]
+    if case == 'unaligned':
+        src = _unaligned((rows, f), f, dev, values)
+        assert src.data_ptr() % 16 != 0
+    else:
+        src = _values(values, rows, f, f, dev)
+    for negate in (False, True):
+        _assert_k4s(src, plan, idx, negate)
+
+
+# 70,000 rows of 128 features into 9,000 buckets, a few of them empty:
+# past the fused path's 65,536 rows.
+def _fused_inputs(device):
+    rng = np.random.default_rng(11)
+    idx = np.sort(rng.integers(0, 9000, 70000))
+    idx[idx == 17] = 18  # bucket 17 empty
+    x = torch.tensor(rng.normal(size=(70000, 128)).astype(np.float32),
+                     device=device)
+    return idx, x
+
+
+@pytest.mark.parametrize('reduces', [['sum', 'mean', 'min', 'max'],
+                                     ['mean', 'min'], ['max']],
+                         ids='-'.join)
+def test_fused_scatter_reduce_launches_and_matches_cpu(dev, reduces):
+    idx, x = _fused_inputs(dev)
+    xs = x.clone().requires_grad_(True)
+    cot = torch.randn((9000, 128 * len(reduces)), device=dev)
+    before = (ops.segment_max_kernel.launches,
+              ops.segment_max_kernel.sum_launches)
+    out = ops.fused_scatter_reduce(xs, idx, 9000, reduces)
+    (grad, ) = torch.autograd.grad((out * cot).sum(), xs)
+    torch.cuda.synchronize()
+    got = (ops.segment_max_kernel.launches - before[0],
+           ops.segment_max_kernel.sum_launches - before[1])
+    want = {4: (1, 1), 2: (0, 1), 1: (1, 0)}[len(reduces)]
+    assert got == want
+    xc = x.cpu().requires_grad_(True)
+    ref = ops.fused_scatter_reduce(xc, torch.tensor(idx), 9000, reduces)
+    (gref, ) = torch.autograd.grad((ref * cot.cpu()).sum(), xc)
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=1e-5,
+                               atol=1e-5)
+    f = x.shape[1]
+    for bi, r in enumerate(reduces):
+        if r in ('min', 'max'):
+            blk = slice(bi * f, (bi + 1) * f)
+            assert torch.equal(_bits(out.detach()[:, blk].cpu()),
+                               _bits(ref.detach()[:, blk]))
+    torch.testing.assert_close(grad.cpu(), gref, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_gate_on_the_card(dev):
+    idx, x = _fused_inputs(dev)
+    before = ops.segment_max_kernel.sum_launches
+    # A CUDA index, a feature width that is not a multiple of 128, or too
+    # few rows take the composite.
+    ops.fused_scatter_reduce(x, torch.tensor(idx, device=dev), 9000,
+                             ['sum', 'max'])
+    ops.fused_scatter_reduce(x[:, :100].contiguous(), idx, 9000,
+                             ['sum', 'max'])
+    ops.fused_scatter_reduce(x[:60000], idx[:60000], 9000, ['sum', 'max'])
+    torch.cuda.synchronize()
+    assert ops.segment_max_kernel.sum_launches == before
+
+
+@pytest.mark.parametrize('reduce', ['sum', 'mean', 'min', 'max'])
+def test_segment_coo_matches_cpu(dev, reduce):
+    rng = np.random.default_rng(12)
+    index = np.sort(rng.integers(0, 500, 6000))
+    src = rng.normal(size=(6000, 64)).astype(np.float32)
+    before = ops.segment_sum_csr_kernel.launches
+    got = ops.segment_coo(torch.tensor(src, device=dev),
+                          torch.tensor(index, device=dev), dim_size=520,
+                          reduce=reduce)
+    torch.cuda.synchronize()
+    launched = ops.segment_sum_csr_kernel.launches - before
+    assert launched == (1 if reduce in ('sum', 'mean') else 0)
+    ref = ops.segment_coo(torch.tensor(src), torch.tensor(index),
+                          dim_size=520, reduce=reduce)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_gat_batch_forward_and_grads_match_cpu(dev):
+    from pyg_lib_tpu_torch.models import GATBatch
+
+    rng = np.random.default_rng(13)
+    n, e, max_e = 3000, 40000, 45000
+    dst = np.sort(rng.integers(0, n - 1, e))  # node n-1: pad in-edges only
+    row = np.full(max_e, n, np.int64)
+    col = np.full(max_e, n, np.int64)
+    row[:e], col[:e] = rng.integers(0, n, e), dst
+    rowptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=rowptr[1:])
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    outs = []
+    for device in ('cpu', dev):
+        model = GATBatch([32, 16, 7], heads=4,
+                         generator=torch.Generator().manual_seed(2),
+                         device=device)
+        batch = [torch.tensor(a, device=device) for a in (rowptr, row, col)]
+        before = ops.segment_sum_csr_kernel.launches
+        out = model(torch.tensor(x, device=device), *batch)
+        grads = torch.autograd.grad(out.square().sum(),
+                                    list(model.parameters()))
+        if device != 'cpu':
+            torch.cuda.synchronize()
+            assert ops.segment_sum_csr_kernel.launches - before == 2
+        outs.append([out.detach().cpu()] + [t.cpu() for t in grads])
+    for a, b in zip(*outs):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(b, a, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(a.abs().max())))

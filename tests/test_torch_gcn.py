@@ -139,7 +139,11 @@ def test_package_imports_neither_jax_nor_reference():
             'pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax, '
             'pyg_lib_tpu_torch.ops.softmax, '
             'pyg_lib_tpu_torch.ops.kernels.segment_softmax, '
-            'pyg_lib_tpu_torch.ops.kernels.spmm_range_fused; '
+            'pyg_lib_tpu_torch.ops.kernels.spmm_range_fused, '
+            'pyg_lib_tpu_torch.ops.scatter, '
+            'pyg_lib_tpu_torch.ops.segment_coo, '
+            'pyg_lib_tpu_torch.ops.composite, '
+            'pyg_lib_tpu_torch.ops.scatter_reduce; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyg_lib_tpu')); "
             'assert not bad, bad')
@@ -164,7 +168,8 @@ def test_sources_import_neither_jax_nor_reference():
     names = {p.name for p in files}
     assert {'segment_csr.py', 'segment_minmax.py', 'spmm_dedup_minmax.py',
             'plan_cache.py', 'gnn.py', 'softmax.py', 'segment_softmax.py',
-            'spmm_range_fused.py'} <= names and len(files) > 17
+            'spmm_range_fused.py', 'scatter.py', 'segment_coo.py',
+            'composite.py', 'scatter_reduce.py'} <= names and len(files) > 21
     for path in files:
         bad = _imported_roots(path) & {'jax', 'jaxlib', 'pyg_lib_tpu'}
         assert not bad, f'{path.relative_to(REPO)} imports {bad}'
