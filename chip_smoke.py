@@ -44,9 +44,10 @@ The script:
    zeros, rows far above and below the rest, empty ranges and empty
    tiles, a hub tile of hundreds of chunks, F=600 for K2, a hot_w
    replaced or changed after a K2h call, a K2 plan whose uc leaves room
-   for one slab, a hub row of 120,000 edges and a src that is not
-   16-byte aligned for K3 and K4; f32, bf16 and int8 where the kernel
-   takes them);
+   for one slab, a hub row of 120,000 edges and a source that is not
+   16-byte aligned for K1, K1m, K3, K4 and K7 (K1's and K7's two
+   branches must give the same bits); f32, bf16 and int8 where the
+   kernel takes them);
 3. builds the graphs and holds each kernel against its plain version at
    the main paths' shapes (F=512 and F=47; F=4, the head count, for K6);
 4. drives each path with every launch count set to 0 just before it and
@@ -167,6 +168,25 @@ def powerlaw_graph(n, e):
     return rowptr, col[order].astype(np.int64)
 
 
+def range_graphs(rp, cl):
+    """The range paths' graphs over the uniform graph ``(rp, cl)``: built
+    ``range_split=RANGES, range_fused=True`` (K7), ``range_split=RANGES``
+    (K1 per range) and weighted fused over RANGES equal bounds (K7 with
+    weights), all ``chunk='auto'``; and the weights (seed 2)."""
+    from pyg_lib_tpu_torch import ops
+
+    g_uf = ops.build_spmm_graph(rp, cl, range_split=RANGES, range_fused=True,
+                                chunk='auto')
+    g_ur = ops.build_spmm_graph(rp, cl, range_split=RANGES, chunk='auto')
+    quarter = -(-N_NODES // RANGES)
+    bounds = [(i * quarter, min((i + 1) * quarter, N_NODES))
+              for i in range(RANGES)]
+    w = np.random.default_rng(2).normal(size=cl.shape[0]).astype(np.float32)
+    g_w = ops.build_weighted_fused_graph(rp, cl, N_NODES, bounds, w,
+                                         chunk='auto', bounds_t=bounds)
+    return g_uf, g_ur, g_w, w
+
+
 def ragged_graph(n, e):
     """Geometric row degrees (many empty rows, a few long ones) over ``n``
     rows, a partial last tile when ``n % 128``."""
@@ -176,6 +196,27 @@ def ragged_graph(n, e):
     rowptr = np.zeros(n + 1, np.int64)
     np.cumsum(np.bincount(row, minlength=n), out=rowptr[1:])
     return rowptr, rng.integers(0, n, e)[order].astype(np.int64)
+
+
+class ByWidth:
+    """A kernel's C entry point that also counts its calls by kernel id
+    (``kid(args)``) and width (argument ``at``)."""
+
+    def __init__(self, fn, at, kid):
+        self.fn, self.at, self.kid = fn, at, kid
+        self.argtypes, self.restype = fn.argtypes, fn.restype
+        self.counts = {}
+
+    def __call__(self, *args):
+        key = (self.kid(args), args[self.at])
+        self.counts[key] = self.counts.get(key, 0) + 1
+        return self.fn(*args)
+
+
+def one_element_in(t):
+    """A copy of the contiguous ``t`` one element into a fresh storage: not
+    16-byte aligned."""
+    return t.new_empty(t.numel() + 1)[1:].view(t.shape).copy_(t)
 
 
 def bits(t):
@@ -288,6 +329,8 @@ def main():
     from pyg_lib_tpu_torch import _build, ops
     from pyg_lib_tpu_torch.models import (GAT, GCN, SAGE, GATBatch,
                                           sage_forward)
+    from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
+    from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
     from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
     from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
     from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
@@ -637,6 +680,44 @@ def main():
                                   negate)
     del big, src
 
+    # K1 (both entries) and K7 (S = 1, 2 and 4, with and without weights)
+    # on the same hub row, from x at the start of its storage and from a
+    # copy one element into another (the scalar branch; when aligned,
+    # F=512 takes the vector branch in every type and F=600 in f32 and
+    # bf16), f32, bf16 and int8 with its column scale where the kernel
+    # takes it: each within the sum tolerance, and the two sources'
+    # outputs equal bit for bit.
+    w_h = rng_h.normal(size=cl_h.shape[0]).astype(np.float32)
+    sum_plans = [('K1', 'K1', hub_plan), ('K1m', 'K1m', hub_plan)] + [
+        ('K7', f'K7 S={s}{"" if w is None else " weighted"}',
+         ops.build_fused_range_plan(rp_h, cl_h, 2000, s, chunk=128,
+                                    edge_weight=w))
+        for s in (1, 2, 4) for w in (None, w_h)]
+    e_pad_h = hub_plan.col_padded.shape[0]
+    for f in (1, 3, 47, 512, 600):
+        x = torch.randn((e_pad_h, f), generator=gen, device=dev)
+        for mode, xm, scale in modes(x):
+            for kid, name, plan in sum_plans:
+                weighted = getattr(plan, 'weights', None) is not None
+                if mode == 'int8' and weighted:
+                    continue  # refused on weighted plans
+                rows = e_pad_h if kid == 'K1m' else 2000
+                outs = []
+                for where, src in (('aligned', xm[:rows]),
+                                   ('unaligned', one_element_in(xm[:rows]))):
+                    label = f'hub row {name} {where} F={f} {mode}'
+                    if kid == 'K1m':
+                        check_msgs(label, src, plan)
+                        outs.append(ops.segment_sum_chunked(src, plan))
+                    else:
+                        check(label, kid, src, plan, scale)
+                        outs.append(kernel(src, plan, scale))
+                if not torch.equal(bits(outs[0]), bits(outs[1])):
+                    raise AssertionError(f'{name} F={f} {mode}: the aligned '
+                                         f'and the unaligned x give other '
+                                         f'bits')
+    del x, xm, outs
+
     # K6 over a ragged plan (empty rows, a partial tile), a uniform plan
     # and the transposed power-law graph (hub rows of many chunks), in the
     # padded mode and through edge_perm; K1's msgs_padded entry over the
@@ -710,16 +791,7 @@ def main():
     g_pp = ops.build_spmm_graph(rp_p, cl_p, with_edge_maps=True)
     t_pp = time.perf_counter() - t0
     t0 = time.perf_counter()
-    g_uf = ops.build_spmm_graph(rp_u, cl_u, range_split=RANGES,
-                                range_fused=True, chunk='auto')
-    g_ur = ops.build_spmm_graph(rp_u, cl_u, range_split=RANGES, chunk='auto')
-    quarter = -(-N_NODES // RANGES)
-    bounds4 = [(i * quarter, min((i + 1) * quarter, N_NODES))
-               for i in range(RANGES)]
-    w_u = np.random.default_rng(2).normal(size=cl_u.shape[0]).astype(
-        np.float32)
-    g_w = ops.build_weighted_fused_graph(rp_u, cl_u, N_NODES, bounds4, w_u,
-                                         chunk='auto', bounds_t=bounds4)
+    g_uf, g_ur, g_w, w_u = range_graphs(rp_u, cl_u)
     t_r = time.perf_counter() - t0
     e_u, e_p = int(rp_u[-1]), int(rp_p[-1])
     print(f'graphs: uniform E={e_u} E_pad={g_u.fwd.col_padded.numel()} '
@@ -829,10 +901,20 @@ def main():
 
     # -- 4. the main paths, each counted on its own ----------------------
     launches = {k: 0 for k in COUNTERS}
+    # K1's, K1m's and K7's launches on the main paths by width, read off
+    # their C entry points (the wrappers' counters are the launch counts).
+    by_width = {}
+    tallies = [ByWidth(k1_mod._k1_lib(), 8,
+                       lambda a: 'K1' if a[2] else 'K1m'),
+               ByWidth(k7_mod._k7_lib(), 12, lambda a: 'K7')]
+    _build.load('spmm_chunked').pygt_spmm_chunked = tallies[0]
+    _build.load('spmm_range_fused').pygt_spmm_range_fused = tallies[1]
 
     def run_path(name, need, fn):
         for wrapper, attr in COUNTERS.values():
             setattr(getattr(ops, wrapper), attr, 0)
+        for t in tallies:
+            t.counts.clear()
         result = fn()
         torch.cuda.synchronize()
         got = {k: getattr(getattr(ops, w), a)
@@ -844,6 +926,9 @@ def main():
                                      f'{name}')
         for k, n in got.items():
             launches[k] += n
+        for t in tallies:
+            for key, n in t.counts.items():
+                by_width[key] = by_width.get(key, 0) + n
         return result
 
     x = torch.randn((N_NODES, DIMS[0]), generator=gen, device=dev)
@@ -1389,6 +1474,11 @@ def main():
                  call=lambda: gat_b(x, *batch_b))
     del gat_b, row_b, col_b, batch_b
     torch.cuda.empty_cache()
+    _build.load('spmm_chunked').pygt_spmm_chunked = tallies[0].fn
+    _build.load('spmm_range_fused').pygt_spmm_range_fused = tallies[1].fn
+    print('K1, K1m and K7 launches on the main paths by width: ' + ', '.join(
+        f'{kid} F={f} {n}' for (kid, f), n in sorted(by_width.items())),
+        flush=True)
 
     # -- 6. timing ------------------------------------------------------
     csr = {}
@@ -1625,6 +1715,19 @@ def main():
             0, plan.row_padded, msgs),
         e_pad_u * F_BENCH * 4 + ptr_bytes + N_NODES * F_BENCH * 4,
         e_u * F_BENCH, 'index_add_')
+
+    # K1, K7 and K1m at the main paths' other widths, on the same plans
+    # (K1 and K7 at F=47 take the scalar branch).
+    for kid, f in sorted(k for k in by_width if k[1] != F_BENCH):
+        if kid == 'K1m':
+            src = msgs[:, :f].contiguous()
+            ms = cuda_ms(lambda: ops.segment_sum_chunked(src, g_u.fwd))
+        else:
+            src = xb[:, :f].contiguous()
+            ms = cuda_ms(lambda: kernel(src, g_u.fwd if kid == 'K1' else
+                                        g_uf.fwd))
+        print(f'  {kid} F={f} f32 ({by_width[kid, f]} launches on the main '
+              f'paths): {ms:.3f} ms', flush=True)
     return smi, errs, rows
 
 

@@ -101,17 +101,25 @@ def build_variants(paths: Iterable[str]) -> Dict[str, Path]:
     against each other. Each distinct source not built yet is built once,
     as :func:`build` builds (in parallel, ``-I csrc``), into
     ``_build/variant-<digest>.so`` with its log beside it as
-    ``variant-<digest>.log``. Returns the library path of every path."""
+    ``variant-<digest>.log``. The digest covers the headers beside the
+    source as well as those of ``csrc``: a quoted ``#include`` finds a
+    header in the source's own directory first, so two versions that
+    differ only there are two libraries. Returns the library path of
+    every path."""
     BUILD_DIR.mkdir(exist_ok=True)
     targets = {}
     for path in dict.fromkeys(paths):
         h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
         h.update(Path(path).read_bytes())
-        for p in sorted(CSRC.glob('*.cuh')):
+        for p in (sorted(Path(path).parent.glob('*.cuh')) +
+                  sorted(CSRC.glob('*.cuh'))):
+            h.update(p.name.encode())
             h.update(p.read_bytes())
         targets[path] = BUILD_DIR / f'variant-{h.hexdigest()[:16]}.so'
+    # One build per library: copies with the same bytes share it.
     _run([(Path(path), so, so.with_suffix('.log'))
-          for path, so in targets.items() if not so.exists()])
+          for so, path in {so: p for p, so in targets.items()}.items()
+          if not so.exists()])
     return targets
 
 

@@ -23,111 +23,79 @@
 // mostly from HBM since a 512-wide f32 table at 262k rows is ten times the
 // 50 MB L2.
 //
-// Design against that bound:
+// Design against that bound (measured in PERF.md):
 // * the gather is fused: the TPU path wrote the padded message slab
 //   [E_pad, F] to memory and read it back (9.2 GB in f32 at the bench
 //   shape); here each x row goes straight from memory into registers;
-// * one block per (tile, F-block), one warp per output row: the 32 lanes
-//   read 32 neighbouring features of a row (coalesced), and each lane
-//   keeps VPL independent loads in flight per edge;
-// * column ids are read 32 at a time and broadcast with shuffles;
+// * a block takes one (128-row tile, 512-byte slice of the row) pair, with
+//   blockIdx.x (the tile) running fastest; a warp walks its rows' slots in
+//   order (row_walk.cuh, the walker K7 shares), a lane loads 16 bytes of
+//   the slice per slot with one __ldg and the warp loads CHUNK slots
+//   before it adds them. Column ids are read 32 at a time and broadcast
+//   with shuffles. A scalar branch of the same kernel takes an x (or out,
+//   or scale) address or a row pitch that does not allow 16-byte loads,
+//   and rows narrower than a slice, with NV plain loads a lane over
+//   32 * NV features. A ring of 1-D TMA
+//   bulk copies of whole 512-feature row slices into shared memory, one
+//   mbarrier a stage, lost this design's A/B on the H100 by 16%
+//   (tools/time_segment.py, PERF.md);
 // * each output row is written once, with no atomics and no zero fill:
 //   every row of a real tile owns its (possibly empty) slot range, and
 //   rows past num_rows are skipped. Sums run in f32 in slot order, so
-//   the result is deterministic.
-#include "common.cuh"
+//   the result is deterministic and the same whichever branch runs.
+#include "row_walk.cuh"
 
 namespace pygt {
 namespace {
 
 constexpr int K1_WARPS = 8;
 
-template <typename T, int VPL, bool GATHER>
-__global__ void __launch_bounds__(K1_WARPS * 32)
+template <typename T, int W, int NV, bool GATHER>
+__global__ void __launch_bounds__(K1_WARPS * 32,
+                                  walk_blocks<T, W, NV, false>())
     chunked_sum_kernel(const T* __restrict__ x,
                        const int* __restrict__ col_padded,
                        const int* __restrict__ tile_ptr,
                        const float* __restrict__ scale,
                        float* __restrict__ out, int num_rows, int F) {
   const int t = blockIdx.x;
-  const int f0 = blockIdx.y * (32 * VPL);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int* ptr = tile_ptr + static_cast<int64_t>(t) * PTR_SUB * TP;
-
-  bool ok[VPL];
-  float sc[VPL];
-#pragma unroll
-  for (int v = 0; v < VPL; ++v) {
-    const int f = f0 + lane + 32 * v;
-    ok[v] = f < F;
-    sc[v] = (scale != nullptr && ok[v]) ? scale[f] : 1.0f;
-  }
-
+  const RowWalk<T, W, NV, GATHER, false> walk(
+      F, blockIdx.y * (32 * W * NV) + lane * W, lane);
   for (int r = warp; r < TR; r += K1_WARPS) {
     const int64_t row = static_cast<int64_t>(t) * TR + r;
     if (row >= num_rows) break;
-    const int lo = ptr[r];
-    const int hi = ptr[r + 1];
-    float acc[VPL];
-#pragma unroll
-    for (int v = 0; v < VPL; ++v) acc[v] = 0.0f;
-    for (int base = lo; base < hi; base += 32) {
-      const int n = min(32, hi - base);
-      const int mine = (GATHER && lane < n) ? col_padded[base + lane] : 0;
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const int64_t c = GATHER ? __shfl_sync(FULL, mine, j) : base + j;
-        const T* src = x + c * F + f0 + lane;
-#pragma unroll
-        for (int v = 0; v < VPL; ++v)
-          if (ok[v]) acc[v] += to_f32(src[32 * v]);
-      }
-    }
-    float* dst = out + row * F + f0 + lane;
-#pragma unroll
-    for (int v = 0; v < VPL; ++v)
-      if (ok[v]) dst[32 * v] = scale != nullptr ? acc[v] * sc[v] : acc[v];
+    float acc[NV][W] = {};
+    walk.run(x, col_padded, nullptr, ptr[r], ptr[r + 1], acc);
+    walk.write(out, scale, row, acc);
   }
 }
 
 template <typename T, bool GATHER>
-void launch_vpl(const T* x, const int* col_padded, const int* tile_ptr,
-                const float* scale, float* out, int num_tiles, int num_rows,
-                int F, cudaStream_t stream) {
-  const int vpl = pick_vpl(F, 8);
-  const dim3 grid(num_tiles, (F + 32 * vpl - 1) / (32 * vpl));
-  const dim3 block(K1_WARPS * 32);
-  switch (vpl) {
-    case 1:
-      chunked_sum_kernel<T, 1, GATHER><<<grid, block, 0, stream>>>(
-          x, col_padded, tile_ptr, scale, out, num_rows, F);
-      break;
-    case 2:
-      chunked_sum_kernel<T, 2, GATHER><<<grid, block, 0, stream>>>(
-          x, col_padded, tile_ptr, scale, out, num_rows, F);
-      break;
-    case 4:
-      chunked_sum_kernel<T, 4, GATHER><<<grid, block, 0, stream>>>(
-          x, col_padded, tile_ptr, scale, out, num_rows, F);
-      break;
-    default:
-      chunked_sum_kernel<T, 8, GATHER><<<grid, block, 0, stream>>>(
-          x, col_padded, tile_ptr, scale, out, num_rows, F);
-  }
-}
-
-template <typename T>
 void launch(const void* x, const int* col_padded, const int* tile_ptr,
             const float* scale, float* out, int num_tiles, int num_rows,
             int F, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
+  walk_dispatch<T>(x, out, scale, F, [&](auto w, auto nv) {
+    constexpr int W = decltype(w)::value, NV = decltype(nv)::value;
+    chunked_sum_kernel<T, W, NV, GATHER>
+        <<<walk_grid(num_tiles, F, W, NV), K1_WARPS * 32, 0, stream>>>(
+            xt, col_padded, tile_ptr, scale, out, num_rows, F);
+  });
+}
+
+template <typename T>
+void launch_any(const void* x, const int* col_padded, const int* tile_ptr,
+                const float* scale, float* out, int num_tiles, int num_rows,
+                int F, cudaStream_t stream) {
   if (col_padded != nullptr)
-    launch_vpl<T, true>(xt, col_padded, tile_ptr, scale, out, num_tiles,
-                        num_rows, F, stream);
+    launch<T, true>(x, col_padded, tile_ptr, scale, out, num_tiles,
+                    num_rows, F, stream);
   else
-    launch_vpl<T, false>(xt, col_padded, tile_ptr, scale, out, num_tiles,
-                         num_rows, F, stream);
+    launch<T, false>(x, col_padded, tile_ptr, scale, out, num_tiles,
+                     num_rows, F, stream);
 }
 
 }  // namespace
@@ -149,13 +117,13 @@ extern "C" int pygt_spmm_chunked(const void* x, int x_dtype,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case F32:
-      launch<float>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
+      launch_any<float>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
       break;
     case BF16:
-      launch<__nv_bfloat16>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
+      launch_any<__nv_bfloat16>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
       break;
     case I8:
-      launch<int8_t>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
+      launch_any<int8_t>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -26,25 +26,27 @@
 // slot tables + rows*F*4 bytes over the 3.35 TB/s of HBM; what the kernel
 // really moves is one x row per edge, E*F*elem bytes.
 //
-// Design against that bound, as K1 (spmm_chunked.cu), which it extends:
+// Design against that bound, K1's (spmm_chunked.cu) over S slot runs:
 // * the gathers are fused: the TPU path wrote S padded message slabs;
-// * one block per (tile, F-block), one warp per output row; the warp walks
-//   the row's slots range after range, lanes over 32 neighbouring features
-//   (coalesced), VPL independent loads in flight per slot;
-// * column ids (and weights) are read 32 at a time and broadcast with
-//   shuffles;
+// * a block takes one (128-row tile, 512-byte slice of the row) pair; a
+//   warp walks each of its rows' S slot ranges in turn with K1's walker
+//   (row_walk.cuh): 16-byte loads a lane, CHUNK slots in flight, column
+//   ids and weights read 32 at a time and broadcast with shuffles, and
+//   the same scalar branch for addresses or row pitches that do not allow
+//   16-byte loads and for rows narrower than a slice;
 // * each output row is written once, after its last range, with no atomics
 //   and no partial [N, F] outputs: sums run in f32 in range and slot order,
 //   so the result is deterministic.
-#include "common.cuh"
+#include "row_walk.cuh"
 
 namespace pygt {
 namespace {
 
 constexpr int K7_WARPS = 8;
 
-template <typename T, int VPL, bool WEIGHTED>
-__global__ void __launch_bounds__(K7_WARPS * 32)
+template <typename T, int W, int NV, bool WEIGHTED>
+__global__ void __launch_bounds__(K7_WARPS * 32,
+                                  walk_blocks<T, W, NV, WEIGHTED>())
     range_fused_kernel(const T* __restrict__ x, const int* __restrict__ cols,
                        const float* __restrict__ w,
                        const int* __restrict__ tile_ptrs,
@@ -52,55 +54,21 @@ __global__ void __launch_bounds__(K7_WARPS * 32)
                        const float* __restrict__ scale,
                        float* __restrict__ out, int num_rows, int F) {
   const int t = blockIdx.x;
-  const int f0 = blockIdx.y * (32 * VPL);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int* ptrs = tile_ptrs + static_cast<int64_t>(t) * S8 * TP;
-
-  bool ok[VPL];
-  float sc[VPL];
-#pragma unroll
-  for (int v = 0; v < VPL; ++v) {
-    const int f = f0 + lane + 32 * v;
-    ok[v] = f < F;
-    sc[v] = (scale != nullptr && ok[v]) ? scale[f] : 1.0f;
-  }
-
+  const RowWalk<T, W, NV, true, WEIGHTED> walk(
+      F, blockIdx.y * (32 * W * NV) + lane * W, lane);
   for (int r = warp; r < TR; r += K7_WARPS) {
     const int64_t row = static_cast<int64_t>(t) * TR + r;
     if (row >= num_rows) break;
-    float acc[VPL];
-#pragma unroll
-    for (int v = 0; v < VPL; ++v) acc[v] = 0.0f;
+    float acc[NV][W] = {};
     for (int s = 0; s < S; ++s) {
       const int* ptr = ptrs + s * TP;
       const int b = slot_base[s];
-      const int lo = b + ptr[r];
-      const int hi = b + ptr[r + 1];
-      for (int base = lo; base < hi; base += 32) {
-        const int n = min(32, hi - base);
-        const int mine = lane < n ? cols[base + lane] : 0;
-        const float wmine = (WEIGHTED && lane < n) ? w[base + lane] : 1.0f;
-#pragma unroll 4
-        for (int j = 0; j < n; ++j) {
-          const int64_t c = __shfl_sync(FULL, mine, j);
-          const float wj = WEIGHTED ? __shfl_sync(FULL, wmine, j) : 1.0f;
-          const T* src = x + c * F + f0 + lane;
-#pragma unroll
-          for (int v = 0; v < VPL; ++v)
-            if (ok[v]) {
-              if (WEIGHTED)
-                acc[v] = fmaf(wj, to_f32(src[32 * v]), acc[v]);
-              else
-                acc[v] += to_f32(src[32 * v]);
-            }
-        }
-      }
+      walk.run(x, cols, w, b + ptr[r], b + ptr[r + 1], acc);
     }
-    float* dst = out + row * F + f0 + lane;
-#pragma unroll
-    for (int v = 0; v < VPL; ++v)
-      if (ok[v]) dst[32 * v] = scale != nullptr ? acc[v] * sc[v] : acc[v];
+    walk.write(out, scale, row, acc);
   }
 }
 
@@ -109,27 +77,14 @@ void launch(const void* x, const int* cols, const float* w,
             const int* tile_ptrs, const int* slot_base, int S, int S8,
             const float* scale, float* out, int num_tiles, int num_rows,
             int F, cudaStream_t st) {
-  const int vpl = pick_vpl(F, 8);
-  const dim3 grid(num_tiles, (F + 32 * vpl - 1) / (32 * vpl));
-  const dim3 block(K7_WARPS * 32);
   const T* xt = static_cast<const T*>(x);
-  switch (vpl) {
-    case 1:
-      range_fused_kernel<T, 1, WEIGHTED><<<grid, block, 0, st>>>(
-          xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows, F);
-      break;
-    case 2:
-      range_fused_kernel<T, 2, WEIGHTED><<<grid, block, 0, st>>>(
-          xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows, F);
-      break;
-    case 4:
-      range_fused_kernel<T, 4, WEIGHTED><<<grid, block, 0, st>>>(
-          xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows, F);
-      break;
-    default:
-      range_fused_kernel<T, 8, WEIGHTED><<<grid, block, 0, st>>>(
-          xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows, F);
-  }
+  walk_dispatch<T>(x, out, scale, F, [&](auto wv, auto nv) {
+    constexpr int W = decltype(wv)::value, NV = decltype(nv)::value;
+    range_fused_kernel<T, W, NV, WEIGHTED>
+        <<<walk_grid(num_tiles, F, W, NV), K7_WARPS * 32, 0, st>>>(
+            xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows,
+            F);
+  });
 }
 
 template <typename T>

@@ -1,20 +1,35 @@
 #!/usr/bin/env python3
-"""Time versions of K3 (``csrc/segment_csr.cu``) and K4
-(``csrc/segment_minmax.cu``) against each other.
+"""Time versions of K1 (``csrc/spmm_chunked.cu``), K3
+(``csrc/segment_csr.cu``), K4 (``csrc/segment_minmax.cu``) and K7
+(``csrc/spmm_range_fused.cu``) against each other.
 
     python3 pyg_lib_tpu_torch/tools/time_segment.py A.cu B.cu B.cu A.cu
 
-Each argument is a source with the C interface of ``segment_csr.cu``
-(``pygt_segment_sum_csr``, with or without its scratch arguments) or of
-``segment_minmax.cu`` (``pygt_segment_max``, with or without its piece
-table), optionally followed by ``@NAME=VALUE`` pairs joined by ``,``
-that set constants of the wrapper module for that argument's calls
-(``UNITS_PER_SM`` of ``segment_csr.py``, ``K4_LONG`` of
-``segment_minmax.py``, which must equal the source's ``LONG``). The
-sources are built by ``_build.build_variants``, all in parallel. On ``chip_smoke.py``'s
-graphs at F=512 f32, in the order given, so that ``A B B A`` interleaves
-two versions on one card:
+Each argument is a source with the C interface of ``spmm_chunked.cu``
+(``pygt_spmm_chunked``: K1 and its ``msgs_padded`` entry K1m),
+``segment_csr.cu`` (``pygt_segment_sum_csr``, with or without its
+scratch arguments), ``segment_minmax.cu`` (``pygt_segment_max``, with or
+without its piece table) or ``spmm_range_fused.cu``
+(``pygt_spmm_range_fused``: K7), optionally followed by ``@NAME=VALUE``
+pairs joined by ``,`` that set constants of the wrapper module for that
+argument's calls (``UNITS_PER_SM`` of ``segment_csr.py``, ``K4_LONG`` of
+``segment_minmax.py``, which must equal the source's ``LONG``). A source
+may include headers kept beside it, which it reads before those of
+``csrc``. The sources are built by ``_build.build_variants``, all in
+parallel. On ``chip_smoke.py``'s graphs, F=512 f32 unless a label says
+otherwise, in the order given, so that ``A B B A`` interleaves two
+versions on one card:
 
+* K1 on the uniform graph's forward and backward plans (F=512 and F=47;
+  bf16, and int8 with its column scale, at F=512), K1m on the forward
+  plan's padded messages (F=512, and GAT's F=48 and F=4), and K1 per
+  range of the ``range_split=4`` graph (partial sums added); K7 on the
+  ``range_split=4, range_fused`` graph's forward and backward plans
+  (F=512 and F=47) and on the weighted fused graph's forward plan. Each is held against its plain version
+  within ``1e-5 * sum|terms| + 1e-5``, and every source's output against
+  the first K1 (or K7) source's, bit for bit. Beside each time, the share
+  of its gather floor: E*F*elem bytes (one x row per real edge) over
+  3.35 TB/s;
 * K3 on the uniform graph's CSR (its ``[E, 512]`` messages) and on the
   power-law graph's transpose CSR (hub rows up to 810,552 edges), each
   held against ``segment_sum_csr_plain`` within
@@ -26,9 +41,11 @@ two versions on one card:
   ``segment_max_plain`` bit for bit.
 
 Times are CUDA events, the mean of 20 calls after 3 (5 after 1 on the
-plans with hub rows). Prints the card's name and power limit,
-``torch.segment_reduce``'s times on the CSRs, then one line per argument.
-Needs one card.
+plans with hub rows). Prints the card's name and power limit, each
+build's registers and spills, the library calls' times
+(``torch.segment_reduce`` on the CSRs, ``torch.sparse.mm`` on the
+uniform CSR and its weighted copy), then one line per argument. Needs
+one card.
 """
 
 import ctypes
@@ -49,15 +66,18 @@ F = 512
 def _parse(arg):
     """``path[@NAME=VALUE,...]`` -> (path, kernel id, parameter count of
     its C function, {module constant: value})."""
-    from pyg_lib_tpu_torch.ops.kernels import segment_csr, segment_minmax
+    from pyg_lib_tpu_torch.ops.kernels import (segment_csr, segment_minmax,
+                                               spmm_chunked, spmm_range_fused)
 
     path, _, pairs = arg.partition('@')
-    m = re.search(r'int pygt_segment_(sum_csr|max)\(([^)]*)\)',
-                  Path(path).read_text())
+    m = re.search(r'int pygt_(segment_sum_csr|segment_max|spmm_chunked|'
+                  r'spmm_range_fused)\(([^)]*)\)', Path(path).read_text())
     if m is None:
-        raise SystemExit(f'{path} exports neither K3 nor K4')
-    kid, module = (('K3', segment_csr) if m.group(1) == 'sum_csr' else
-                   ('K4', segment_minmax))
+        raise SystemExit(f'{path} exports none of K1, K3, K4 and K7')
+    kid, module = {'segment_sum_csr': ('K3', segment_csr),
+                   'segment_max': ('K4', segment_minmax),
+                   'spmm_chunked': ('K1', spmm_chunked),
+                   'spmm_range_fused': ('K7', spmm_range_fused)}[m.group(1)]
     attrs = {}
     for pair in filter(None, pairs.split(',')):
         name, _, value = pair.partition('=')
@@ -134,6 +154,85 @@ def _k3_call(lib, nparams):
                    launch)
 
 
+def _sum_cases(x, gen):
+    """K1's and K7's cases on chip_smoke.py's uniform graph: ({kernel id:
+    [(label, call, plain call, bytes of its gather floor)]}, (rowptr, col,
+    edge weights of the weighted graph)). A call goes through the wrapper,
+    so it launches the library loaded last as ``spmm_chunked`` (or
+    ``spmm_range_fused``); a plain call gives ``(ref, Σ|terms|)``."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    n = chip_smoke.N_NODES
+    rp, cl = chip_smoke.uniform_graph(n, chip_smoke.N_EDGES)
+    e = int(rp[-1])
+    g_u = ops.build_spmm_graph(rp, cl, with_edge_maps=True, minmax='auto')
+    g_uf, g_ur, g_w, w = chip_smoke.range_graphs(rp, cl)
+    x47 = x[:, :47].contiguous()
+    xb = x.to(torch.bfloat16)
+    xq, scale = ops.quantize_columns(x)
+    msgs = torch.randn((g_u.fwd.col_padded.numel(), F), generator=gen,
+                       device=x.device)
+    msgs.mul_(g_u.fwd.valid_mask[:, None])
+
+    def abs_plan(plan):
+        if getattr(plan, 'weights', None) is None:
+            return plan
+        return plan._replace(weights=tuple(w.abs() for w in plan.weights))
+
+    def ref(fn, src, plan, sc=None):
+        def go():
+            out = chip_smoke.by_columns(fn, src, plan)
+            mag = chip_smoke.by_columns(fn, src.abs(), abs_plan(plan))
+            if sc is not None:
+                out, mag = out * sc, mag * sc.abs()
+            return out, mag
+        return go
+
+    def per_range(xm, plan):
+        return sum(ops.spmm_chunked(xm[lo:hi], p)
+                   for (lo, hi), p in zip(plan.bounds, plan.plans))
+
+    def per_range_plain(xm, plan):
+        return sum(ops.spmm_chunked_plain(xm[lo:hi], p)
+                   for (lo, hi), p in zip(plan.bounds, plan.plans))
+
+    def k1(label, xm, plan, sc=None):
+        return (label, lambda: ops.spmm_chunked(xm, plan, sc),
+                ref(ops.spmm_chunked_plain, xm, plan, sc),
+                e * xm.shape[1] * xm.element_size())
+
+    def k1m(m):
+        f = m.shape[1]
+        return (f'K1m uniform fwd msgs_padded{"" if f == F else f" F={f}"}',
+                lambda: ops.segment_sum_chunked(m, g_u.fwd),
+                ref(ops.segment_sum_chunked_plain, m, g_u.fwd), e * f * 4)
+
+    def k7(label, xm, plan):
+        return (label, lambda: ops.fused_range_sum(xm, plan),
+                ref(ops.fused_range_plain, xm, plan),
+                e * xm.shape[1] * xm.element_size())
+
+    return {
+        'K1': [k1('uniform fwd', x, g_u.fwd), k1('uniform bwd', x, g_u.bwd),
+               k1('uniform fwd F=47', x47, g_u.fwd),
+               k1('uniform bwd F=47', x47, g_u.bwd),
+               k1('uniform fwd bf16', xb, g_u.fwd),
+               k1('uniform fwd int8+scale', xq, g_u.fwd, scale),
+               # GAT's widths: 4 heads of 128 and of 12 channels, and the
+               # heads alone (the softmax backward's row sums).
+               k1m(msgs), k1m(msgs[:, :48].contiguous()),
+               k1m(msgs[:, :4].contiguous()),
+               ('per range (range_split=4)', lambda: per_range(x, g_ur.fwd),
+                ref(per_range_plain, x, g_ur.fwd), e * F * 4)],
+        'K7': [k7('S=4f fwd', x, g_uf.fwd), k7('S=4f bwd', x, g_uf.bwd),
+               k7('S=4f fwd F=47', x47, g_uf.fwd),
+               k7('S=4f bwd F=47', x47, g_uf.bwd),
+               k7('weighted fused fwd', x, g_w.fwd)],
+    }, (rp, cl, w)
+
+
 def main(args):
     import torch
 
@@ -153,39 +252,61 @@ def main(args):
         print(f'built {path}: registers {"/".join(regs)}, {len(spills)} '
               f'kernels with spill stores', flush=True)
     libs = {k: ctypes.CDLL(str(v)) for k, v in built.items()}
+    kinds = {s[1] for s in specs}
     dev = torch.device('cuda')
     n = chip_smoke.N_NODES
-    rp_u, cl_u = chip_smoke.uniform_graph(n, chip_smoke.N_EDGES)
-    rp_p, cl_p = chip_smoke.powerlaw_graph(n, chip_smoke.N_EDGES)
-    t_rp = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(cl_p, minlength=n), out=t_rp[1:])
-    g_u = ops.build_spmm_graph(rp_u, cl_u, with_edge_maps=True,
-                               minmax='auto')
-    g_p = ops.build_spmm_graph(rp_p, cl_p, with_edge_maps=True)
     gen = torch.Generator(dev).manual_seed(0)
     x = torch.randn((n, F), generator=gen, device=dev)
-    ptr_u = torch.tensor(rp_u, device=dev)
-    ptr_t = torch.tensor(t_rp, device=dev)
-    csrs = {'uniform': (ptr_u, x[torch.tensor(cl_u.astype(np.int64),
-                                              device=dev)]),
-            'powerlaw-T': (ptr_t, torch.randn((int(t_rp[-1]), F),
-                                              generator=gen, device=dev))}
-    x47 = x[:, :47].contiguous()  # the SAGE max-pool's last layer
-    # (label, src, plan, idx, hub rows)
-    k4_cases = [('col_padded uniform', x, g_u.fwd, g_u.fwd.col_padded, False),
-                ('col_padded uniform F=47', x47, g_u.fwd, g_u.fwd.col_padded,
-                 False),
-                ('col_padded powerlaw', x, g_p.fwd, g_p.fwd.col_padded,
-                 False),
-                ('col_padded powerlaw F=47', x47, g_p.fwd, g_p.fwd.col_padded,
-                 False),
-                ('col_padded powerlaw-T', x, g_p.bwd, g_p.bwd.col_padded,
-                 True)]
-    for name, (ptr, msgs) in csrs.items():
-        plan = plan_for_ptr(ptr)
-        k4_cases.append((f'edge_perm {name}', msgs, plan, plan.edge_perm,
-                         name != 'uniform'))
-    kinds = {s[1] for s in specs}
+    sums, sum_refs, firsts = {}, {}, {}
+    if kinds & {'K1', 'K7'}:
+        sums, (rp_u, cl_u, w_u) = _sum_cases(x, gen)
+        for kid in kinds & {'K1', 'K7'}:
+            for label, _, plain, _ in sums[kid]:
+                ref, mag = plain()
+                sum_refs[kid, label] = (ref, mag.mul_(1e-5).add_(1e-5))
+                del mag
+        rp_t = torch.from_numpy(rp_u)
+        cl_t = torch.from_numpy(cl_u.astype(np.int64))
+        a = torch.sparse_csr_tensor(rp_t, cl_t, torch.ones(cl_u.shape[0]),
+                                    (n, n)).to(dev)
+        a_w = torch.sparse_csr_tensor(rp_t, cl_t, torch.from_numpy(w_u),
+                                      (n, n)).to(dev)
+        ms = [chip_smoke.cuda_ms(lambda: torch.sparse.mm(m, x), 20, 3)
+              for m in (a, a_w)]
+        print(f'torch.sparse.mm uniform CSR {ms[0]:.3f} ms, weighted CSR '
+              f'{ms[1]:.3f} ms', flush=True)
+        del a, a_w
+    csrs, k4_cases = {}, []
+    if kinds & {'K3', 'K4'}:
+        rp_u, cl_u = chip_smoke.uniform_graph(n, chip_smoke.N_EDGES)
+        rp_p, cl_p = chip_smoke.powerlaw_graph(n, chip_smoke.N_EDGES)
+        t_rp = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(cl_p, minlength=n), out=t_rp[1:])
+        g_u = ops.build_spmm_graph(rp_u, cl_u, with_edge_maps=True,
+                                   minmax='auto')
+        g_p = ops.build_spmm_graph(rp_p, cl_p, with_edge_maps=True)
+        ptr_u = torch.tensor(rp_u, device=dev)
+        ptr_t = torch.tensor(t_rp, device=dev)
+        csrs = {'uniform': (ptr_u, x[torch.tensor(cl_u.astype(np.int64),
+                                                  device=dev)]),
+                'powerlaw-T': (ptr_t, torch.randn((int(t_rp[-1]), F),
+                                                  generator=gen, device=dev))}
+        x47 = x[:, :47].contiguous()  # the SAGE max-pool's last layer
+        # (label, src, plan, idx, hub rows)
+        k4_cases = [('col_padded uniform', x, g_u.fwd, g_u.fwd.col_padded,
+                     False),
+                    ('col_padded uniform F=47', x47, g_u.fwd,
+                     g_u.fwd.col_padded, False),
+                    ('col_padded powerlaw', x, g_p.fwd, g_p.fwd.col_padded,
+                     False),
+                    ('col_padded powerlaw F=47', x47, g_p.fwd,
+                     g_p.fwd.col_padded, False),
+                    ('col_padded powerlaw-T', x, g_p.bwd, g_p.bwd.col_padded,
+                     True)]
+        for name, (ptr, msgs) in csrs.items():
+            plan = plan_for_ptr(ptr)
+            k4_cases.append((f'edge_perm {name}', msgs, plan, plan.edge_perm,
+                             name != 'uniform'))
     k3_refs, k4_refs, lib_line = {}, {}, []
     for name, (ptr, msgs) in csrs.items():
         if 'K3' in kinds:
@@ -198,7 +319,8 @@ def main(args):
             ms = chip_smoke.cuda_ms(lambda: torch.segment_reduce(
                 msgs, red, offsets=ptr, axis=0), iters=5, warmup=1)
             lib_line.append(f'{name} {red} {ms:.3f} ms')
-    print('torch.segment_reduce: ' + ', '.join(lib_line), flush=True)
+    if lib_line:
+        print('torch.segment_reduce: ' + ', '.join(lib_line), flush=True)
     if 'K4' in kinds:
         for label, src, plan, idx, _ in k4_cases:
             k4_refs[label] = chip_smoke.by_columns(ops.segment_max_plain,
@@ -207,11 +329,33 @@ def main(args):
     for arg, (path, kid, nparams, attrs) in zip(args, specs):
         lib = libs[path]
         line = []
-        module = segment_csr if kid == 'K3' else segment_minmax
+        module = {'K3': segment_csr, 'K4': segment_minmax}.get(kid)
         saved = {k: getattr(module, k) for k in attrs}
         for k, v in attrs.items():
             setattr(module, k, v)
-        if kid == 'K3':
+        if kid in ('K1', 'K7'):
+            _build._loaded['spmm_chunked' if kid == 'K1' else
+                           'spmm_range_fused'] = lib
+            for label, call, _, floor in sums[kid]:
+                got = call()
+                ref, tol = sum_refs[kid, label]
+                err = (got - ref).abs()
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f'{arg} {kid} {label} disagrees with '
+                                         f'its plain version: '
+                                         f'{float(err.max())}')
+                first = firsts.setdefault((kid, label), got)
+                if not torch.equal(got.view(torch.int32),
+                                   first.view(torch.int32)):
+                    raise AssertionError(f'{arg} {kid} {label} differs from '
+                                         f'the first {kid} source bit for '
+                                         f'bit')
+                ms = chip_smoke.cuda_ms(call, 20, 3)
+                share = floor / chip_smoke.HBM_BYTES_PER_S * 1e3 / ms
+                line.append(f'{kid} {label} {ms:.3f} ms ({share:.0%} of its '
+                            f'gather floor)')
+                del got, err
+        elif kid == 'K3':
             k3 = _k3_call(lib, nparams)
             for name, (ptr, msgs) in csrs.items():
                 got = k3(msgs, ptr)

@@ -53,6 +53,24 @@ def test_build_variants_key_on_the_source(fake_nvcc):
     assert _build.build_variants([str(b)])[str(b)] == got[str(a)]
 
 
+def test_build_variants_key_on_the_headers_beside_the_source(fake_nvcc):
+    # Two versions that differ only in a header beside the source (which
+    # nvcc's quoted #include finds before -I csrc) are two libraries.
+    paths = []
+    for name, body in (('a', '// one walker'), ('b', '// another walker'),
+                       ('c', '// one walker')):
+        (fake_nvcc / name).mkdir()
+        (fake_nvcc / name / 'row_walk.cuh').write_text(body)
+        (fake_nvcc / name / 'k.cu').write_text('#include "row_walk.cuh"')
+        paths.append(str(fake_nvcc / name / 'k.cu'))
+    got = _build.build_variants(paths)
+    assert got[paths[0]] != got[paths[1]]
+    assert got[paths[0]] == got[paths[2]]  # the same bytes throughout
+    assert len({so for so in got.values() if so.exists()}) == 2
+    (fake_nvcc / 'c' / 'row_walk.cuh').write_text('// edited')
+    assert _build.build_variants(paths[2:])[paths[2]] not in got.values()
+
+
 def test_build_raises_on_a_failed_compile(fake_nvcc):
     src = fake_nvcc / 'k.cu'
     src.write_text('// FAIL')

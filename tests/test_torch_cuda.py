@@ -621,6 +621,86 @@ def test_k7_matches_plain(dev, kind, f, mode):
     assert bool(((got - ref).abs() <= RTOL * mag + ATOL).all())
 
 
+# K1's two entries and K7 (S = 1, 2, 4; with and without weights) on the
+# hub CSR, in f32, bf16 and int8 (with its column scale where the kernel
+# takes one; weighted K7 refuses int8): from an aligned x, F = 512 takes
+# the vector branch in every type and F = 600 in f32 and bf16; every
+# other case takes the scalar one.
+SUM_ENTRIES = ['K1', 'K1m'] + [f'K7 S={s}{w}' for s in (1, 2, 4)
+                               for w in ('', ' weighted')]
+
+
+@functools.lru_cache(maxsize=None)
+def _hub_sum_plan(entry, device):
+    rowptr, col = _hub_csr()
+    if entry in ('K1', 'K1m'):
+        return ops.build_spmm_plan(rowptr, col, chunk=128, device=device)
+    w = None
+    if entry.endswith('weighted'):
+        w = np.random.default_rng(9).normal(size=col.shape[0]).astype(
+            np.float32)
+    return ops.build_fused_range_plan(rowptr, col, 2000, int(entry[5]),
+                                      chunk=128, edge_weight=w,
+                                      device=device)
+
+
+def _one_element_in(t):
+    """A copy of ``t`` one element into a fresh storage: not 16-byte
+    aligned, so K1 and K7 take their scalar branch."""
+    out = t.new_empty(t.numel() + 1)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize('entry', SUM_ENTRIES)
+@pytest.mark.parametrize('f', [1, 3, 47, 512, 600])
+@pytest.mark.parametrize('mode', ['f32', 'bf16', 'int8'])
+def test_k1_k7_hub_rows_and_alignment(dev, entry, f, mode):
+    if mode == 'int8' and entry.endswith('weighted'):
+        with pytest.raises(ValueError, match='int8'):
+            ops.fused_range_sum(torch.zeros((2000, f), dtype=torch.int8,
+                                            device=dev),
+                                _hub_sum_plan(entry, dev))
+        return
+    plan = _hub_sum_plan(entry, dev)
+    rows = plan.col_padded.shape[0] if entry == 'K1m' else 2000
+    if entry == 'K1m':
+        def kernel(xm, sc):
+            return ops.segment_sum_chunked(xm, plan)
+
+        def plain(xm, p, sc):
+            return ops.segment_sum_chunked_plain(xm, p)
+    elif entry == 'K1':
+        def kernel(xm, sc):
+            return ops.spmm_chunked(xm, plan, sc)
+
+        plain = ops.spmm_chunked_plain
+    else:
+        def kernel(xm, sc):
+            return ops.fused_range_sum(xm, plan, sc)
+
+        plain = ops.fused_range_plain
+    xm, scale = _inputs(rows, f, mode, dev)
+    if entry == 'K1m':
+        scale = None
+    absp = plan
+    if getattr(plan, 'weights', None) is not None:
+        absp = plan._replace(weights=tuple(w.abs() for w in plan.weights))
+    ref = plain(xm, plan, scale)
+    mag = plain(xm.abs(), absp, None if scale is None else scale.abs())
+    srcs = (xm, _one_element_in(xm))
+    assert srcs[1].data_ptr() % 16 != 0
+    outs = []
+    for src in srcs:
+        got = kernel(src, scale)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (plan.num_rows, f)
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - ref).abs() <= RTOL * mag + ATOL).all())
+        outs.append(got)
+    # The vector and the scalar branch add the same terms in the same order.
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+
+
 @pytest.mark.parametrize('fused', [False, True])
 @pytest.mark.parametrize('precision', [None, 'bf16', 'int8'])
 def test_range_spmm_and_grad_match_cpu(dev, fused, precision):
