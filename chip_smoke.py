@@ -95,6 +95,13 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-5
 # each: |kernel - plain| <= (1e-5 + n * 2**-23) |plain| + 1e-7 (a bf16
 # result adds one bf16 step, 2**-7 |plain|), NaN where the plain has NaN.
 K6_RTOL, K6_ATOL = 1e-5, 1e-7
+# An f32 K6 row sums to 1 within this: its outputs' f32 rounding adds at
+# most 2**-24, and the kernel's sum is a few dozen f32 additions deep (a
+# stretch's groups, then its partials 32 lanes wide), a few 1e-6 at most. A hub row's stretch partial
+# dropped or counted twice moves the whole row by that stretch's share of
+# its sum (1/469 on the 810,552-edge row), which the per-element bound
+# above, n * 2**-23 = 9.7% there, would let through.
+K6_SUM_TOL = 1e-5
 # A model's output and weight gradients pass several such sums and
 # matmuls over 262,144 rows.
 GCN_RTOL = 1e-4  # of max|plain output| (or of max|plain gradient|)
@@ -113,6 +120,10 @@ RANGES = 4  # range_split of the range paths (bench_range_split's "S=4f")
 HOT_COLUMNS = 4096  # hot level of the power-law forward plan
 STEPS = 3
 BLOCK = 128  # feature columns per plain-version call at the bench shape
+# The earlier designs' times of K5 (its [N, F] key table) and K6 (a warp
+# per row) on this script's shapes, printed beside the current ones
+# (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+EARLIER_MS = {'K5': 5.251, 'K6': 0.342, 'K6 hub rows': 60.877}
 # Launch counters of the kernel wrappers: id -> (wrapper in ops, counter).
 COUNTERS = {'K1': ('spmm_chunked', 'launches'),
             'K2': ('dedup_sum', 'launches'),
@@ -226,6 +237,22 @@ def bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+def k6_row_sum_err(out, plan, idx=None):
+    """The largest |sum - 1| over the rows of a K6 output, each row summed
+    in f64 over its slots; rows of no slot and NaN columns are left out."""
+    import torch
+
+    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
+
+    slot, row = _padded_rows(plan.tile_ptr)
+    at = slot if idx is None else idx[slot].long()
+    sums = torch.zeros((plan.num_rows, out.shape[1]), dtype=torch.float64,
+                       device=out.device).index_add_(0, row, out[at].double())
+    full = torch.bincount(row, minlength=plan.num_rows) > 0
+    dev = (sums[full] - 1.0).abs().nan_to_num(0.0)
+    return float(dev.max()) if dev.numel() else 0.0
+
+
 def by_columns(fn, src, *args):
     """A plain version whose columns are independent, run on ``BLOCK``
     columns of ``src`` at a time and joined: keeps its ``[E, F]``
@@ -334,6 +361,7 @@ def main():
     from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
     from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
     from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
+    from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import K5_SEG
     from pyg_lib_tpu_torch.ops.scatter_reduce import _fused as fused_closure
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -503,15 +531,23 @@ def main():
         e = float(err.max()) if err.numel() else 0.0
         errs['K6'] = max(errs['K6'], e)
         same_nan = torch.equal(torch.isnan(got.float()), nan)
+        # The row sums only in f32: a bf16 output's rounding moves a row's
+        # sum by up to 2^-9, and the f32 cases run the same merges.
+        row_sum = (k6_row_sum_err(got, plan, idx)
+                   if got.dtype == torch.float32 else 0.0)
         print(f'  K6 {label}: max_abs_err {e:.3g} (tolerance ({K6_RTOL:g} + '
               f'n * 2^-23{" + 2^-7" if src.dtype == torch.bfloat16 else ""})'
               f' |plain| + {K6_ATOL:g}); NaN '
               f'{"where" if same_nan else "NOT where"} the plain version has '
-              f'NaN', flush=True)
+              f'NaN' + (f'; rows sum to 1 within {row_sum:.3g} (tolerance '
+                        f'{K6_SUM_TOL:g})' if got.dtype == torch.float32
+                        else ''), flush=True)
         if (got.dtype != src.dtype or not same_nan
-                or bool((err > rtol * mag + K6_ATOL).any())):
+                or bool((err > rtol * mag + K6_ATOL).any())
+                or row_sum > K6_SUM_TOL):
             raise AssertionError(f'K6 {label} disagrees with its plain '
-                                 f'version: max_abs_err {e}')
+                                 f'version: max_abs_err {e}, row sum off '
+                                 f'by {row_sum}')
         if idx is None and bool(got[~plan.valid_mask].float().abs().sum()):
             raise AssertionError(f'K6 {label} wrote a pad slot')
         return e
@@ -616,8 +652,9 @@ def main():
         ('ragged', 1000, ops.build_dedup_minmax_plan(rp_r, cl_r, ec=128,
                                                      uc=64)),
     ]
-    if np.bincount(k5_plans[1][2].chunk_tile.cpu().numpy()).max() <= 4:
-        raise AssertionError('the hub-tile plan has no tile of many chunks')
+    if (np.bincount(k5_plans[1][2].chunk_tile.cpu().numpy()).max() <=
+            K5_SEG):
+        raise AssertionError('the hub-tile plan has no tile that K5 cuts')
     for f in (47, 128):
         for dtype in (torch.float32, torch.bfloat16):
             src = torch.randn((cl_r.shape[0] + 14, f), generator=gen,
@@ -1516,7 +1553,9 @@ def main():
                          flops / F32_FLOPS else 'operations'),
             'library_ms': cuda_ms(run_lib),
         }
-        print(f'  {kid} {label} F={f} f32: {r["ms"]:.3f} ms, plain '
+        was = (f' (earlier design: {EARLIER_MS[kid]:.3f} ms)'
+               if kid in EARLIER_MS else '')
+        print(f'  {kid} {label} F={f} f32: {r["ms"]:.3f} ms{was}, plain '
               f'{r["plain_ms"]:.3f} ms, {lib_name} {r["library_ms"]:.3f} '
               f'ms, bound {bound_ms:.3f} ms ({r["bound_by"]}: '
               f'{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)', flush=True)
@@ -1659,6 +1698,9 @@ def main():
         'gather + torch.segment_reduce max')
     print(f'  K5 library without the gather (torch.segment_reduce max over '
           f'messages gathered beforehand): {reduce_only:.3f} ms', flush=True)
+    _, _, top = device_time_by_kernel(lambda: ops.dedup_minmax(xb, mm))
+    print(f'  K5 powerlaw mm F={F_BENCH}: one call by kernel (ms): '
+          + '; '.join(f'{name} {t:.3f}' for name, t in top), flush=True)
     del idx_d
     torch.cuda.empty_cache()
 
@@ -1681,7 +1723,12 @@ def main():
         lambda: torch.sparse.softmax(coo, 1),
         2 * e_pad_u * HEADS * 4 + ptr_bytes, 6 * e_u * HEADS,
         'torch.sparse.softmax (hybrid COO)', f=HEADS)
-    del logits, coo
+    del coo
+    _, _, top = device_time_by_kernel(lambda: ops.segment_softmax_planned(
+        logits, plan))
+    print(f'  K6 uniform fwd padded F={HEADS}: one call by kernel (ms): '
+          + '; '.join(f'{name} {t:.3f}' for name, t in top), flush=True)
+    del logits
     hub_ms = cuda_ms(lambda: ops.segment_softmax_planned(
         src_tp, plan_tp, plan_tp.edge_perm))
     hub_bound = (2 * e_p * HEADS * 4 + e_p * 4 +
@@ -1699,7 +1746,9 @@ def main():
     del coo
     print(f'  K6 powerlaw transpose CSR through edge_perm (softmax_csr, '
           f'hub rows up to {int(np.diff(t_ptr_p).max())} edges) F={HEADS}: '
-          f'{hub_ms:.3f} ms, bound {hub_bound:.3f} ms; '
+          f'{hub_ms:.3f} ms (earlier design: '
+          f'{EARLIER_MS["K6 hub rows"]:.3f} ms), bound '
+          f'{hub_bound:.3f} ms; '
           f'torch.sparse.softmax (hybrid COO) {hub_lib_ms:.3f} ms',
           flush=True)
 
@@ -1768,17 +1817,27 @@ def device_time_by_kernel(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
+        # A short spin kernel first: the trace was seen to lose the first
+        # kernel of a window (a ctypes kernel's, with nothing before it).
+        # No path of the port launches it, so it and whatever came before
+        # it are dropped by name, and nothing is if the trace lost it.
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted((ev for ev in prof.profiler.kineto_results.events()
+                     if ev.device_type() == torch.autograd.DeviceType.CUDA),
+                    key=lambda ev: ev.start_ns())
+    spin = [i for i, ev in enumerate(events) if 'spin_kernel' in ev.name()]
+    if spin:
+        events = events[spin[0] + 1:]
     by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = re.sub(r'^void |\(anonymous namespace\)::', '', ev.key)
+    for ev in events:
+        name = re.sub(r'^void |\(anonymous namespace\)::', '', ev.name())
         name = name.split('(')[0][:60]
-        by_name[name] = by_name.get(name, 0.0) + ev.self_device_time_total
+        by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e3
     top = sorted(((k, v / 1e3) for k, v in by_name.items()),
                  key=lambda kv: -kv[1])
     return sum(ms for _, ms in top), wall_ms, top

@@ -17,6 +17,14 @@ its bits are the slot's own. ``plan.uniq_cols[pos]`` is the winning
 column. A row with no edges gets ``(-inf, POS_NONE)``; callers apply the
 empty-row contract through their degree mask.
 
+K5 gives each tile's chunks to one block (:func:`k5_units`: a tile of
+more than ``K5_SEG`` chunks is cut into units whose partial results a
+second launch merges in order) and carries each row's best (value, slot)
+as it walks the edges in slot order, so the value is the winning slot's
+own bits and ``x`` is not read again. :func:`dedup_minmax_split` runs
+that schedule with PyTorch, so the tests can hold it against the JAX
+package bit for bit.
+
 :func:`dedup_minmax` is the wrapper: K5 for a CUDA tensor, the plain
 PyTorch version (:func:`dedup_minmax_plain`, the counterpart of
 ``_dedup_minmax_xla``) for a CPU tensor.
@@ -30,23 +38,29 @@ import torch
 
 from pyg_lib_tpu_torch import _build
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (NEG, POS_NONE,
+                                                          k4_merge,
                                                           winner_values)
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import TR, _check_cuda
-from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (META_SUB, _pack_tile,
+from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (META_SUB, _cached,
+                                                      _pack_tile,
                                                       _tile_slices,
                                                       estimate_dedup)
 from pyg_lib_tpu_torch.utils import _resolve_device
 
 __all__ = [
-    'DedupMinmaxPlan', 'build_dedup_minmax_plan', 'dedup_minmax',
-    'dedup_minmax_apply', 'dedup_minmax_plain', 'dedup_pairs',
-    'estimate_minmax_config',
+    'DedupMinmaxPlan', 'K5Units', 'build_dedup_minmax_plan', 'dedup_minmax',
+    'dedup_minmax_apply', 'dedup_minmax_plain', 'dedup_minmax_split',
+    'dedup_pairs', 'estimate_minmax_config', 'k5_units',
 ]
 
 # Unique slots a plan may hold: the TPU kernel carries slot positions
 # through an f32 channel, exact below 2**24. The port's kernel would take
-# 2**32, but keeps the JAX package's cap so both refuse the same graphs.
+# slots up to POS_NONE, but keeps the JAX package's cap so both refuse the
+# same graphs.
 MAX_SLOTS = 1 << 24
+# Chunks a K5 block walks at most: a tile of more is cut into units of
+# K5_SEG chunks, merged by a second launch (the unit table, k5_units).
+K5_SEG = 8
 
 
 class DedupMinmaxPlan(NamedTuple):
@@ -259,12 +273,128 @@ def dedup_minmax_plain(x: torch.Tensor, plan: DedupMinmaxPlan,
     return winner_values(x, win, hit, negate), pos
 
 
+class K5Units(NamedTuple):
+    """K5's work units for one plan: a tile of at most ``K5_SEG`` chunks
+    is one unit; a longer one is cut into units of ``K5_SEG`` chunks, each
+    writing a partial, and is merged by a second launch."""
+    units: torch.Tensor  # [U, 4] int32: tile, first chunk, end chunk, partial
+    chunks: torch.Tensor  # [C, 2] int32: real edges, used unique slots
+    merges: torch.Tensor  # [M, 3] int32: cut tile, first partial, count
+    num_parts: int
+
+
+def _derive_units(chunk_tile, edge_meta, num_rows, seg) -> K5Units:
+    dev = chunk_tile.device
+    num_tiles = -(-num_rows // TR)
+    first = torch.searchsorted(chunk_tile.long(),
+                               torch.arange(num_tiles + 1, device=dev))
+    n = first[1:] - first[:-1]
+    segs = torch.where(n > seg, -(-n // seg), torch.ones_like(n))
+    tile = torch.repeat_interleave(torch.arange(num_tiles, device=dev), segs)
+    k = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(segs, 0) -
+                                                   segs)[tile]
+    lo = first[:-1][tile] + k * seg
+    hi = torch.minimum(lo + seg, first[1:][tile])
+    cut = n[tile] > seg
+    part = torch.where(cut, torch.cumsum(cut.long(), 0) - 1,
+                       torch.full_like(tile, -1))
+    cut_tiles = torch.nonzero(n > seg).reshape(-1)
+    count = segs[cut_tiles]
+    merges = torch.stack([cut_tiles, torch.cumsum(count, 0) - count, count],
+                         1)
+    real = edge_meta[:, 0, :] < TR
+    if real.shape[1] > 1 and not bool((real[:, 1:] <= real[:, :-1]).all()):
+        raise ValueError('a chunk has a real edge after a pad edge')
+    rows, lid = edge_meta[:, 0, :], edge_meta[:, 1, :]
+    same = real[:, 1:] & (rows[:, 1:] == rows[:, :-1])
+    if not bool((lid[:, 1:] > lid[:, :-1])[same].all()):
+        raise ValueError("a chunk's edges of one row are not in slot order")
+    used = torch.where(real, lid, -1).amax(1) + 1
+    return K5Units(
+        units=torch.stack([tile, lo, hi, part], 1).int().contiguous(),
+        chunks=torch.stack([real.sum(1), used], 1).int().contiguous(),
+        merges=merges.int().contiguous(), num_parts=int(cut.sum()))
+
+
+def k5_units(plan: DedupMinmaxPlan, seg: int = None) -> K5Units:
+    """The tables K5 reads for ``plan`` (``seg`` chunks a unit at most,
+    default ``K5_SEG``), derived with tensor ops on the plan's device on
+    first use and cached per ``chunk_tile`` and ``edge_meta`` (as K2's
+    tables)."""
+    seg = K5_SEG if seg is None else seg
+    return _cached(('k5_units', plan.num_rows, seg),
+                   (plan.chunk_tile, plan.edge_meta),
+                   lambda ct, meta: _derive_units(ct, meta, plan.num_rows,
+                                                  seg))
+
+
+def dedup_minmax_split(x: torch.Tensor, plan: DedupMinmaxPlan,
+                       negate: bool = False, seg: int = None):
+    """K5's schedule run with PyTorch: each unit of :func:`k5_units` takes
+    each row's greatest value over its edges, the least slot among equals
+    (``-0.0`` and ``+0.0`` equal) and that slot's own bits, as the kernel's
+    in-order walk does; a tile's only unit writes ``vals`` and ``pos``, a
+    cut tile's units go to a partial table and are merged in order by
+    :func:`k4_merge`. Raises if a tile would be written other than once."""
+    f = x.shape[1]
+    cut = k5_units(plan, seg)
+    units = cut.units.long()
+    rows = plan.edge_meta[:, 0, :]
+    c_idx, e_idx = torch.nonzero(rows < TR, as_tuple=True)
+    slot = c_idx * plan.uc + plan.edge_meta[c_idx, 1, e_idx]
+    unit = torch.searchsorted(units[:, 2].contiguous(), c_idx, right=True)
+    dst = unit * TR + rows[c_idx, e_idx].long()
+    msgs = x[plan.uniq_cols[slot].long()].float()
+    if negate:
+        msgs = -msgs
+    index = dst[:, None].expand(-1, f)
+    best = torch.full((units.shape[0] * TR, f), NEG, device=x.device)
+    best.scatter_reduce_(0, index, msgs, 'amax')
+    cand = torch.where(msgs == best[dst], slot[:, None].to(torch.int32),
+                       torch.tensor(POS_NONE, dtype=torch.int32))
+    bpos = torch.full((units.shape[0] * TR, f), POS_NONE, dtype=torch.int32,
+                      device=x.device)
+    bpos.scatter_reduce_(0, index, cand, 'amin')
+    hit = bpos < POS_NONE
+    win = plan.uniq_cols[torch.where(hit, bpos, 0).long()]
+    bval = winner_values(x, win, hit, negate).view(-1, TR, f)
+    bpos = bpos.view(-1, TR, f)
+    num_tiles = -(-plan.num_rows // TR)
+    vals = torch.full((num_tiles, TR, f), NEG, device=x.device)
+    pos = torch.full((num_tiles, TR, f), POS_NONE, dtype=torch.int32,
+                     device=x.device)
+    written = torch.zeros(num_tiles, dtype=torch.int64)
+    direct = units[:, 3] < 0
+    vals[units[direct, 0]] = bval[direct]
+    pos[units[direct, 0]] = bpos[direct]
+    written.index_add_(0, units[direct, 0].cpu(),
+                       torch.ones(int(direct.sum()), dtype=torch.int64))
+    part_v = torch.empty((cut.num_parts, TR, f), device=x.device)
+    part_p = torch.empty((cut.num_parts, TR, f), dtype=torch.int32,
+                         device=x.device)
+    part_v[units[~direct, 3]] = bval[~direct]
+    part_p[units[~direct, 3]] = bpos[~direct]
+    for t, first, count in cut.merges.tolist():
+        v, p = part_v[first], part_p[first]
+        for q in range(first + 1, first + count):
+            v, p = k4_merge(v, p, part_v[q], part_p[q])
+        vals[t], pos[t] = v, p
+        written[t] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError('K5 schedule writes a tile other than once')
+    return vals.view(-1, f)[:plan.num_rows], pos.view(-1, f)[:plan.num_rows]
+
+
 def _k5_lib():
     lib = _build.load('spmm_dedup_minmax')
     fn = lib.pygt_dedup_max
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, vp, vp, vp, i, i, vp]
+        # x, uniq_cols, edge_meta, units, num_units, chunks, merges,
+        # num_merges, ec, uc, negate, part_val, part_pos, vals, pos,
+        # num_rows, F, stream
+        fn.argtypes = [vp, vp, vp, vp, i, vp, vp, i, i, i, i, vp, vp, vp, vp,
+                       i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -291,20 +421,26 @@ def dedup_minmax(x: torch.Tensor, plan: DedupMinmaxPlan,
     _check_cuda('edge_meta', plan.edge_meta, torch.int32,
                 (c, META_SUB, plan.ec), dev)
     _check_cuda('chunk_tile', plan.chunk_tile, torch.int32, (c, ), dev)
-    if x.shape[0] >= 2**31 or c * plan.uc >= MAX_SLOTS:
-        raise ValueError('K5 indexes rows and unique slots with int32')
-    # Per-element merge keys of the blocks that share a tile; 0 is "no
-    # edge", below every real key.
-    keys = torch.zeros((plan.num_rows, f), dtype=torch.int64, device=dev)
+    if x.shape[0] >= 2**31 or c * plan.uc >= MAX_SLOTS or plan.uc >= 2**23:
+        raise ValueError('K5 indexes rows and unique slots with int32 (a '
+                         'unique id in 23 bits)')
     vals = torch.empty((plan.num_rows, f), dtype=torch.float32, device=dev)
     pos = torch.empty((plan.num_rows, f), dtype=torch.int32, device=dev)
     if plan.num_rows == 0 or f == 0:
         return vals, pos
+    cut = k5_units(plan)
+    parts = [torch.empty((cut.num_parts, TR, f), dtype=dt, device=dev)
+             if cut.num_parts else None
+             for dt in (torch.float32, torch.int32)]
     with torch.cuda.device(dev):
         err = _k5_lib()(x.data_ptr(), plan.uniq_cols.data_ptr(),
-                        plan.edge_meta.data_ptr(), plan.chunk_tile.data_ptr(),
-                        c, plan.ec, plan.uc, int(negate), keys.data_ptr(),
-                        vals.data_ptr(), pos.data_ptr(), plan.num_rows, f,
+                        plan.edge_meta.data_ptr(), cut.units.data_ptr(),
+                        cut.units.shape[0], cut.chunks.data_ptr(),
+                        cut.merges.data_ptr(),
+                        cut.merges.shape[0], plan.ec, plan.uc, int(negate),
+                        *(None if t is None else t.data_ptr()
+                          for t in parts), vals.data_ptr(), pos.data_ptr(),
+                        plan.num_rows, f,
                         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'K5 (spmm_dedup_minmax.cu) launch failed: CUDA '

@@ -13,16 +13,17 @@ listing them as ``A B B A`` interleaves two versions on one card: the
 forward plan (K2h) and its transpose (K2), each held against
 ``dedup_sum_plain`` within ``1e-5 * sum|terms| + 1e-5`` and timed by CUDA
 events (mean of 20 calls after 3). Prints the card's name and power limit,
-then one line per argument. Needs one card.
+each build's registers and spills, then one line per argument. Needs
+one card.
 """
 
-import ctypes
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
+import ab  # noqa: E402  (what the A B B A tools share)
 import chip_smoke  # noqa: E402  (the bench graph and the CUDA-event timer)
 
 F = 512
@@ -37,7 +38,7 @@ def main(paths):
     if not torch.cuda.is_available():
         raise SystemExit('no CUDA card')
     print(chip_smoke.card(), flush=True)
-    libs = _build.build_variants(paths)
+    libs = ab.build(paths)
     rp, cl = chip_smoke.powerlaw_graph(chip_smoke.N_NODES, chip_smoke.N_EDGES)
     graph = ops.build_spmm_graph(rp, cl, dedup='auto')
     dev = torch.device('cuda')
@@ -51,7 +52,7 @@ def main(paths):
         refs[kid] = (ref, 1e-5 * mag + 1e-5)
     for p in paths:
         # The wrapper takes its library from _build's table of loaded ones.
-        _build._loaded['spmm_dedup'] = ctypes.CDLL(str(libs[p]))
+        _build._loaded['spmm_dedup'] = libs[p]
         line = []
         for kid, plan in plans.items():
             got = spmm_dedup.dedup_sum(x, plan)

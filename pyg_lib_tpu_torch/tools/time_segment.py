@@ -49,7 +49,6 @@ one card.
 """
 
 import ctypes
-import re
 import sys
 from pathlib import Path
 
@@ -58,48 +57,20 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
+import ab  # noqa: E402  (what the A B B A tools share)
 import chip_smoke  # noqa: E402  (the bench graphs and the CUDA-event timer)
 
 F = 512
 
 
-def _parse(arg):
-    """``path[@NAME=VALUE,...]`` -> (path, kernel id, parameter count of
-    its C function, {module constant: value})."""
+def _exports():
     from pyg_lib_tpu_torch.ops.kernels import (segment_csr, segment_minmax,
                                                spmm_chunked, spmm_range_fused)
 
-    path, _, pairs = arg.partition('@')
-    m = re.search(r'int pygt_(segment_sum_csr|segment_max|spmm_chunked|'
-                  r'spmm_range_fused)\(([^)]*)\)', Path(path).read_text())
-    if m is None:
-        raise SystemExit(f'{path} exports none of K1, K3, K4 and K7')
-    kid, module = {'segment_sum_csr': ('K3', segment_csr),
-                   'segment_max': ('K4', segment_minmax),
-                   'spmm_chunked': ('K1', spmm_chunked),
-                   'spmm_range_fused': ('K7', spmm_range_fused)}[m.group(1)]
-    attrs = {}
-    for pair in filter(None, pairs.split(',')):
-        name, _, value = pair.partition('=')
-        if not hasattr(module, name):
-            raise SystemExit(f'{arg}: the {kid} wrapper has no {name}')
-        attrs[name] = int(value)
-    return path, kid, m.group(2).count(',') + 1, attrs
-
-
-def _direct(fn, argtypes, launch):
-    """An earlier interface (no scratch tables), called without the
-    wrapper: ``launch(fn, *args)`` returns ``(error, result)``."""
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-
-    def call(*args):
-        err, out = launch(fn, *args)
-        if err:
-            raise RuntimeError(f'launch failed: CUDA error {err}')
-        return out
-
-    return call
+    return {'segment_sum_csr': ('K3', segment_csr),
+            'segment_max': ('K4', segment_minmax),
+            'spmm_chunked': ('K1', spmm_chunked),
+            'spmm_range_fused': ('K7', spmm_range_fused)}
 
 
 def _k4_call(lib, nparams):
@@ -125,8 +96,8 @@ def _k4_call(lib, nparams):
         return err, (vals, pos)
 
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return _direct(lib.pygt_segment_max, [vp, vp, vp, i, vp, vp, i, i, i, vp],
-                   launch)
+    return ab.direct(lib.pygt_segment_max,
+                     [vp, vp, vp, i, vp, vp, i, i, i, vp], launch)
 
 
 def _k3_call(lib, nparams):
@@ -150,8 +121,8 @@ def _k3_call(lib, nparams):
         return err, out
 
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    return _direct(lib.pygt_segment_sum_csr, [vp, i, vp, i64, vp, i64, i, vp],
-                   launch)
+    return ab.direct(lib.pygt_segment_sum_csr,
+                     [vp, i, vp, i64, vp, i64, i, vp], launch)
 
 
 def _sum_cases(x, gen):
@@ -237,21 +208,14 @@ def main(args):
     import torch
 
     from pyg_lib_tpu_torch import _build, ops
-    from pyg_lib_tpu_torch.ops.kernels import segment_csr, segment_minmax
     from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
 
     if not torch.cuda.is_available():
         raise SystemExit('no CUDA card')
     print(chip_smoke.card(), flush=True)
-    specs = [_parse(a) for a in args]
-    built = _build.build_variants(s[0] for s in specs)
-    for path, so in built.items():
-        log = so.with_suffix('.log').read_text()
-        regs = re.findall(r'Used (\d+) registers', log)
-        spills = re.findall(r'[1-9]\d* bytes spill stores', log)
-        print(f'built {path}: registers {"/".join(regs)}, {len(spills)} '
-              f'kernels with spill stores', flush=True)
-    libs = {k: ctypes.CDLL(str(v)) for k, v in built.items()}
+    exports = _exports()
+    specs = [ab.parse(a, exports) for a in args]
+    libs = ab.build(s[0] for s in specs)
     kinds = {s[1] for s in specs}
     dev = torch.device('cuda')
     n = chip_smoke.N_NODES
@@ -326,13 +290,10 @@ def main(args):
             k4_refs[label] = chip_smoke.by_columns(ops.segment_max_plain,
                                                    src, plan, idx)
     torch.cuda.empty_cache()
-    for arg, (path, kid, nparams, attrs) in zip(args, specs):
+    for arg, (path, kid, nparams, module, attrs) in zip(args, specs):
         lib = libs[path]
         line = []
-        module = {'K3': segment_csr, 'K4': segment_minmax}.get(kid)
-        saved = {k: getattr(module, k) for k in attrs}
-        for k, v in attrs.items():
-            setattr(module, k, v)
+        saved = ab.set_constants(module, attrs)
         if kid in ('K1', 'K7'):
             _build._loaded['spmm_chunked' if kid == 'K1' else
                            'spmm_range_fused'] = lib
@@ -384,8 +345,7 @@ def main(args):
                                         *((5, 1) if hub else (20, 3)))
                 line.append(f'K4 {label} {ms:.3f} ms')
                 del got
-        for k, v in saved.items():
-            setattr(module, k, v)
+        ab.set_constants(module, saved)
         print(f'{arg}: ' + ', '.join(line), flush=True)
 
 

@@ -35,6 +35,8 @@ import pytest
 import torch
 
 from pyg_lib_tpu_torch import ops
+from pyg_lib_tpu_torch.ops.kernels.segment_softmax import k6_stretch
+from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import K5_SEG
 
 pytestmark = pytest.mark.cuda
 
@@ -427,8 +429,9 @@ def _k5_plan(kind, device):
     plan = ops.build_dedup_minmax_plan(rowptr, col, ec=ec, uc=uc,
                                        device=device)
     if kind == 'hub_tiles':
+        # Tiles of more than K5_SEG chunks: cut into units, merged after.
         tiles = plan.chunk_tile.cpu().numpy()
-        assert np.bincount(tiles).max() > 8  # several blocks share a tile
+        assert np.bincount(tiles).max() > K5_SEG
     return plan
 
 
@@ -442,6 +445,55 @@ def test_k5_matches_plain(dev, kind, f, values, negate):
     got = ops.dedup_minmax(x, plan, negate)
     torch.cuda.synchronize()
     _assert_same(got, ops.dedup_minmax_plain(x, plan, negate))
+
+
+def _k5_values(kind, n, f, device):
+    """Both zeros at different slots in either order (-0.0 on even or on
+    odd columns, so a row's least winning slot may hold either), or
+    values of ±inf and ±1."""
+    rng = np.random.default_rng(f)
+    if kind == 'inf':
+        v = rng.choice(np.float32([np.inf, -np.inf, 1.0, -1.0]), size=(n, f))
+    else:
+        neg = (np.arange(n) % 2 == 0) == (kind == 'even_neg')
+        v = np.where(neg[:, None], np.float32(-0.0), np.float32(0.0))
+        v = np.broadcast_to(v, (n, f)).copy()
+    return torch.tensor(v, device=device)
+
+
+@pytest.mark.parametrize('kind', ['plain', 'hub_tiles'])
+@pytest.mark.parametrize('values', ['even_neg', 'odd_neg', 'inf'])
+@pytest.mark.parametrize('negate', [False, True])
+def test_k5_zero_sign_ties_and_inf(dev, kind, values, negate):
+    plan = _k5_plan(kind, dev)
+    x = _k5_values(values, 3000, 47, dev)
+    got = ops.dedup_minmax(x, plan, negate)
+    torch.cuda.synchronize()
+    ref = ops.dedup_minmax_plain(x, plan, negate)
+    _assert_same(got, ref)
+    if values != 'inf':  # winners of both signs
+        win = _bits(got[0])[got[1] < 1 << 30]
+        assert bool((win == 0).any()) and bool((win == -2**31).any())
+
+
+@pytest.mark.parametrize('kind', ['plain', 'hub_tiles'])
+@pytest.mark.parametrize('f', [47, 128, 512])
+@pytest.mark.parametrize('where', ['aligned', 'unaligned'])
+def test_k5_branches_and_same_bits(dev, kind, f, where):
+    # F=128 and 512 aligned take the float4 slab; an x one element into
+    # its storage (or F=47) the scalar one. Two calls give the same bits.
+    plan = _k5_plan(kind, dev)
+    if where == 'unaligned':
+        x = _unaligned((3000, f), f, dev, 'ties')
+        assert x.data_ptr() % 16 != 0
+    else:
+        x = _values('ties', 3000, f, f, dev)
+    for negate in (False, True):
+        got = ops.dedup_minmax(x, plan, negate)
+        again = ops.dedup_minmax(x, plan, negate)
+        torch.cuda.synchronize()
+        _assert_same(got, ops.dedup_minmax_plain(x, plan, negate))
+        _assert_same(again, got)
 
 
 @pytest.mark.parametrize('minmax', ['off', 'on'])
@@ -534,6 +586,22 @@ def _k6_check(got, ref, plan):
     return bool((err <= tol + 1e-7).all())
 
 
+def _k6_row_sum_err(got, plan):
+    """The largest |sum - 1| over an f32 K6 output's rows, each summed in
+    f64 over its slots (rows of no slot and NaN columns left out). A hub
+    row's stretch partial dropped or counted twice moves the row's sum by
+    that stretch's share, which the per-element bound of n * 2**-23 lets
+    through on a long row."""
+    slot, row = ops.kernels.spmm_chunked._padded_rows(plan.tile_ptr)
+    if got.shape[0] != plan.col_padded.shape[0]:  # index mode
+        slot = plan.edge_perm[slot].long()
+    sums = torch.zeros((plan.num_rows, got.shape[1]), dtype=torch.float64,
+                       device=got.device).index_add_(0, row,
+                                                     got[slot].double())
+    full = torch.bincount(row, minlength=plan.num_rows) > 0
+    return float((sums[full] - 1.0).abs().nan_to_num(0.0).max())
+
+
 def _k6_values(rows, f, seed, device, dtype):
     gen = torch.Generator(device=device).manual_seed(seed)
     v = torch.randn((rows, f), generator=gen, device=device) * 4
@@ -562,6 +630,37 @@ def test_k6_matches_plain(dev, graph, f, dtype, mode):
         pads = ~plan.valid_mask
         assert not bool(got[pads].float().abs().sum())
     assert _k6_check(got, ref, plan)
+
+
+@pytest.mark.parametrize('mode', ['padded', 'edge_perm'])
+@pytest.mark.parametrize('f', [4, 512])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k6_hub_rows(dev, mode, f, dtype):
+    # Row 700 of 120,000 edges spans many of K6's stretches: no warp walks
+    # more than one stretch of it, and the partials merge in order.
+    rowptr, col = _hub_csr()
+    plan = ops.build_spmm_plan(rowptr, col, chunk=128, with_edge_maps=True,
+                               device=dev)
+    e_pad = plan.col_padded.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 120_000 > 8 * k6_stretch(e_pad, sms)
+    idx = None if mode == 'padded' else plan.edge_perm
+    rows = e_pad if idx is None else col.shape[0]
+    src = _k6_values(rows, f, f, dev, dtype)
+    got = ops.segment_softmax_planned(src, plan, idx)
+    again = ops.segment_softmax_planned(src, plan, idx)
+    torch.cuda.synchronize()
+    ref = ops.segment_softmax_plain(src, plan, idx)
+    assert got.shape == ref.shape and got.dtype == dtype
+    if idx is None:
+        assert not bool(got[~plan.valid_mask].float().abs().sum())
+    assert _k6_check(got, ref, plan)
+    if dtype == torch.float32:  # bf16's rounding moves a sum by up to 2^-9
+        assert _k6_row_sum_err(got, plan) <= 1e-5
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
 
 
 @pytest.mark.parametrize('graph', list(GRAPHS))

@@ -255,3 +255,106 @@ def test_cpu_wrappers_do_not_count_launches():
     ops.segment_sum_csr(x, torch.arange(0, 301))
     assert (ops.segment_max_kernel.launches, ops.dedup_minmax.launches,
             ops.segment_sum_csr_kernel.launches) == counts
+
+
+def _k5_case(values):
+    """The inputs of test_plain_k5_matches_pallas_kernel, and values of
+    -0.0 and +0.0 alone (every row's maximum is a zero: its sign is that
+    of the least slot's) or with ±inf."""
+    rng = np.random.default_rng(4)
+    row = rng.integers(0, 260, 2000)
+    p = 1.0 / np.arange(1, 261)**1.3
+    rowptr, col = _csr(row, rng.choice(260, 2000, p=p / p.sum()), 260)
+    if values == 'normal':
+        x = features(52, 260, 128)
+    elif values == 'ties':
+        x = _tie_values(53, 260, 128)
+    elif values == 'zeros':
+        x = np.where(np.random.default_rng(56).random((260, 128)) < 0.5,
+                     np.float32(-0.0), np.float32(0.0))
+    else:  # 'inf'
+        x = np.random.default_rng(57).choice(
+            np.float32([np.inf, -np.inf, 1.0, -1.0]), size=(260, 128))
+    return rowptr, col, x
+
+
+@pytest.mark.parametrize('values', ['normal', 'ties', 'zeros', 'inf'])
+@pytest.mark.parametrize('seg', [1, 3, 'default'])
+def test_k5_schedule_matches_pallas_kernel(values, seg):
+    # K5's schedule (units of at most `seg` chunks a tile, the least slot
+    # among each row's maxima with its own bits, the units' ordered merge)
+    # against the interpreted _dedup_minmax_tpu, bit for bit.
+    from pyg_lib_tpu_torch.ops.kernels import spmm_dedup_minmax as tdm
+    rowptr, col, x = _k5_case(values)
+    plan_j = jdm.build_dedup_minmax_plan(rowptr, col, ec=128, uc=32)
+    plan_t = ops.build_dedup_minmax_plan(rowptr, col, ec=128, uc=32,
+                                         device='cpu')
+    seg = tdm.K5_SEG if seg == 'default' else seg
+    cut = tdm.k5_units(plan_t, seg)
+    tiles = plan_t.chunk_tile.numpy()
+    assert (cut.num_parts > 0) == (np.bincount(tiles).max() > seg)
+    for negate in (True, False):
+        xi = -x if negate else x
+        ref = jdm.dedup_minmax_apply(jnp.asarray(xi), plan_j, interpret=True)
+        got = tdm.dedup_minmax_split(torch.from_numpy(x), plan_t, negate,
+                                     seg)
+        np.testing.assert_array_equal(_bits(got[0]), _bits(ref[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    if values == 'zeros':  # winners of both signs, each its slot's own
+        win = _bits(got[0])[np.asarray(ref[1]) < tdm.POS_NONE]
+        assert (win == 0).any() and (win == np.int32(-2**31)).any()
+
+
+def test_k5_tables_need_slot_order_within_a_row():
+    # K5 takes the first of equal values as it walks a row's edges: the
+    # plan gives them in increasing slot, and the derived tables refuse a
+    # chunk that does not.
+    from pyg_lib_tpu_torch.ops.kernels import spmm_dedup_minmax as tdm
+    rowptr, col, _ = _k5_case('normal')
+    plan = ops.build_dedup_minmax_plan(rowptr, col, ec=128, uc=32,
+                                       device='cpu')
+    cut = tdm.k5_units(plan)
+    meta = plan.edge_meta.numpy()
+    real = meta[:, 0, :] < 128
+    np.testing.assert_array_equal(cut.chunks.numpy()[:, 0], real.sum(1))
+    np.testing.assert_array_equal(
+        cut.chunks.numpy()[:, 1],
+        np.where(real, meta[:, 1, :], -1).max(1) + 1)
+    # a chunk whose first row has two edges
+    c = int(np.nonzero(real[:, 1] & (meta[:, 0, 0] == meta[:, 0, 1]))[0][0])
+    bad = plan.edge_meta.clone()
+    bad[c, 1, [0, 1]] = bad[c, 1, [1, 0]]
+    with pytest.raises(ValueError, match='slot order'):
+        tdm.k5_units(plan._replace(edge_meta=bad))
+
+
+@pytest.mark.parametrize('seg', [1, 2, 8])
+def test_k5_units_cover_every_tile_in_order(seg):
+    from pyg_lib_tpu_torch.ops.kernels import spmm_dedup_minmax as tdm
+    rowptr, col = GRAPHS['powerlaw']()
+    t_rp, t_cl = _csr(col, np.repeat(np.arange(300), np.diff(rowptr)), 300)
+    plan = ops.build_dedup_minmax_plan(t_rp, t_cl, ec=128, uc=32,
+                                       device='cpu')
+    cut = tdm.k5_units(plan, seg)
+    units = cut.units.numpy()
+    counts = np.bincount(plan.chunk_tile.numpy(),
+                         minlength=-(-plan.num_rows // 128))
+    # Every chunk once, in order; a tile of more than `seg` chunks cut into
+    # units of `seg`, each with its own partial, merged by one entry.
+    np.testing.assert_array_equal(units[1:, 1], units[:-1, 2])
+    assert units[0, 1] == 0 and units[-1, 2] == plan.num_chunks
+    assert (units[:, 2] - units[:, 1] <= seg).all()
+    np.testing.assert_array_equal(np.bincount(units[:, 0]),
+                                  np.maximum(-(-counts // seg), 1))
+    cut_tiles = np.nonzero(counts > seg)[0]
+    assert cut.num_parts == int((units[:, 3] >= 0).sum())
+    np.testing.assert_array_equal(cut.merges.numpy()[:, 0], cut_tiles)
+    assert (units[units[:, 3] < 0, 0] == np.setdiff1d(
+        np.arange(counts.shape[0]), cut_tiles)).all()
+    if seg == 1:
+        assert len(cut_tiles) > 0
+    x = torch.from_numpy(features(58, 300, 16))
+    got = tdm.dedup_minmax_split(x, plan, False, seg)
+    ref = ops.dedup_minmax_plain(x, plan)
+    np.testing.assert_array_equal(_bits(got[0]), _bits(ref[0]))
+    np.testing.assert_array_equal(got[1].numpy(), ref[1].numpy())

@@ -303,3 +303,119 @@ def test_softmax_csr_planned_path_matches_jax(monkeypatch):
 def test_softmax_csr_rejects_bad_dim():
     with pytest.raises(ValueError, match='dim'):
         ops.softmax_csr(torch.zeros((5, 2)), torch.tensor([0, 5]), dim=2)
+
+
+def _hub_case(seed=21):
+    """190 short rows (a third empty) and row 90 of 2,500 edges: longer
+    than several of K6's stretches at every stretch tested."""
+    rng = np.random.default_rng(seed)
+    deg = rng.geometric(0.15, 190) - 1
+    deg[rng.random(190) < 0.33] = 0
+    deg[90] = 2500
+    rowptr = np.zeros(191, np.int64)
+    np.cumsum(deg, out=rowptr[1:])
+    return rowptr, rng.integers(0, 190, int(rowptr[-1])).astype(np.int64)
+
+
+STRETCHES = [32, 96, 256]
+
+
+def _split_tol(plan_t, ref):
+    """K6's tolerance, with the interpreter's relative term."""
+    n = np.zeros(ref.shape[0], np.float32)
+    lo = np.asarray(plan_t.tile_ptr[:, 0, :129]).astype(np.int64)
+    for t in range(lo.shape[0]):
+        for r in range(128):
+            n[lo[t, r]:lo[t, r + 1]] = lo[t, r + 1] - lo[t, r]
+    return (K6_RTOL + n[:, None] * 2.0**-23) * np.abs(ref) + K6_ATOL
+
+
+@pytest.mark.parametrize('f', [1, 4, 47])
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+def test_k6_schedule_matches_jax_on_hub_rows(f, dtype):
+    # K6's schedule (stretches of slots, groups of 32, rows cut by
+    # stretch ends merged in order) against the interpreted Pallas kernel,
+    # in the padded mode and through edge_perm.
+    from pyg_lib_tpu_torch.ops.kernels import segment_softmax as tk6
+    rowptr, col = _hub_case()
+    plan_j, plan_t = _plans(rowptr, col, chunk=128)
+    e = col.shape[0]
+    src = (np.random.default_rng(22).normal(size=(e, f)) * 5).astype(
+        np.float32)
+    xp = src[np.asarray(plan_j.edge_perm)]
+    xj, xt, st = jnp.asarray(xp), torch.from_numpy(xp), torch.from_numpy(src)
+    if dtype == 'bf16':
+        xj, xt = xj.astype(jnp.bfloat16), xt.to(torch.bfloat16)
+        st = st.to(torch.bfloat16)
+    ref = np.asarray(jax_k6(xj, plan_j, interpret=True).astype(jnp.float32))
+    tol = _split_tol(plan_t, ref)
+    if dtype == 'bf16':
+        tol = tol + BF16_STEP * np.abs(ref)
+    pos = np.asarray(plan_t.edge_pos)
+    for stretch in STRETCHES:
+        cut = tk6.k6_cut(plan_t, stretch).numpy()
+        assert cut.shape[0] > 0 and (cut[:, 2] - cut[:, 1]).max() >= 3
+        got = tk6.segment_softmax_split(xt, plan_t, None, stretch)
+        assert got.dtype == xt.dtype
+        got = np_of(got)
+        assert not np.isnan(got).any() and not got[
+            ~np.asarray(plan_j.valid_mask)].any()
+        assert np.all(np.abs(got - ref) <= tol)
+        direct = np_of(tk6.segment_softmax_split(st, plan_t,
+                                                 plan_t.edge_perm, stretch))
+        assert np.all(np.abs(direct - ref[pos]) <= tol[pos])
+
+
+@pytest.mark.parametrize('stretch', STRETCHES)
+def test_k6_schedule_minus_inf_rows_follow_the_composite(stretch):
+    # -inf in the hub row and in short rows, a row of -inf in column 2:
+    # NaN exactly where the JAX composite has it, 0 beside a finite max.
+    from pyg_lib_tpu_torch.ops.kernels import segment_softmax as tk6
+    rowptr, col = _hub_case(23)
+    e = col.shape[0]
+    src = features(24, e, 4)
+    src[::7, 0] = -np.inf
+    hub = slice(rowptr[90], rowptr[91])
+    src[hub, 1] = -np.inf
+    src[rowptr[90] + 1300, 1] = 0.5  # the hub row's only finite value
+    short = int(np.nonzero(np.diff(rowptr) >= 2)[0][0])
+    src[rowptr[short]:rowptr[short + 1], 2] = -np.inf
+    ref = np.asarray(jops.softmax_csr(jnp.asarray(src), jnp.asarray(rowptr)))
+    assert np.isnan(ref).any()
+    plan = ops.build_spmm_plan(rowptr, col, chunk=128, with_edge_maps=True,
+                               device='cpu')
+    got = tk6.segment_softmax_split(torch.from_numpy(src), plan,
+                                    plan.edge_perm, stretch).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL,
+                               equal_nan=True)
+    assert got[rowptr[90] + 1300, 1] == 1.0
+
+
+@pytest.mark.parametrize('stretch', STRETCHES)
+def test_k6_tables(stretch):
+    from pyg_lib_tpu_torch.ops.kernels import segment_softmax as tk6
+    rowptr, col = _hub_case()
+    plan = ops.build_spmm_plan(rowptr, col, chunk=128, with_edge_maps=True,
+                               device='cpu')
+    rows = tk6.k6_rows(plan).numpy()
+    deg = np.diff(rowptr)
+    # The non-empty rows' bounds, in slot order, as the plan's edge_pos
+    # places their edges.
+    assert rows.shape == (2, int((deg > 0).sum()))
+    pos = np.asarray(plan.edge_pos)
+    starts = pos[rowptr[:-1][deg > 0]]
+    np.testing.assert_array_equal(rows[0], starts)
+    np.testing.assert_array_equal(rows[1] - rows[0], deg[deg > 0])
+    assert (rows[0, 1:] >= rows[1, :-1]).all()
+    cut = tk6.k6_cut(plan, stretch).numpy()
+    crosses = rows[0] // stretch != (rows[1] - 1) // stretch
+    np.testing.assert_array_equal(cut[:, 0], np.nonzero(crosses)[0])
+    np.testing.assert_array_equal(cut[:, 1], rows[0, crosses] // stretch)
+    np.testing.assert_array_equal(cut[:, 2],
+                                  (rows[1, crosses] - 1) // stretch)
+    assert tk6.k6_stretch(10**6, 132) % 32 == 0
+    assert tk6.k6_stretch(100, 132) == tk6.K6_MIN_STRETCH
+    with pytest.raises(ValueError, match='multiple of 32'):
+        tk6.segment_softmax_split(torch.zeros((rows[1, -1], 1)), plan,
+                                  None, 48)
