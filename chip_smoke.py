@@ -4,7 +4,8 @@
     python3 chip_smoke.py    # needs one card
 
 The port's paths, each at the full width of its model on the two graphs of
-``bench.py`` (262,144 nodes, about 4.2M edges):
+``bench.py`` (262,144 nodes, about 4.2M edges), and an R-GCN on a graph of
+ogbn-mag's full published shape:
 
 * planned SpMM sum: a GCN [512, 512, 47] trains over ``build_spmm_graph``
   plans (K1 on the uniform graph; K2 and K2h on the power-law graph's
@@ -33,7 +34,17 @@ The port's paths, each at the full width of its model on the two graphs of
   the same messages (K3);
 * the padded-batch GAT: a ``GATBatch`` [512, 128, 47] with 4 heads, as
   ``init_gat`` builds it, trains on the uniform graph as one padded batch
-  of 4,128,768 edge slots (K3).
+  of 4,128,768 edge slots (K3);
+* the heterogeneous R-GCN [128, 128, 349] trains (Adam) on a graph of
+  ogbn-mag's node and edge counts (4 node types, 4 relations, 21.1M
+  edges; ``bench/bench_hetero.py``'s generator with Zipf(1.2) sources) in
+  its three forms, each a path of its own: per-relation plans built
+  ``dedup='auto'`` (K1 and/or K2/K2h, as each side's plan says), the
+  stacked plans (``segment_matmul`` and K1m over the padded messages,
+  5.1G elements at F=349) and the range-sliced plans (K7 with weights,
+  forward and backward). It runs first, in a process of its own
+  (``python3 chip_smoke.py --rgcn``, with growable allocator segments):
+  the stacked form needs about 55 GB of the card.
 
 The script:
 
@@ -52,12 +63,14 @@ The script:
    the main paths' shapes (F=512 and F=47; F=4, the head count, for K6);
 4. drives each path with every launch count set to 0 just before it and
    read just after: each kernel of the path must have launched in it (and
-   on the fused path, K4s in both its forms);
+   on the fused path, K4s in both its forms; on the range-sliced R-GCN,
+   K7 in the forwards and in the backwards);
 5. holds each path's result against the same computation through the
    plain versions (where a model's gradient jumps at a kink, a ReLU or
    leaky_relu, the plain computation takes the branch the kernel path
    took: the two paths' rounding would otherwise switch a few of the
-   millions of branches at random);
+   millions of branches at random), and the R-GCN's three forms' outputs
+   against each other;
 6. times each kernel at F=512 beside its plain version, one PyTorch call
    that computes the same function (timed here only, never used by the
    port; for K4 and K5, which gather x themselves, the gather and the
@@ -67,7 +80,10 @@ The script:
    useful-bytes metric and the fused path against the composite (one
    scatter per reduction) forward and forward+backward. Each training
    path also gets one profiled step (device time by kernel, idle share;
-   peak memory for GAT and the padded-batch GAT).
+   peak memory for GAT, the padded-batch GAT and the R-GCN forms). The
+   R-GCN part also times ``segment_matmul`` beside one ``torch.mm`` over
+   the same rows, and its kernels on its own plans at F=349 (K7 and its
+   transpose beside ``torch.sparse.mm``).
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -119,6 +135,16 @@ FUSED_CALLS = 2  # forward + backward calls of each list on the fused path
 RANGES = 4  # range_split of the range paths (bench_range_split's "S=4f")
 HOT_COLUMNS = 4096  # hot level of the power-law forward plan
 STEPS = 3
+# R-GCN on ogbn-mag's shape: 128 the paper features' width and
+# bench/bench_hetero.py's hidden width, 349 the classes. Trained by Adam.
+MAG_DIMS = [128, 128, 349]
+MAG_CHUNK = 512  # the stacked form's chunk
+# The stacked form's [E_pad, F] messages at F=349 must pass this many
+# elements, so that the check covers 64-bit offsets.
+INT32_ELEMENTS = 2**31
+RGCN_LR = 0.01
+# The R-GCN process's last line: this, then its launch counts as JSON.
+RGCN_RESULT = 'R-GCN launches: '
 BLOCK = 128  # feature columns per plain-version call at the bench shape
 # The earlier designs' times of K5 (its [N, F] key table) and K6 (a warp
 # per row) on this script's shapes, printed beside the current ones
@@ -153,30 +179,6 @@ SOURCES = {
            'pyg_lib_tpu/ops/pallas/spmm_range_fused.py:221'),
     'K1m': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
 }
-
-
-def uniform_graph(n, e):
-    """``bench.py`` ``child_headline``'s generator (seed 0)."""
-    rng = np.random.default_rng(0)
-    deg = rng.integers(0, 2 * e // n, size=n)
-    deg = (deg * (e / max(deg.sum(), 1))).astype(np.int64)
-    rowptr = np.zeros(n + 1, np.int64)
-    rowptr[1:] = np.cumsum(deg)
-    col = rng.integers(0, n, size=int(rowptr[-1])).astype(np.int32)
-    return rowptr, col
-
-
-def powerlaw_graph(n, e):
-    """``bench.py`` ``child_realistic``'s generator (seed 0)."""
-    rng = np.random.default_rng(0)
-    p = 1.0 / np.arange(1, n + 1)**1.2
-    p /= p.sum()
-    row = rng.integers(0, n, e)
-    col = rng.choice(n, e, p=p)
-    order = np.argsort(row, kind='stable')
-    rowptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(row, minlength=n), out=rowptr[1:])
-    return rowptr, col[order].astype(np.int64)
 
 
 def range_graphs(rp, cl):
@@ -356,13 +358,12 @@ def main():
     from pyg_lib_tpu_torch import _build, ops
     from pyg_lib_tpu_torch.models import (GAT, GCN, SAGE, GATBatch,
                                           sage_forward)
-    from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
-    from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
     from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
     from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
     from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
     from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import K5_SEG
     from pyg_lib_tpu_torch.ops.scatter_reduce import _fused as fused_closure
+    from pyg_lib_tpu_torch.testing import powerlaw_graph, uniform_graph
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -814,7 +815,40 @@ def main():
                     continue  # refused on weighted plans
                 check(f'{pname} F={f} {mode}', 'K7', xm, plan, scale)
 
-    # -- 3. the graphs at bench scale -----------------------------------
+    # -- 3. the R-GCN paths, in a process of their own -----------------
+    # The stacked form needs about 55 GB of the card; a process of its own
+    # gives it a fresh allocator with growable segments (PERF.md), and
+    # leaves the other paths' allocator as it was.
+    paths = Paths()
+    launches, by_width, run_path = paths.launches, paths.by_width, paths.run
+    torch.cuda.empty_cache()
+    with subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                           '--rgcn'], stdout=subprocess.PIPE,
+                          text=True) as child:
+        last = ''
+        for line in child.stdout:
+            print(line, end='', flush=True)
+            last = line
+    if child.returncode != 0 or not last.startswith(RGCN_RESULT):
+        raise AssertionError(f'the R-GCN paths failed (exit code '
+                             f'{child.returncode})')
+    rgcn = json.loads(last[len(RGCN_RESULT):])
+    for k, n in rgcn['launches'].items():
+        launches[k] += n
+    for kid, f, n in rgcn['by_width']:
+        by_width[kid, f] = by_width.get((kid, f), 0) + n
+
+    def profile_step(label, model, graph, ms, top_n=8, call=None):
+        """One profiled training step (:func:`profile`); ``call``
+        replaces ``model(x, graph)``."""
+        def step():
+            model.zero_grad()
+            out = model(x, graph) if call is None else call()
+            torch.nn.functional.cross_entropy(out, labels).backward()
+
+        profile(label, step, ms, top_n)
+
+    # -- 3b. the graphs at bench scale ----------------------------------
     t0 = time.perf_counter()
     rp_u, cl_u = uniform_graph(N_NODES, N_EDGES)
     g_u = ops.build_spmm_graph(rp_u, cl_u, with_edge_maps=True,
@@ -935,39 +969,11 @@ def main():
     main_errs['K1m'] = check_msgs(f'uniform fwd F={F_BENCH}', msgs_u, plan)
     del msgs_u
     torch.cuda.empty_cache()
+    for kid, e in rgcn['errs'].items():  # at the R-GCN paths' shapes
+        main_errs[kid] = max(main_errs[kid], e)
+        errs[kid] = max(errs[kid], e)
 
     # -- 4. the main paths, each counted on its own ----------------------
-    launches = {k: 0 for k in COUNTERS}
-    # K1's, K1m's and K7's launches on the main paths by width, read off
-    # their C entry points (the wrappers' counters are the launch counts).
-    by_width = {}
-    tallies = [ByWidth(k1_mod._k1_lib(), 8,
-                       lambda a: 'K1' if a[2] else 'K1m'),
-               ByWidth(k7_mod._k7_lib(), 12, lambda a: 'K7')]
-    _build.load('spmm_chunked').pygt_spmm_chunked = tallies[0]
-    _build.load('spmm_range_fused').pygt_spmm_range_fused = tallies[1]
-
-    def run_path(name, need, fn):
-        for wrapper, attr in COUNTERS.values():
-            setattr(getattr(ops, wrapper), attr, 0)
-        for t in tallies:
-            t.counts.clear()
-        result = fn()
-        torch.cuda.synchronize()
-        got = {k: getattr(getattr(ops, w), a)
-               for k, (w, a) in COUNTERS.items()}
-        print(f'main path {name}: launches {got}', flush=True)
-        for k in need:
-            if got[k] <= 0:
-                raise AssertionError(f'{k} never launched on the main path '
-                                     f'{name}')
-        for k, n in got.items():
-            launches[k] += n
-        for t in tallies:
-            for key, n in t.counts.items():
-                by_width[key] = by_width.get(key, 0) + n
-        return result
-
     x = torch.randn((N_NODES, DIMS[0]), generator=gen, device=dev)
     labels = torch.randint(0, DIMS[-1], (N_NODES, ), generator=gen,
                            device=dev)
@@ -1019,37 +1025,6 @@ def main():
                        lambda: train(sage, sage_graphs))
     print(f'  {STEPS} SAGE max-pool {DIMS} training steps per graph; ms per '
           f'step after the first {sage_ms}', flush=True)
-
-    def profile_step(label, model, graph, ms, top_n=8, call=None):
-        """Where a training step's time goes: device time by kernel over
-        one profiled step, against that step's own wall time (the idle
-        share) and the unprofiled step time ``ms``; peak device memory of
-        the step. ``call`` replaces ``model(x, graph)``."""
-        def step():
-            model.zero_grad()
-            out = model(x, graph) if call is None else call()
-            torch.nn.functional.cross_entropy(out, labels).backward()
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        busy_ms, wall_ms, top = device_time_by_kernel(step)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        if busy_ms == 0.0:
-            print(f'profile {label}: the profiler saw no device time (not '
-                  f'measured); peak memory {peak:.2f} GiB', flush=True)
-            return
-        # PyTorch's index_add_ runs indexFunc* kernels; index_select runs
-        # vectorized_gather_kernel or indexSelect* kernels.
-        add_ms = sum(t for name, t in top if 'indexFunc' in name)
-        gather_ms = sum(t for name, t in top
-                        if re.search('vectorized_gather|indexSelect', name))
-        print(f'profile {label} step: device busy {busy_ms:.3f} ms of '
-              f'{wall_ms:.3f} ms (unprofiled step {ms:.3f} ms), idle share '
-              f'{1 - busy_ms / wall_ms:.3f}; peak memory '
-              f'{peak:.2f} GiB; index_select gathers {gather_ms:.3f} ms, '
-              f'index_add_ {add_ms:.3f} ms; by kernel (ms): '
-              + '; '.join(f'{name} {t:.3f}' for name, t in top[:top_n]),
-              flush=True)
 
     for mname, models, gdict, ms in (('GCN', gcn, graphs, gcn_ms),
                                      ('SAGE max-pool', sage, sage_graphs,
@@ -1118,16 +1093,6 @@ def main():
             if i < len(layers) - 1:
                 x = torch.relu(x)
         return x
-
-    def close(label, out, ref, rtol=GCN_RTOL):
-        if out.shape != ref.shape or not torch.isfinite(out).all():
-            raise AssertionError(f'{label} is malformed')
-        e = float((out - ref).abs().max())
-        tol = rtol * float(ref.abs().max())
-        print(f'{label}: max_abs_err {e:.3g} (tolerance {rtol:g} * '
-              f'max|plain| = {tol:.3g})', flush=True)
-        if e > tol:
-            raise AssertionError(f'{label} disagrees with the plain path')
 
     fwd_ms = {}
     with torch.no_grad():
@@ -1511,8 +1476,8 @@ def main():
                  call=lambda: gat_b(x, *batch_b))
     del gat_b, row_b, col_b, batch_b
     torch.cuda.empty_cache()
-    _build.load('spmm_chunked').pygt_spmm_chunked = tallies[0].fn
-    _build.load('spmm_range_fused').pygt_spmm_range_fused = tallies[1].fn
+
+    paths.restore()
     print('K1, K1m and K7 launches on the main paths by width: ' + ', '.join(
         f'{kid} F={f} {n}' for (kid, f), n in sorted(by_width.items())),
         flush=True)
@@ -1780,6 +1745,530 @@ def main():
     return smi, errs, rows
 
 
+class Paths:
+    """Runs the main paths, each with every launch count set to 0 just
+    before it and read just after; sums the launches (``launches``) and
+    K1's, K1m's and K7's launches by width (``by_width``), read off their
+    C entry points while it is installed (the wrappers' counters are the
+    launch counts)."""
+
+    def __init__(self):
+        from pyg_lib_tpu_torch import _build
+        from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
+        from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
+
+        self.launches = {k: 0 for k in COUNTERS}
+        self.by_width = {}
+        self.tallies = [ByWidth(k1_mod._k1_lib(), 8,
+                                lambda a: 'K1' if a[2] else 'K1m'),
+                        ByWidth(k7_mod._k7_lib(), 12, lambda a: 'K7')]
+        _build.load('spmm_chunked').pygt_spmm_chunked = self.tallies[0]
+        _build.load('spmm_range_fused').pygt_spmm_range_fused = \
+            self.tallies[1]
+
+    def run(self, name, need, fn):
+        """``fn()`` as the main path ``name``; each kernel of ``need``
+        must launch in it."""
+        import torch
+
+        from pyg_lib_tpu_torch import ops
+
+        for wrapper, attr in COUNTERS.values():
+            setattr(getattr(ops, wrapper), attr, 0)
+        for t in self.tallies:
+            t.counts.clear()
+        result = fn()
+        torch.cuda.synchronize()
+        got = {k: getattr(getattr(ops, w), a)
+               for k, (w, a) in COUNTERS.items()}
+        print(f'main path {name}: launches {got}', flush=True)
+        for k in need:
+            if got[k] <= 0:
+                raise AssertionError(f'{k} never launched on the main path '
+                                     f'{name}')
+        for k, n in got.items():
+            self.launches[k] += n
+        for t in self.tallies:
+            for key, n in t.counts.items():
+                self.by_width[key] = self.by_width.get(key, 0) + n
+        return result
+
+    def restore(self):
+        """Put the C entry points back."""
+        from pyg_lib_tpu_torch import _build
+
+        _build.load('spmm_chunked').pygt_spmm_chunked = self.tallies[0].fn
+        _build.load('spmm_range_fused').pygt_spmm_range_fused = \
+            self.tallies[1].fn
+
+
+def close(label, out, ref, rtol=GCN_RTOL):
+    """``out`` finite, of ``ref``'s shape and within ``rtol * max|ref|``
+    of it."""
+    import torch
+
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f'{label} is malformed')
+    e = float((out - ref).abs().max())
+    tol = rtol * float(ref.abs().max())
+    print(f'{label}: max_abs_err {e:.3g} (tolerance {rtol:g} * '
+          f'max|plain| = {tol:.3g})', flush=True)
+    if e > tol:
+        raise AssertionError(f'{label} disagrees with the plain path')
+
+
+def profile(label, step, ms, top_n=8):
+    """Where a training step's time goes: device time by kernel over one
+    profiled ``step()``, against that step's own wall time (the idle
+    share) and the unprofiled step time ``ms``; peak device memory of the
+    step."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    busy_ms, wall_ms, top = device_time_by_kernel(step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if busy_ms == 0.0:
+        print(f'profile {label}: the profiler saw no device time (not '
+              f'measured); peak memory {peak:.2f} GiB', flush=True)
+        return
+    # PyTorch's index_add_ runs indexFunc* kernels; index_select runs
+    # vectorized_gather_kernel or indexSelect* kernels.
+    add_ms = sum(t for name, t in top if 'indexFunc' in name)
+    gather_ms = sum(t for name, t in top
+                    if re.search('vectorized_gather|indexSelect', name))
+    print(f'profile {label} step: device busy {busy_ms:.3f} ms of '
+          f'{wall_ms:.3f} ms (unprofiled step {ms:.3f} ms), idle share '
+          f'{1 - busy_ms / wall_ms:.3f}; peak memory '
+          f'{peak:.2f} GiB; index_select gathers {gather_ms:.3f} ms, '
+          f'index_add_ {add_ms:.3f} ms; by kernel (ms): '
+          + '; '.join(f'{name} {t:.3f}' for name, t in top[:top_n]),
+          flush=True)
+
+
+def rgcn_kid(plan):
+    """The kernel that applies a per-relation plan: K1, K2 or K2h."""
+    from pyg_lib_tpu_torch import ops
+
+    if isinstance(plan, ops.DedupSpmmPlan):
+        return 'K2h' if plan.num_hot else 'K2'
+    return 'K1'
+
+
+def plain_sum(x, plan):
+    """The plain version of the kernel that applies ``plan`` (chunked,
+    dedup or fused-range) to ``x``, ``BLOCK`` columns at a time."""
+    from pyg_lib_tpu_torch import ops
+
+    if isinstance(plan, ops.DedupSpmmPlan):
+        return by_columns(ops.dedup_sum_plain, x, plan)
+    if isinstance(plan, ops.FusedRangePlan):
+        return by_columns(ops.fused_range_plain, x, plan)
+    return by_columns(ops.spmm_chunked_plain, x, plan)
+
+
+def describe(plan):
+    """One plan's kernel and size, for the plans line."""
+    from pyg_lib_tpu_torch import ops
+
+    if isinstance(plan, ops.DedupSpmmPlan):
+        return (f'{rgcn_kid(plan)} dedup chunks={plan.num_chunks} '
+                f'ec={plan.ec} uc={plan.uc} hot={plan.num_hot}')
+    if isinstance(plan, ops.FusedRangePlan):
+        return (f'K7 fused S={len(plan.plans)} chunk={plan.chunk} '
+                f'slots={plan.cat_cols.numel()} '
+                f'weighted={plan.weights is not None}')
+    return (f'K1 chunked chunk={plan.chunk} '
+            f'E_pad={plan.col_padded.numel()}')
+
+
+def rgcn_paths(dev, run_path):
+    """The R-GCN [128, 128, 349] on a graph of ogbn-mag's published shape
+    (``testing.mag_graph``: 1,939,743 nodes of 4 types, 21,111,007 edges of
+    4 relations, Zipf(1.2) sources, seed 0), trained ``STEPS`` Adam steps
+    (cross-entropy on the papers) in each of its three forms, each a path
+    of its own: per-relation plans built ``dedup='auto'`` (K1 and/or
+    K2/K2h, as each side's plan says), the stacked plans (K1m over the
+    ``[E_pad, F]`` messages) and the range-sliced plans (K7 with weights,
+    forward and backward). With the initial weights, each form's output
+    and weight gradients are then held against the same computation
+    through the plain versions (with the kernel path's ReLU branches) and
+    the three forms' outputs against each other, all within ``GCN_RTOL``;
+    and each kernel of the paths against its plain version at F=349 on
+    the paths' plans (K2/K2h on every per-relation side, K7 on the
+    range-sliced plan into paper and its transpose, K1m on the stacked
+    paper plan's 5.1G-element messages), within the sum tolerance, and
+    timed. Returns those kernels' largest errors.
+    """
+    import copy
+
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.models import (RGCN, HeteroSpmmPlan,
+                                          build_rgcn_graphs,
+                                          build_rgcn_planned,
+                                          rgcn_forward_planned,
+                                          rgcn_forward_spmm)
+    from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
+    from pyg_lib_tpu_torch.testing import mag_graph
+
+    class PlainSpmm(torch.autograd.Function):
+        """``spmm``'s sum through the plain versions: the forward plan's,
+        and the transpose plan's in the backward."""
+
+        @staticmethod
+        def forward(ctx, x, graph):
+            ctx.graph = graph
+            return plain_sum(x, graph.fwd)
+
+        @staticmethod
+        def backward(ctx, g):
+            return plain_sum(g.contiguous(), ctx.graph.bwd), None
+
+    class PlainPadded(torch.autograd.Function):
+        """``segment_sum_padded`` with K1m's plain version (its backward
+        has no kernel: ``g[row_padded]``, pad slots 0)."""
+
+        @staticmethod
+        def forward(ctx, msgs, plan):
+            ctx.plan = plan
+            return by_columns(ops.segment_sum_chunked_plain, msgs, plan)
+
+        @staticmethod
+        def backward(ctx, g):
+            grad = g.index_select(0, ctx.plan.row_padded)
+            grad.mul_(ctx.plan.valid_mask[:, None])
+            return grad, None
+
+    def plain_forward(params, x_dict, plans, masks):
+        """``rgcn_forward_spmm`` (a dict of graphs) or
+        ``rgcn_forward_planned`` through the plain versions; the hidden
+        ReLUs take the branches ``masks`` gives."""
+        layers = params['layers']
+        for i, layer in enumerate(layers):
+            out = {t: h @ layer['w_self'] + layer['b']
+                   for t, h in x_dict.items()}
+            if isinstance(plans, dict):
+                for ri, k in enumerate(sorted(plans)):
+                    g = plans[k]
+                    agg = PlainSpmm.apply(x_dict[k[0]] @ layer['w'][ri], g)
+                    out[k[2]] = out[k[2]] + agg / g.deg.clamp(
+                        min=1.0)[:, None]
+            else:
+                h_cat = ops.segment_matmul(
+                    torch.cat([x_dict[k[0]] for k in plans.rel_order]),
+                    plans.src_ptr, layer['w'])
+                for t, g in plans.graphs.items():
+                    if isinstance(g.fwd, ops.FusedRangePlan):
+                        agg = PlainSpmm.apply(h_cat, g)
+                    else:
+                        msgs = h_cat.index_select(0, g.fwd.col_padded)
+                        msgs.mul_(plans.deginv[t][:, None])
+                        agg = PlainPadded.apply(msgs, g.fwd)
+                        del msgs
+                    out[t] = out[t] + agg[:out[t].shape[0]]
+                del h_cat
+            x_dict = out
+            if i < len(layers) - 1:
+                x_dict = {t: torch.where(masks[t], v, torch.zeros_like(v))
+                          for t, v in x_dict.items()}
+        return x_dict
+
+    # -- the graph and the three forms' plans ----------------------------
+    t0 = time.perf_counter()
+    num_nodes, rowptr_d, col_d = mag_graph()
+    t_gen = time.perf_counter() - t0
+    rels = sorted(rowptr_d)
+    builds = {}
+    t0 = time.perf_counter()
+    graphs = build_rgcn_graphs(rowptr_d, col_d, num_nodes, chunk=MAG_CHUNK,
+                               dedup='auto', device=dev)
+    builds['per-relation'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stacked = build_rgcn_planned(rowptr_d, col_d, num_nodes,
+                                 chunk=MAG_CHUNK, device=dev)
+    builds['stacked'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sliced = build_rgcn_planned(rowptr_d, col_d, num_nodes, chunk='auto',
+                                range_sliced=True, device=dev)
+    builds['range-sliced'] = time.perf_counter() - t0
+    edges = {k[1]: int(col_d[k].shape[0]) for k in rels}
+    longest = {k[1]: (int(np.diff(rowptr_d[k]).max()),
+                      int(np.bincount(col_d[k]).max())) for k in rels}
+    # The stacked CSR into paper with its 1/deg weights, for
+    # torch.sparse.mm beside K7 below.
+    into_paper = [(i, k) for i, k in enumerate(rels) if k[2] == 'paper']
+    deg = {k: np.diff(rowptr_d[k]) for _, k in into_paper}
+    paper_coo = (
+        np.concatenate([np.repeat(np.arange(num_nodes['paper']), deg[k])
+                        for _, k in into_paper]),
+        np.concatenate([col_d[k] + stacked.src_ptr[i]
+                        for i, k in into_paper]),
+        np.concatenate([np.repeat(1.0 / np.maximum(deg[k], 1), deg[k])
+                        for _, k in into_paper]).astype(np.float32))
+    del rowptr_d, col_d, deg
+    print(f'R-GCN graph (ogbn-mag shape, Zipf(1.2) sources, seed 0): nodes '
+          f'{num_nodes}, edges {edges}, longest row and column '
+          f'{longest} ({t_gen:.1f} s); plan builds (s) {builds}',
+          flush=True)
+    for k in rels:
+        print(f'  per-relation {k[1]} ({k[0]} -> {k[2]}): fwd '
+              f'{describe(graphs[k].fwd)}; bwd {describe(graphs[k].bwd)}',
+              flush=True)
+    for t in stacked.graphs:
+        print(f'  stacked into {t}: {describe(stacked.graphs[t].fwd)}; '
+              f'range-sliced: {describe(sliced.graphs[t].fwd)}', flush=True)
+    paper_pad = stacked.graphs['paper'].fwd.col_padded.numel()
+    if not (all(isinstance(g.fwd, ops.SpmmPlan) and g.fwd.row_padded
+                is not None for g in stacked.graphs.values())
+            and all(isinstance(g.fwd, ops.FusedRangePlan)
+                    and g.fwd.weights is not None and g.bwd.weights
+                    is not None for g in sliced.graphs.values())
+            and stacked.src_ptr[-1] == sum(num_nodes[k[0]] for k in rels)
+            and paper_pad * MAG_DIMS[-1] >= INT32_ELEMENTS):
+        raise AssertionError('the R-GCN plans are not the expected ones')
+
+    # -- training, each form a path of its own ----------------------------
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x_dict = {t: torch.randn((n, MAG_DIMS[0]), generator=gen, device=dev)
+              for t, n in num_nodes.items()}
+    target = torch.randint(0, MAG_DIMS[-1], (num_nodes['paper'], ),
+                           generator=gen, device=dev)
+    model0 = RGCN(MAG_DIMS, len(rels),
+                  generator=torch.Generator().manual_seed(3), device=dev)
+    forms = {'per-relation': graphs, 'stacked': stacked,
+             'range-sliced': sliced}
+    need = {'per-relation': sorted(
+        {rgcn_kid(g.fwd) for g in graphs.values()} |
+        {rgcn_kid(graphs[k].bwd) for k in rels if k[2] == 'paper'}),
+        'stacked': ('K1m', ), 'range-sliced': ('K7', )}
+
+    def train_rgcn(model, plans, split):
+        """``STEPS`` Adam steps; ms per step after the first. ``split``
+        gets K7's launches in the forwards and in the backwards."""
+        opt = torch.optim.Adam(model.parameters(), lr=RGCN_LR)
+        losses = []
+        for step in range(STEPS):
+            if step == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            opt.zero_grad()
+            c0 = ops.fused_range_sum.launches
+            loss = torch.nn.functional.cross_entropy(
+                model(x_dict, plans)['paper'], target)
+            c1 = ops.fused_range_sum.launches
+            loss.backward()
+            split['forward'] = split.get('forward', 0) + c1 - c0
+            split['backward'] = (split.get('backward', 0) +
+                                 ops.fused_range_sum.launches - c1)
+            opt.step()
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
+        losses = [float(v) for v in losses]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f'R-GCN losses {losses} are not finite')
+        return ms, losses
+
+    for form, plans in forms.items():
+        model = copy.deepcopy(model0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        split = {}
+        ms, losses = run_path(f'R-GCN {form}', need[form],
+                              lambda: train_rgcn(model, plans, split))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'  {STEPS} R-GCN {MAG_DIMS} {form} training steps (Adam): '
+              f'{ms:.3f} ms per step after the first, peak memory '
+              f'{peak:.2f} GiB, plan build {builds[form]:.1f} s, losses '
+              f'{[round(v, 4) for v in losses]}; K7 launches forward '
+              f'{split["forward"]}, backward {split["backward"]}',
+              flush=True)
+        if form == 'range-sliced' and min(split.values()) <= 0:
+            raise AssertionError('K7 did not launch in both the forward and '
+                                 'the backward of the range-sliced R-GCN')
+        def step():
+            model.zero_grad()
+            torch.nn.functional.cross_entropy(model(x_dict, plans)['paper'],
+                                              target).backward()
+
+        profile(f'R-GCN {form}', step, ms, top_n=12)
+        del model
+    torch.cuda.empty_cache()
+
+    # -- each form against its plain computation and the others ----------
+    params = model0.params()
+    names = [n for n, _ in model0.named_parameters()]
+    leaves = list(model0.parameters())
+    cots = {t: torch.randn((n, MAG_DIMS[-1]), generator=gen, device=dev)
+            for t, n in num_nodes.items()}
+    first = None
+    for form, plans in forms.items():
+        fwd = (rgcn_forward_planned if isinstance(plans, HeteroSpmmPlan)
+               else rgcn_forward_spmm)
+        with torch.no_grad():  # layer 1 alone: its pre-activations
+            masks = {t: v > 0 for t, v in fwd(
+                {'layers': params['layers'][:1]}, x_dict, plans).items()}
+        out = model0(x_dict, plans)
+        grads = torch.autograd.grad(
+            sum((out[t] * cots[t]).sum() for t in out), leaves)
+        out = {t: v.detach() for t, v in out.items()}
+        torch.cuda.empty_cache()
+        ref = plain_forward(params, x_dict, plans, masks)
+        refs = torch.autograd.grad(
+            sum((ref[t] * cots[t]).sum() for t in ref), leaves)
+        del masks
+        for t in out:
+            close(f'R-GCN {form} forward {t}', out[t], ref[t].detach())
+        for name, g, r in zip(names, grads, refs):
+            close(f'  R-GCN {form} grad {name}', g, r)
+        del ref, refs, grads
+        out = {t: v.cpu() for t, v in out.items()}
+        if first is None:
+            first = out
+        else:
+            for t in out:
+                close(f'R-GCN {form} forward {t} against per-relation',
+                      out[t], first[t])
+        del out
+        torch.cuda.empty_cache()
+    del first, cots
+
+    # -- segment_matmul beside one torch.mm, and the kernels on their own
+    # plans at F=349 ------------------------------------------------------
+    with torch.no_grad():
+        x_cat = torch.cat([x_dict[k[0]] for k in stacked.rel_order])
+        rows = x_cat.shape[0]
+        for f_out in sorted(set(MAG_DIMS[1:])):
+            w = torch.randn((len(rels), MAG_DIMS[0], f_out), generator=gen,
+                            device=dev)
+            seg = cuda_ms(lambda: ops.segment_matmul(x_cat, stacked.src_ptr,
+                                                     w))
+            one = cuda_ms(lambda: x_cat @ w[0])
+            tflops = 2 * rows * MAG_DIMS[0] * f_out / 1e9
+            print(f'  segment_matmul [{rows}, {MAG_DIMS[0]}] by '
+                  f'[{len(rels)}, {MAG_DIMS[0]}, {f_out}] f32: {seg:.3f} ms '
+                  f'({tflops / seg:.1f} TFLOP/s); one torch.mm over the same '
+                  f'rows {one:.3f} ms ({tflops / one:.1f} TFLOP/s)',
+                  flush=True)
+        del x_cat, w
+        f = MAG_DIMS[-1]
+        errs = {}
+
+        def check(label, kid, got, ref, mag):
+            """A kernel's output against its plain version's, within
+            SUM_RTOL of the sum of the terms' magnitudes (``mag``)."""
+            err = (got - ref).abs()
+            e = float(err.max()) if err.numel() else 0.0
+            errs[kid] = max(errs.get(kid, 0.0), e)
+            print(f'  {kid} {label}: max_abs_err {e:.3g} (tolerance '
+                  f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
+            if (not torch.isfinite(got).all()
+                    or bool((err > SUM_RTOL * mag + SUM_ATOL).any())):
+                raise AssertionError(f'{kid} {label} disagrees with its '
+                                     f'plain version: max_abs_err {e}')
+
+        for k in rels:
+            for side, plan in (('fwd', graphs[k].fwd),
+                               ('bwd', graphs[k].bwd)):
+                n_in = num_nodes[k[0] if side == 'fwd' else k[2]]
+                xs = torch.randn((n_in, f), generator=gen, device=dev)
+                run = (ops.dedup_sum if isinstance(plan, ops.DedupSpmmPlan)
+                       else ops.spmm_chunked)
+                kid, label = rgcn_kid(plan), f'per-relation {k[1]} {side}'
+                check(f'{label} F={f}', kid, run(xs, plan),
+                      plain_sum(xs, plan), plain_sum(xs.abs(), plan))
+                ms = cuda_ms(lambda: run(xs, plan))
+                floor = edges[k[1]] * f * 4 / HBM_BYTES_PER_S * 1e3
+                print(f'  {kid} {label} F={f} f32: {ms:.3f} ms, gather '
+                      f'floor {floor:.3f} ms', flush=True)
+                del xs
+        # K7 into paper on the range-sliced plan, and over its transpose
+        # (the backward; rows of up to 1.4M edges), each beside
+        # torch.sparse.mm on the same weighted CSR (weights 1/deg > 0).
+        n_src, n_paper = int(stacked.src_ptr[-1]), num_nodes['paper']
+        e_paper = edges['cites'] + edges['writes']
+        a = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack(paper_coo[:2])),
+            torch.from_numpy(paper_coo[2]), (n_paper, n_src)).coalesce()
+        a = (a.to_sparse_csr().to(dev), a.t().coalesce().to_sparse_csr()
+             .to(dev))
+        del paper_coo
+        h_cat = torch.randn((n_src, f), generator=gen, device=dev)
+        g_paper = torch.randn((n_paper, f), generator=gen, device=dev)
+        floor = e_paper * f * 4 / HBM_BYTES_PER_S * 1e3
+        for side, plan, src, lib in (
+                ('forward', sliced.graphs['paper'].fwd, h_cat, a[0]),
+                ('backward (transpose)', sliced.graphs['paper'].bwd,
+                 g_paper, a[1])):
+            label = f'range-sliced into paper {side}'
+            check(f'{label} F={f}', 'K7', ops.fused_range_sum(src, plan),
+                  plain_sum(src, plan), plain_sum(src.abs(), plan))
+            ms = cuda_ms(lambda: ops.fused_range_sum(src, plan), iters=3,
+                         warmup=1)
+            lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, src), iters=3,
+                             warmup=1)
+            # The same kernel with no run cut into pieces (a warp walks
+            # each whole row, as before the cut), on the same inputs.
+            k7_mod.K7_LONG, long_len = 1 << 30, k7_mod.K7_LONG
+            try:
+                whole_ms = cuda_ms(lambda: ops.fused_range_sum(src, plan),
+                                   iters=3, warmup=1)
+            finally:
+                k7_mod.K7_LONG = long_len
+            print(f'  K7 {label} F={f} f32: {ms:.3f} ms ({whole_ms:.3f} ms '
+                  f'with no run cut), gather floor {floor:.3f} ms; '
+                  f'torch.sparse.mm on the weighted CSR {lib_ms:.3f} ms',
+                  flush=True)
+        del a, g_paper
+        # K1m over the stacked paper plan's [E_pad, 349] messages: more
+        # than 2**31 elements, so its offsets must be 64-bit.
+        plan = stacked.graphs['paper'].fwd
+        msgs = h_cat.index_select(0, plan.col_padded)
+        del h_cat
+        check(f'stacked into paper F={f} over {msgs.numel()} elements',
+              'K1m', ops.segment_sum_chunked(msgs, plan),
+              by_columns(ops.segment_sum_chunked_plain, msgs, plan),
+              by_columns(lambda m, p: ops.segment_sum_chunked_plain(
+                  m.abs(), p), msgs, plan))
+        ms = cuda_ms(lambda: ops.segment_sum_chunked(msgs, plan))
+        nbytes = msgs.numel() * 4 + plan.num_rows * f * 4
+        print(f'  K1m stacked into paper F={f} f32 over [{paper_pad}, {f}] '
+              f'messages: {ms:.3f} ms, bound '
+              f'{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms', flush=True)
+        del msgs
+    torch.cuda.empty_cache()
+    return errs
+
+
+def rgcn_main():
+    """``python3 chip_smoke.py --rgcn``: the R-GCN paths (:func:`rgcn_paths`)
+    in a process of their own, as :func:`main` runs them; its last line is
+    :data:`RGCN_RESULT` and, as JSON, the paths' launch counts (all, and
+    K1's, K1m's and K7's by width) and the kernels' largest errors against
+    their plain versions at the paths' shapes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device is available')
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pyg_lib_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()  # built by the calling process: loaded
+    paths = Paths()
+    t0 = time.perf_counter()
+    errs = rgcn_paths(torch.device('cuda', 0), paths.run)
+    paths.restore()
+    print(f'R-GCN paths: {time.perf_counter() - t0:.1f} s', flush=True)
+    print(RGCN_RESULT + json.dumps({
+        'launches': paths.launches, 'errs': errs,
+        'by_width': [[kid, f, n] for (kid, f), n in
+                     sorted(paths.by_width.items())]}), flush=True)
+
+
 def work(plan, f):
     """Bytes (each input read once, the output written once) and f32
     operations that one K1/K2 call on ``plan`` at width ``f`` needs. K2
@@ -1867,6 +2356,15 @@ def cuda_ms(fn, iters=10, warmup=2, warm_s=0.1):
 
 
 if __name__ == '__main__':
+    if sys.argv[1:] == ['--rgcn']:
+        # Growable segments: the stacked R-GCN's [E_pad, 349] message
+        # slabs (20.5 GB, two at once in its backward) and the smaller
+        # tensors between them would otherwise fragment the cached
+        # segments until a slab no longer fits on the card (PERF.md).
+        os.environ.setdefault('PYTORCH_CUDA_ALLOC_CONF',
+                              'expandable_segments:True')
+        rgcn_main()
+        sys.exit(0)
     import torch
 
     t_start = time.perf_counter()

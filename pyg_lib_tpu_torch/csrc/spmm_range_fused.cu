@@ -35,8 +35,19 @@
 //   the same scalar branch for addresses or row pitches that do not allow
 //   16-byte loads and for rows narrower than a slice;
 // * each output row is written once, after its last range, with no atomics
-//   and no partial [N, F] outputs: sums run in f32 in range and slot order,
-//   so the result is deterministic.
+//   and no partial [N, F] outputs (a row with a cut run, below, once
+//   more): sums run in f32 in range and slot order, so the result is
+//   deterministic;
+// * a row's slot run in one range of more than long_len slots (a hub row:
+//   the transpose of a Zipf graph has rows of over a million edges) is
+//   left out of the row's walk and cut into pieces of at most long_len
+//   slots (k7_pieces in the wrapper), a warp each, by a second kernel
+//   whose sums go to a partial table; a third adds each such row's
+//   pieces in order, scaled, to what the walk wrote. A warp walking such
+//   a row alone took 382 ms at F=349 where torch.sparse.mm took 13.5
+//   (PERF.md). The walk itself only tests each run's length, on bounds it
+//   reads anyway, and the pieces are the same in both branches, so the
+//   two still give the same bits.
 #include "row_walk.cuh"
 
 namespace pygt {
@@ -44,6 +55,8 @@ namespace {
 
 constexpr int K7_WARPS = 8;
 
+// A block per (tile, slice of the row): a warp per row, its ranges' runs
+// of up to long_len slots.
 template <typename T, int W, int NV, bool WEIGHTED>
 __global__ void __launch_bounds__(K7_WARPS * 32,
                                   walk_blocks<T, W, NV, WEIGHTED>())
@@ -52,7 +65,8 @@ __global__ void __launch_bounds__(K7_WARPS * 32,
                        const int* __restrict__ tile_ptrs,
                        const int* __restrict__ slot_base, int S, int S8,
                        const float* __restrict__ scale,
-                       float* __restrict__ out, int num_rows, int F) {
+                       float* __restrict__ out, int num_rows, int F,
+                       int long_len) {
   const int t = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -66,38 +80,96 @@ __global__ void __launch_bounds__(K7_WARPS * 32,
     for (int s = 0; s < S; ++s) {
       const int* ptr = ptrs + s * TP;
       const int b = slot_base[s];
-      walk.run(x, cols, w, b + ptr[r], b + ptr[r + 1], acc);
+      const int lo = ptr[r], hi = ptr[r + 1];
+      if (hi - lo <= long_len)  // a longer run is cut into pieces
+        walk.run(x, cols, w, b + lo, b + hi, acc);
     }
     walk.write(out, scale, row, acc);
   }
 }
 
+// A block per (K7_WARPS pieces, slice of the row): a warp per piece, its
+// sum written unscaled to row q of the partial table part.
+template <typename T, int W, int NV, bool WEIGHTED>
+__global__ void __launch_bounds__(K7_WARPS * 32,
+                                  walk_blocks<T, W, NV, WEIGHTED>())
+    range_fused_piece_kernel(const T* __restrict__ x,
+                             const int* __restrict__ cols,
+                             const float* __restrict__ w,
+                             const int* __restrict__ pieces, int num_pieces,
+                             float* __restrict__ part, int F) {
+  const int q = blockIdx.x * K7_WARPS + (threadIdx.x >> 5);
+  if (q >= num_pieces) return;
+  const int lane = threadIdx.x & 31;
+  const RowWalk<T, W, NV, true, WEIGHTED> walk(
+      F, blockIdx.y * (32 * W * NV) + lane * W, lane);
+  float acc[NV][W] = {};
+  walk.run(x, cols, w, pieces[3 * q + 1], pieces[3 * q + 2], acc);
+  walk.write(part, nullptr, q, acc);
+}
+
+// One thread per (row with a cut run, feature): the row's piece sums added
+// in piece order, times the column scale if given, added to what the walk
+// wrote.
+__global__ void range_fused_pieces(const int* __restrict__ long_rows,
+                                   const float* __restrict__ part,
+                                   const float* __restrict__ scale,
+                                   float* __restrict__ out, int F) {
+  const int f = blockIdx.y * blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const int* lr = long_rows + 3 * blockIdx.x;  // (row, first piece, count)
+  float acc = 0.0f;
+  for (int q = lr[1]; q < lr[1] + lr[2]; ++q)
+    acc += part[static_cast<int64_t>(q) * F + f];
+  float* dst = out + static_cast<int64_t>(lr[0]) * F + f;
+  *dst += scale != nullptr ? acc * scale[f] : acc;
+}
+
+// The pieces of one call, as the wrapper passes them (k7_pieces).
+struct Pieces {
+  int long_len;
+  const int* pieces;  // [num_pieces, 3]: row, first slot, end slot
+  int num_pieces;
+  const int* long_rows;  // [num_long, 3]: row, first piece, piece count
+                         // (the rows with a cut run)
+  int num_long;
+  float* part;  // [num_pieces, F] scratch
+};
+
 template <typename T, bool WEIGHTED>
 void launch(const void* x, const int* cols, const float* w,
             const int* tile_ptrs, const int* slot_base, int S, int S8,
             const float* scale, float* out, int num_tiles, int num_rows,
-            int F, cudaStream_t st) {
+            int F, const Pieces& pc, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   walk_dispatch<T>(x, out, scale, F, [&](auto wv, auto nv) {
     constexpr int W = decltype(wv)::value, NV = decltype(nv)::value;
     range_fused_kernel<T, W, NV, WEIGHTED>
         <<<walk_grid(num_tiles, F, W, NV), K7_WARPS * 32, 0, st>>>(
             xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows,
-            F);
+            F, pc.long_len);
+    if (pc.num_pieces > 0)
+      range_fused_piece_kernel<T, W, NV, WEIGHTED>
+          <<<walk_grid((pc.num_pieces + K7_WARPS - 1) / K7_WARPS, F, W, NV),
+             K7_WARPS * 32, 0, st>>>(xt, cols, w, pc.pieces, pc.num_pieces,
+                                     pc.part, F);
   });
+  if (pc.num_long > 0)
+    range_fused_pieces<<<dim3(pc.num_long, (F + 127) / 128), 128, 0, st>>>(
+        pc.long_rows, pc.part, scale, out, F);
 }
 
 template <typename T>
 void launch_any(const void* x, const int* cols, const float* w,
                 const int* tile_ptrs, const int* slot_base, int S, int S8,
                 const float* scale, float* out, int num_tiles, int num_rows,
-                int F, cudaStream_t st) {
+                int F, const Pieces& pc, cudaStream_t st) {
   if (w != nullptr)
     launch<T, true>(x, cols, w, tile_ptrs, slot_base, S, S8, scale, out,
-                    num_tiles, num_rows, F, st);
+                    num_tiles, num_rows, F, pc, st);
   else
     launch<T, false>(x, cols, w, tile_ptrs, slot_base, S, S8, scale, out,
-                     num_tiles, num_rows, F, st);
+                     num_tiles, num_rows, F, pc, st);
 }
 
 }  // namespace
@@ -106,14 +178,22 @@ void launch_any(const void* x, const int* cols, const float* w,
 // x [N, F] (f32, bf16 or int8 by x_dtype), cols [sum E_pad_s] int32 (global
 // column ids), w like cols f32 or null, tile_ptrs [num_tiles, S8, 256]
 // int32, slot_base [S] int32, scale [F] f32 or null, out [num_rows, F] f32
-// (written in full). Returns cudaGetLastError() after the launch.
+// (written in full). A row's slot runs of more than long_len slots in
+// one range come as a derived table (k7_pieces in the wrapper): pieces
+// [num_pieces, 3] int32 (row, first slot, end slot; at most long_len
+// slots each), a row's pieces in range and slot order, and long_rows
+// [num_long, 3] int32 (row, first piece, piece count) for each row with
+// such a run; part [num_pieces, F] f32 is scratch.
+// Returns cudaGetLastError() after the launches.
 extern "C" int pygt_spmm_range_fused(const void* x, int x_dtype,
                                      const void* cols, const void* w,
                                      const void* tile_ptrs,
                                      const void* slot_base, int S, int S8,
                                      const void* scale, void* out,
                                      int num_tiles, int num_rows, int F,
-                                     void* stream) {
+                                     int long_len, const void* pieces,
+                                     int num_pieces, const void* long_rows,
+                                     int num_long, void* part, void* stream) {
   using namespace pygt;
   const int* c = static_cast<const int*>(cols);
   const float* wt = static_cast<const float*>(w);
@@ -121,20 +201,26 @@ extern "C" int pygt_spmm_range_fused(const void* x, int x_dtype,
   const int* sb = static_cast<const int*>(slot_base);
   const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
+  const Pieces pc{long_len,
+                  static_cast<const int*>(pieces),
+                  num_pieces,
+                  static_cast<const int*>(long_rows),
+                  num_long,
+                  static_cast<float*>(part)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case F32:
       launch_any<float>(x, c, wt, tp, sb, S, S8, sc, o, num_tiles, num_rows,
-                        F, st);
+                        F, pc, st);
       break;
     case BF16:
       launch_any<__nv_bfloat16>(x, c, wt, tp, sb, S, S8, sc, o, num_tiles,
-                                num_rows, F, st);
+                                num_rows, F, pc, st);
       break;
     case I8:
       if (wt != nullptr) return static_cast<int>(cudaErrorInvalidValue);
       launch<int8_t, false>(x, c, wt, tp, sb, S, S8, sc, o, num_tiles,
-                            num_rows, F, st);
+                            num_rows, F, pc, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

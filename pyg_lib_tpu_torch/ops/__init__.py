@@ -1,8 +1,9 @@
 """Device ops of the port: planned SpMM over chunked, dedup and
-range-split plans, the CSR segment family, exact max/min, the attention
-primitives (``softmax_csr``, the padded-space softmax and sum,
-``sddmm``), the scatter and sorted-COO families, the scatter composites
-and ``fused_scatter_reduce``."""
+range-split plans (and ``spmm_csr`` over a cached plan), the CSR segment
+family, exact max/min, the attention primitives (``softmax_csr``, the
+padded-space softmax and sum, ``sddmm``), the scatter and sorted-COO
+families, the scatter composites, ``fused_scatter_reduce`` and the
+segment/grouped matmul."""
 
 from pyg_lib_tpu_torch.ops.composite import (scatter_log_softmax,
                                              scatter_logsumexp,
@@ -30,6 +31,7 @@ from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import (
 from pyg_lib_tpu_torch.ops.kernels.spmm_range_fused import (
     FusedRangePlan, build_fused_range_plan, fused_range_apply,
     fused_range_plain, fused_range_sum)
+from pyg_lib_tpu_torch.ops.matmul import grouped_matmul, segment_matmul
 from pyg_lib_tpu_torch.ops.scatter import (scatter, scatter_add,
                                            scatter_max, scatter_mean,
                                            scatter_min, scatter_mul,
@@ -52,7 +54,7 @@ from pyg_lib_tpu_torch.ops.spmm import (RangeSpmmPlan, SpmmGraph,
                                         segment_max_padded,
                                         segment_min_padded,
                                         segment_softmax_padded,
-                                        segment_sum_padded, spmm)
+                                        segment_sum_padded, spmm, spmm_csr)
 
 __all__ = [
     'DedupMinmaxPlan', 'DedupSpmmPlan', 'FusedRangePlan', 'RangeSpmmPlan',
@@ -63,10 +65,12 @@ __all__ = [
     'dedup_plan_apply', 'dedup_sum', 'dedup_sum_plain', 'estimate_dedup',
     'estimate_minmax_config', 'fused_range_apply', 'fused_range_plain',
     'fused_range_sum', 'fused_scatter_reduce', 'gather_coo', 'gather_csr',
+    'grouped_matmul',
     'quantize_columns', 'scatter', 'scatter_add', 'scatter_log_softmax',
     'scatter_logsumexp', 'scatter_max', 'scatter_mean', 'scatter_min',
     'scatter_mul', 'scatter_softmax', 'scatter_std', 'scatter_sum', 'sddmm',
     'segment_add_coo', 'segment_add_csr', 'segment_coo', 'segment_csr',
+    'segment_matmul',
     'segment_max_coo', 'segment_max_csr', 'segment_max_kernel',
     'segment_max_padded', 'segment_max_plain', 'segment_mean_coo',
     'segment_mean_csr', 'segment_min_coo', 'segment_min_csr',
@@ -74,6 +78,6 @@ __all__ = [
     'segment_softmax_planned', 'segment_sum_chunked',
     'segment_sum_chunked_plain', 'segment_sum_coo', 'segment_sum_csr',
     'segment_sum_csr_kernel', 'segment_sum_csr_plain', 'segment_sum_padded',
-    'softmax_csr', 'spmm', 'spmm_chunked', 'spmm_chunked_plain',
+    'softmax_csr', 'spmm', 'spmm_chunked', 'spmm_chunked_plain', 'spmm_csr',
     'spmm_plan_apply',
 ]

@@ -18,6 +18,11 @@ and weights concatenated (``cat_cols``, with ``lo_s`` added, and
 (``slot_base``): K7 takes the S ranges as one array each, not as S
 pointers.
 
+K7 walks each row with one warp; a row's run of more than ``K7_LONG``
+slots in one range is left out of that walk and cut into pieces of at
+most ``K7_LONG`` slots (:func:`k7_pieces`), a warp each, whose sums a
+last launch adds up in order, scales and adds to the rest of the row.
+
 :func:`fused_range_sum` is the kernel's wrapper: K7 for a CUDA tensor, the
 plain PyTorch version (:func:`fused_range_plain`, which follows the JAX
 package's path off the TPU: per-range partial sums added in f32) for a CPU
@@ -32,20 +37,26 @@ import torch
 
 from pyg_lib_tpu_torch import _build
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (DTYPE_CODE, PTR_SUB,
-                                                        TP,
+                                                        TP, TR,
                                                         _build_padded_layout,
                                                         _check_cuda,
                                                         _padded_rows,
                                                         auto_chunk,
                                                         build_spmm_plan,
                                                         quantize_columns)
+from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import _cached
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['FusedRangePlan', 'build_fused_range_plan', 'fused_range_apply',
-           'fused_range_plain', 'fused_range_sum']
+__all__ = ['FusedRangePlan', 'K7Pieces', 'build_fused_range_plan',
+           'fused_range_apply', 'fused_range_plain', 'fused_range_sum',
+           'k7_pieces']
 
 # Position base of the TPU schedule's inactive (range, step) pairs.
 _INACTIVE = -(1 << 30)
+# The run length (a row's slots in one range) above which K7 cuts the run
+# into pieces of at most K7_LONG slots, a warp each; the kernel takes it as
+# an argument.
+K7_LONG = 512
 
 
 class FusedRangePlan(NamedTuple):
@@ -240,12 +251,61 @@ def fused_range_plain(xm: torch.Tensor, plan: FusedRangePlan,
     return out if scale is None else out * scale[None, :]
 
 
+class K7Pieces(NamedTuple):
+    """The runs of more than ``K7_LONG`` slots, cut into pieces."""
+    pieces: torch.Tensor  # [P, 3] int32: row, first slot, end slot
+    rows: torch.Tensor  # [L, 3] int32: row, first piece, piece count
+
+
+def _derive_pieces(tile_ptrs, slot_base, num_rows, long_len) -> K7Pieces:
+    s_eff = slot_base.shape[0]
+    bounds = tile_ptrs[:, :s_eff, :TR + 1].long()  # [T, S, TR + 1]
+    # Per row and range: the run's first slot in the concatenation, its
+    # length.
+    lo = (bounds[:, :, :-1] + slot_base.long()[None, :, None]).transpose(
+        1, 2).reshape(-1, s_eff)[:num_rows]
+    n = (bounds[:, :, 1:] - bounds[:, :, :-1]).transpose(1, 2).reshape(
+        -1, s_eff)[:num_rows]
+    long_run = n > long_len
+    rows = torch.nonzero(long_run.any(1)).reshape(-1)
+    # The rows' runs, row-major and in range order; a short run gets none.
+    n = torch.where(long_run[rows], n[rows], 0).reshape(-1)
+    lo = lo[rows].reshape(-1)
+    count = -(-n // long_len)
+    first = torch.cumsum(count, 0) - count
+    of = torch.repeat_interleave(torch.arange(n.shape[0], device=n.device),
+                                 count)
+    start = lo[of] + (torch.arange(of.shape[0], device=n.device) -
+                      first[of]) * long_len
+    end = torch.minimum(start + long_len, (lo + n)[of])
+    per_row = count.reshape(-1, s_eff).sum(1)
+    return K7Pieces(
+        pieces=torch.stack([rows[of // s_eff], start, end],
+                           1).int().contiguous(),
+        rows=torch.stack([rows, torch.cumsum(per_row, 0) - per_row, per_row],
+                         1).int().contiguous())
+
+
+def k7_pieces(plan: FusedRangePlan) -> K7Pieces:
+    """The piece table K7 reads for ``plan``'s runs of more than
+    ``K7_LONG`` slots (a row's slots in one range): each such run cut
+    into pieces of at most ``K7_LONG``, a row's pieces in range and slot
+    order, and the rows that have such a run. Derived with tensor ops on
+    the plan's device on first use and cached per ``tile_ptrs`` and
+    ``slot_base`` (as K4's pieces)."""
+    return _cached(('k7_pieces', plan.num_rows, K7_LONG),
+                   (plan.tile_ptrs, plan.slot_base),
+                   lambda tp, sb: _derive_pieces(tp, sb, plan.num_rows,
+                                                 K7_LONG))
+
+
 def _k7_lib():
     lib = _build.load('spmm_range_fused')
     fn = lib.pygt_spmm_range_fused
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, vp, vp, i, i, i, vp]
+        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, vp, vp, i, i, i, i, vp,
+                       i, vp, i, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -287,13 +347,17 @@ def fused_range_sum(xm: torch.Tensor, plan: FusedRangePlan,
     out = torch.empty((plan.num_rows, f), dtype=torch.float32, device=dev)
     if plan.num_rows == 0 or f == 0:
         return out
+    cut = k7_pieces(plan)
+    npieces = cut.pieces.shape[0]
+    part = torch.empty((npieces, f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _k7_lib()(
             xm.data_ptr(), DTYPE_CODE[xm.dtype], plan.cat_cols.data_ptr(),
             None if plan.cat_weights is None else plan.cat_weights.data_ptr(),
             plan.tile_ptrs.data_ptr(), plan.slot_base.data_ptr(), s_eff, s8,
             None if scale is None else scale.data_ptr(), out.data_ptr(),
-            num_tiles, plan.num_rows, f,
+            num_tiles, plan.num_rows, f, K7_LONG, cut.pieces.data_ptr(),
+            npieces, cut.rows.data_ptr(), cut.rows.shape[0], part.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'K7 (spmm_range_fused.cu) launch failed: CUDA '

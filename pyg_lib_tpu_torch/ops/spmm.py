@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from pyg_lib_tpu_torch.ops.kernels.plan_cache import _host, plan_key
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (POS_NONE,
                                                           segment_max_kernel)
 from pyg_lib_tpu_torch.ops.kernels.segment_softmax import (
@@ -39,7 +40,7 @@ from pyg_lib_tpu_torch.utils import _resolve_device
 __all__ = ['RangeSpmmPlan', 'SpmmGraph', 'build_spmm_graph',
            'build_weighted_fused_graph', 'sddmm', 'segment_max_padded',
            'segment_min_padded', 'segment_softmax_padded',
-           'segment_sum_padded', 'spmm']
+           'segment_sum_padded', 'spmm', 'spmm_csr']
 
 
 class RangeSpmmPlan(NamedTuple):
@@ -274,6 +275,36 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
     bwd = build_spmm_plan(t_ptr, t_col, chunk=chunk,
                           with_edge_maps=with_edge_maps, device=device)
     return SpmmGraph(fwd=fwd, bwd=bwd, deg=deg, mm=mm)
+
+
+# spmm_csr's graphs: at most _GRAPH_CACHE_ENTRIES, the oldest dropped first.
+_GRAPH_CACHE: dict = {}
+_GRAPH_CACHE_ENTRIES = 8
+
+
+def spmm_csr(x: torch.Tensor, rowptr, col,
+             reduce: str = 'sum') -> torch.Tensor:
+    """``segment_csr(x[col], rowptr, reduce)`` over a graph built once and
+    cached: :func:`build_spmm_graph` on ``x``'s device with its defaults,
+    then :func:`spmm`, for callers who do not keep plans themselves.
+
+    ``rowptr`` and ``col`` are numpy arrays, lists or tensors; a CUDA one
+    is copied to the host once per call. Up to 8 graphs are cached, keyed
+    by buffer identity for numpy arrays and by content otherwise
+    (``plan_cache.plan_key``), and every hit is checked against stored
+    copies, so a buffer changed in place gets a new graph.
+    """
+    rp, cl = _host(rowptr), _host(col)
+    key = (plan_key(rowptr, rp), plan_key(col, cl), x.device)
+    hit = _GRAPH_CACHE.get(key)
+    if (hit is None or not np.array_equal(hit[1], rp)
+            or not np.array_equal(hit[2], cl)):
+        graph = build_spmm_graph(rp, cl, device=x.device)
+        if key not in _GRAPH_CACHE and (len(_GRAPH_CACHE) >=
+                                        _GRAPH_CACHE_ENTRIES):
+            _GRAPH_CACHE.pop(next(iter(_GRAPH_CACHE)))
+        _GRAPH_CACHE[key] = hit = (graph, rp.copy(), cl.copy())
+    return spmm(x, hit[0], reduce=reduce)
 
 
 def _plan_apply_any(x: torch.Tensor, plan: Plan,

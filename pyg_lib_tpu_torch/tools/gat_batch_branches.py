@@ -29,6 +29,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the batch, the plain GAT, the recorder)
+from pyg_lib_tpu_torch.testing import uniform_graph  # noqa: E402
 
 
 def main(trials):
@@ -42,7 +43,7 @@ def main(trials):
     print(chip_smoke.card(), flush=True)
     _build.build()
     n = chip_smoke.N_NODES
-    rowptr, src = chip_smoke.uniform_graph(n, chip_smoke.N_EDGES)
+    rowptr, src = uniform_graph(n, chip_smoke.N_EDGES)
     e = int(rowptr[-1])
     slots = -(-e // chip_smoke.EDGE_BUDGET) * chip_smoke.EDGE_BUDGET
     row = torch.full((slots, ), n, dtype=torch.int64, device=dev)

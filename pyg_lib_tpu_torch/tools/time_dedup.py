@@ -24,7 +24,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import ab  # noqa: E402  (what the A B B A tools share)
-import chip_smoke  # noqa: E402  (the bench graph and the CUDA-event timer)
+import chip_smoke  # noqa: E402  (the bench sizes and the CUDA-event timer)
+from pyg_lib_tpu_torch.testing import powerlaw_graph  # noqa: E402
 
 F = 512
 
@@ -39,7 +40,7 @@ def main(paths):
         raise SystemExit('no CUDA card')
     print(chip_smoke.card(), flush=True)
     libs = ab.build(paths)
-    rp, cl = chip_smoke.powerlaw_graph(chip_smoke.N_NODES, chip_smoke.N_EDGES)
+    rp, cl = powerlaw_graph(chip_smoke.N_NODES, chip_smoke.N_EDGES)
     graph = ops.build_spmm_graph(rp, cl, dedup='auto')
     dev = torch.device('cuda')
     x = torch.randn((chip_smoke.N_NODES, F),

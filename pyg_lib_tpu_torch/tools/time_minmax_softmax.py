@@ -47,7 +47,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import ab  # noqa: E402  (what the A B B A tools share)
-import chip_smoke  # noqa: E402  (the bench graphs and the CUDA-event timer)
+import chip_smoke  # noqa: E402  (the bench sizes and the CUDA-event timer)
+from pyg_lib_tpu_torch.testing import (  # noqa: E402
+    powerlaw_graph, uniform_graph)
 
 HEADS = chip_smoke.HEADS
 
@@ -152,7 +154,7 @@ def main(args):
     dev = torch.device('cuda')
     n = chip_smoke.N_NODES
     gen = torch.Generator(dev).manual_seed(0)
-    rp_p, cl_p = chip_smoke.powerlaw_graph(n, chip_smoke.N_EDGES)
+    rp_p, cl_p = powerlaw_graph(n, chip_smoke.N_EDGES)
     k5_cases, k6_cases = [], []
     if 'K5' in kinds:
         rp_d, cl_d = ops.dedup_pairs(rp_p, cl_p)
@@ -169,7 +171,7 @@ def main(args):
             ref = chip_smoke.by_columns(ops.dedup_minmax_plain, xf, mm)
             k5_cases.append((f'powerlaw mm F={f}', xf, mm, ref))
     if 'K6' in kinds:
-        rp_u, cl_u = chip_smoke.uniform_graph(n, chip_smoke.N_EDGES)
+        rp_u, cl_u = uniform_graph(n, chip_smoke.N_EDGES)
         plan_u = ops.build_spmm_plan(rp_u, cl_u, chunk=512,
                                      with_edge_maps=True)
         t_rp = np.zeros(n + 1, np.int64)

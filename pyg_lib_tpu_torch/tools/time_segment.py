@@ -10,10 +10,13 @@ Each argument is a source with the C interface of ``spmm_chunked.cu``
 ``segment_csr.cu`` (``pygt_segment_sum_csr``, with or without its
 scratch arguments), ``segment_minmax.cu`` (``pygt_segment_max``, with or
 without its piece table) or ``spmm_range_fused.cu``
-(``pygt_spmm_range_fused``: K7), optionally followed by ``@NAME=VALUE``
-pairs joined by ``,`` that set constants of the wrapper module for that
-argument's calls (``UNITS_PER_SM`` of ``segment_csr.py``, ``K4_LONG`` of
-``segment_minmax.py``, which must equal the source's ``LONG``). A source
+(``pygt_spmm_range_fused``: K7, with or without its piece table),
+optionally followed by ``@NAME=VALUE`` pairs joined by ``,`` that set
+constants of the wrapper module for that argument's calls
+(``UNITS_PER_SM`` of ``segment_csr.py``, ``K4_LONG`` of
+``segment_minmax.py``, which must equal the source's ``LONG``,
+``K7_LONG`` of ``spmm_range_fused.py``: ``@K7_LONG=1073741824`` cuts no
+run, and a K7 source without the piece table needs it). A source
 may include headers kept beside it, which it reads before those of
 ``csrc``. The sources are built by ``_build.build_variants``, all in
 parallel. On ``chip_smoke.py``'s graphs, F=512 f32 unless a label says
@@ -25,9 +28,12 @@ versions on one card:
   plan's padded messages (F=512, and GAT's F=48 and F=4), and K1 per
   range of the ``range_split=4`` graph (partial sums added); K7 on the
   ``range_split=4, range_fused`` graph's forward and backward plans
-  (F=512 and F=47) and on the weighted fused graph's forward plan. Each is held against its plain version
-  within ``1e-5 * sum|terms| + 1e-5``, and every source's output against
-  the first K1 (or K7) source's, bit for bit. Beside each time, the share
+  (F=512 and F=47; the forward also at the R-GCN's F=128 and F=349), on
+  the weighted fused graph's forward plan, and on the power-law graph's
+  ``range_split=4, range_fused`` transpose plan (hub rows) at F=349. Each
+  is held against its plain version within ``1e-5 * sum|terms| + 1e-5``,
+  and every source's output against the first K1 (or K7) source's with
+  the same wrapper constants, bit for bit. Beside each time, the share
   of its gather floor: E*F*elem bytes (one x row per real edge) over
   3.35 TB/s;
 * K3 on the uniform graph's CSR (its ``[E, 512]`` messages) and on the
@@ -58,7 +64,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import ab  # noqa: E402  (what the A B B A tools share)
-import chip_smoke  # noqa: E402  (the bench graphs and the CUDA-event timer)
+import chip_smoke  # noqa: E402  (the bench sizes and the CUDA-event timer)
+from pyg_lib_tpu_torch.testing import (  # noqa: E402
+    powerlaw_graph, uniform_graph)
 
 F = 512
 
@@ -125,6 +133,30 @@ def _k3_call(lib, nparams):
                      [vp, i, vp, i64, vp, i64, i, vp], launch)
 
 
+def _k7_lib_of(lib, nparams):
+    """``lib`` as K7's wrapper calls it: the current interface as it is;
+    the one before the piece table (14 parameters, every run walked whole)
+    behind a shim that drops the piece arguments, and refuses a call that
+    has pieces to add."""
+    import types
+
+    if nparams != 14:
+        return lib
+    fn = lib.pygt_spmm_range_fused
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, vp, vp, i, i, i, vp]
+    fn.restype = ctypes.c_int
+
+    def call(*a):  # a[15]: the number of pieces; a[19]: the stream
+        if a[15]:
+            raise SystemExit('K7 before its piece table cuts no run: give '
+                             'it @K7_LONG=1073741824')
+        return fn(*a[:13], a[19])
+
+    call.argtypes = fn.argtypes  # the wrapper sets none on a shim
+    return types.SimpleNamespace(pygt_spmm_range_fused=call)
+
+
 def _sum_cases(x, gen):
     """K1's and K7's cases on chip_smoke.py's uniform graph: ({kernel id:
     [(label, call, plain call, bytes of its gather floor)]}, (rowptr, col,
@@ -136,11 +168,15 @@ def _sum_cases(x, gen):
     from pyg_lib_tpu_torch import ops
 
     n = chip_smoke.N_NODES
-    rp, cl = chip_smoke.uniform_graph(n, chip_smoke.N_EDGES)
+    rp, cl = uniform_graph(n, chip_smoke.N_EDGES)
     e = int(rp[-1])
     g_u = ops.build_spmm_graph(rp, cl, with_edge_maps=True, minmax='auto')
     g_uf, g_ur, g_w, w = chip_smoke.range_graphs(rp, cl)
+    rp_p, cl_p = powerlaw_graph(n, chip_smoke.N_EDGES)
+    g_pf = ops.build_spmm_graph(rp_p, cl_p, range_split=4, range_fused=True)
     x47 = x[:, :47].contiguous()
+    x128 = x[:, :128].contiguous()
+    x349 = x[:, :349].contiguous()
     xb = x.to(torch.bfloat16)
     xq, scale = ops.quantize_columns(x)
     msgs = torch.randn((g_u.fwd.col_padded.numel(), F), generator=gen,
@@ -200,7 +236,12 @@ def _sum_cases(x, gen):
         'K7': [k7('S=4f fwd', x, g_uf.fwd), k7('S=4f bwd', x, g_uf.bwd),
                k7('S=4f fwd F=47', x47, g_uf.fwd),
                k7('S=4f bwd F=47', x47, g_uf.bwd),
-               k7('weighted fused fwd', x, g_w.fwd)],
+               k7('weighted fused fwd', x, g_w.fwd),
+               # The R-GCN's widths, and hub rows: the power-law graph's
+               # transpose (rows up to 810,552 edges).
+               k7('S=4f fwd F=128', x128, g_uf.fwd),
+               k7('S=4f fwd F=349', x349, g_uf.fwd),
+               k7('power-law S=4f bwd F=349', x349, g_pf.bwd)],
     }, (rp, cl, w)
 
 
@@ -242,8 +283,8 @@ def main(args):
         del a, a_w
     csrs, k4_cases = {}, []
     if kinds & {'K3', 'K4'}:
-        rp_u, cl_u = chip_smoke.uniform_graph(n, chip_smoke.N_EDGES)
-        rp_p, cl_p = chip_smoke.powerlaw_graph(n, chip_smoke.N_EDGES)
+        rp_u, cl_u = uniform_graph(n, chip_smoke.N_EDGES)
+        rp_p, cl_p = powerlaw_graph(n, chip_smoke.N_EDGES)
         t_rp = np.zeros(n + 1, np.int64)
         np.cumsum(np.bincount(cl_p, minlength=n), out=t_rp[1:])
         g_u = ops.build_spmm_graph(rp_u, cl_u, with_edge_maps=True,
@@ -295,8 +336,10 @@ def main(args):
         line = []
         saved = ab.set_constants(module, attrs)
         if kid in ('K1', 'K7'):
-            _build._loaded['spmm_chunked' if kid == 'K1' else
-                           'spmm_range_fused'] = lib
+            if kid == 'K1':
+                _build._loaded['spmm_chunked'] = lib
+            else:
+                _build._loaded['spmm_range_fused'] = _k7_lib_of(lib, nparams)
             for label, call, _, floor in sums[kid]:
                 got = call()
                 ref, tol = sum_refs[kid, label]
@@ -305,12 +348,13 @@ def main(args):
                     raise AssertionError(f'{arg} {kid} {label} disagrees with '
                                          f'its plain version: '
                                          f'{float(err.max())}')
-                first = firsts.setdefault((kid, label), got)
+                first = firsts.setdefault(
+                    (kid, label, tuple(sorted(attrs.items()))), got)
                 if not torch.equal(got.view(torch.int32),
                                    first.view(torch.int32)):
                     raise AssertionError(f'{arg} {kid} {label} differs from '
-                                         f'the first {kid} source bit for '
-                                         f'bit')
+                                         f'the first {kid} source with its '
+                                         f'constants bit for bit')
                 ms = chip_smoke.cuda_ms(call, 20, 3)
                 share = floor / chip_smoke.HBM_BYTES_PER_S * 1e3 / ms
                 line.append(f'{kid} {label} {ms:.3f} ms ({share:.0%} of its '

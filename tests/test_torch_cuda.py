@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1 (and its ``msgs_padded`` entry), K2, K2h, K3,
 K4 (and its row-sum form K4s), K5, K6 and K7 against their plain versions,
-on the card, and the paths of the scatter family, ``fused_scatter_reduce``
-and the padded-batch GAT against the CPU.
+on the card, and the paths of the scatter family, ``fused_scatter_reduce``,
+the padded-batch GAT, ``segment_matmul``, rectangular dedup ``spmm`` and
+the R-GCN (padded batch and the three full-graph forms) against the CPU.
 
 Every test here needs an NVIDIA card with ``nvcc`` (marker ``cuda``) and
 skips without one. The file imports nothing of JAX, so it also runs where
@@ -800,6 +801,40 @@ def test_k1_k7_hub_rows_and_alignment(dev, entry, f, mode):
     assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
 
 
+# K7 with its rows cut at several lengths: every row of slots (1), the
+# hub CSR's longer rows (37, 512: the default), and none (a warp walks
+# each whole row). Pieces and the merge launch must give the plain sum,
+# the same bits from both branches and one launch a call.
+@pytest.mark.parametrize('long_len', [1, 37, 512, 1 << 30])
+@pytest.mark.parametrize('entry', ['K7 S=2', 'K7 S=4 weighted'])
+@pytest.mark.parametrize('f', [3, 512])
+def test_k7_long_rows_cut_at_any_length(dev, monkeypatch, long_len, entry,
+                                        f):
+    from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
+
+    monkeypatch.setattr(k7_mod, 'K7_LONG', long_len)
+    plan = _hub_sum_plan(entry, dev)
+    cut = k7_mod.k7_pieces(plan)
+    assert (cut.rows.shape[0] > 0) == (long_len < 120_000)
+    xm, _ = _inputs(2000, f, 'f32', dev)
+    absp = plan
+    if plan.weights is not None:
+        absp = plan._replace(weights=tuple(w.abs() for w in plan.weights))
+    ref = ops.fused_range_plain(xm, plan)
+    mag = ops.fused_range_plain(xm.abs(), absp)
+    outs = []
+    for src in (xm, _one_element_in(xm)):
+        before = ops.fused_range_sum.launches
+        got = ops.fused_range_sum(src, plan)
+        torch.cuda.synchronize()
+        assert ops.fused_range_sum.launches == before + 1
+        assert bool(((got - ref).abs() <= RTOL * mag + ATOL).all())
+        outs.append(got)
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    assert torch.equal(outs[0].view(torch.int32),
+                       ops.fused_range_sum(xm, plan).view(torch.int32))
+
+
 @pytest.mark.parametrize('fused', [False, True])
 @pytest.mark.parametrize('precision', [None, 'bf16', 'int8'])
 def test_range_spmm_and_grad_match_cpu(dev, fused, precision):
@@ -1050,4 +1085,156 @@ def test_gat_batch_forward_and_grads_match_cpu(dev):
     for a, b in zip(*outs):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(b, a, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(a.abs().max())))
+
+
+@pytest.mark.parametrize('bias', [False, True])
+@pytest.mark.parametrize('ptr_on', ['host', 'card'])
+def test_segment_matmul_matches_cpu(dev, ptr_on, bias):
+    # An empty segment and trailing padding rows; ptr on the host (no
+    # read-back) or on the card (one read-back). TF32 stays off, as the
+    # port leaves it to the caller.
+    rng = np.random.default_rng(14)
+    ptr = np.array([0, 700, 700, 1900, 3000], np.int64)
+    x = rng.normal(size=(3100, 128)).astype(np.float32)
+    w = rng.normal(size=(4, 128, 349)).astype(np.float32)
+    b = rng.normal(size=(4, 349)).astype(np.float32) if bias else None
+    cot = rng.normal(size=(3100, 349)).astype(np.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs = []
+    try:
+        for device in ('cpu', dev):
+            leaves = [torch.tensor(a, device=device, requires_grad=True)
+                      for a in ([x, w, b] if bias else [x, w])]
+            p = (torch.tensor(ptr, device=device) if ptr_on == 'card'
+                 and device != 'cpu' else ptr)
+            out = ops.segment_matmul(leaves[0], p, leaves[1],
+                                     leaves[2] if bias else None)
+            grads = torch.autograd.grad(
+                (out * torch.tensor(cot, device=device)).sum(), leaves)
+            outs.append([out.detach().cpu()] + [t.cpu() for t in grads])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(outs[1][0][3000:], torch.zeros((100, 349)))
+    assert torch.equal(outs[1][2][1], torch.zeros((128, 349)))
+    for a, c in zip(*outs):
+        torch.testing.assert_close(c, a, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(a.abs().max())))
+
+
+def test_rgcn_forward_matches_cpu(dev):
+    from pyg_lib_tpu_torch.models import RGCNBatch
+
+    rng = np.random.default_rng(15)
+    n, e, e_pad = 3000, 40000, 41000
+    sizes = np.array([15000, 0, 20000, 5000])
+    rel_ptr = np.concatenate([[0], np.cumsum(sizes)])
+    row = np.full(e_pad, n, np.int64)
+    col = np.full(e_pad, n, np.int64)
+    row[:e], col[:e] = rng.integers(0, n, e), rng.integers(0, n, e)
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    outs = []
+    for device in ('cpu', dev):
+        model = RGCNBatch([32, 16, 7], 4,
+                          generator=torch.Generator().manual_seed(3),
+                          device=device)
+        out = model(torch.tensor(x, device=device),
+                    torch.tensor(row, device=device),
+                    torch.tensor(col, device=device), rel_ptr)
+        grads = torch.autograd.grad(out.square().sum(),
+                                    list(model.parameters()))
+        outs.append([out.detach().cpu()] + [t.cpu() for t in grads])
+    for a, c in zip(*outs):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(c, a, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(a.abs().max())))
+
+
+@pytest.mark.parametrize('dedup', ['auto', 'on'])
+@pytest.mark.parametrize('side', ['tall', 'wide'])
+def test_rectangular_dedup_spmm_matches_cpu(dev, side, dedup):
+    # A rectangular graph, as an R-GCN relation gives: 2,000 destination
+    # rows over 30,000 Zipf(1.2) sources ('wide') or 30,000 rows over 2,000
+    # sources ('tall', whose transpose has hub rows); forward and backward,
+    # each side on the plan dedup= gives it, against the CPU within the
+    # sum tolerance (Σ|terms| from |x| and |cot| on the CPU).
+    rng = np.random.default_rng(16)
+    n_dst, n_src = (2000, 30000) if side == 'wide' else (30000, 2000)
+    e = 60000
+    p = 1.0 / np.arange(1, n_src + 1)**1.2
+    rowptr, col = _csr(rng.integers(0, n_dst, e),
+                       rng.choice(n_src, e, p=p / p.sum()), n_dst)
+    x = rng.normal(size=(n_src, 40)).astype(np.float32)
+    cot = rng.normal(size=(n_dst, 40)).astype(np.float32)
+
+    def run(graph, device, xv, cv):
+        xt = torch.tensor(xv, device=device, requires_grad=True)
+        out = ops.spmm(xt, graph, 'mean')
+        (grad, ) = torch.autograd.grad(
+            (out * torch.tensor(cv, device=device)).sum(), xt)
+        return out.detach().cpu(), grad.cpu()
+
+    outs, kinds = [], []
+    for device in ('cpu', dev):
+        graph = ops.build_spmm_graph(rowptr, col, num_cols=n_src,
+                                     dedup=dedup, device=device)
+        kinds.append((type(graph.fwd), type(graph.bwd)))
+        before = (ops.dedup_sum.launches + ops.dedup_sum.hot_launches,
+                  ops.spmm_chunked.launches)
+        outs.append(run(graph, device, x, cot))
+        if device != 'cpu':
+            torch.cuda.synchronize()
+            n_dedup = sum(isinstance(p, ops.DedupSpmmPlan)
+                          for p in (graph.fwd, graph.bwd))
+            assert (ops.dedup_sum.launches + ops.dedup_sum.hot_launches -
+                    before[0], ops.spmm_chunked.launches - before[1]) == (
+                        n_dedup, 2 - n_dedup)
+        else:
+            mags = run(graph, device, np.abs(x), np.abs(cot))
+    assert kinds[0] == kinds[1]
+    if dedup == 'on':
+        assert kinds[1] == (ops.DedupSpmmPlan, ops.DedupSpmmPlan)
+    for a, c, mag in zip(*outs, mags):
+        assert bool(((c - a).abs() <= RTOL * mag + ATOL).all())
+
+
+@pytest.mark.parametrize('form', ['per-relation', 'stacked', 'range-sliced'])
+def test_rgcn_forms_match_cpu(dev, form):
+    from pyg_lib_tpu_torch.models import (RGCN, build_rgcn_graphs,
+                                          build_rgcn_planned)
+    from pyg_lib_tpu_torch.testing import mag_graph
+
+    num, rowptr_d, col_d = mag_graph(
+        {'paper': 3000, 'author': 5000, 'institution': 40,
+         'field_of_study': 300},
+        {('paper', 'cites', 'paper'): 20000,
+         ('author', 'writes', 'paper'): 26000,
+         ('author', 'affiliated_with', 'institution'): 4000,
+         ('paper', 'has_topic', 'field_of_study'): 28000})
+    rng = np.random.default_rng(17)
+    x = {t: rng.normal(size=(n, 32)).astype(np.float32)
+         for t, n in num.items()}
+    outs = []
+    for device in ('cpu', dev):
+        if form == 'per-relation':
+            plans = build_rgcn_graphs(rowptr_d, col_d, num, device=device)
+        else:
+            plans = build_rgcn_planned(
+                rowptr_d, col_d, num, device=device,
+                **({'chunk': 512} if form == 'stacked' else
+                   {'chunk': 'auto', 'range_sliced': True}))
+        model = RGCN([32, 16, 7], 4,
+                     generator=torch.Generator().manual_seed(4),
+                     device=device)
+        out = model({t: torch.tensor(v, device=device)
+                     for t, v in x.items()}, plans)
+        grads = torch.autograd.grad(
+            sum(v.square().sum() for v in out.values()),
+            list(model.parameters()))
+        outs.append([out[t].detach().cpu() for t in sorted(out)] +
+                    [t.cpu() for t in grads])
+    for a, c in zip(*outs):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(c, a, rtol=1e-4,
                                    atol=1e-4 * max(1.0, float(a.abs().max())))

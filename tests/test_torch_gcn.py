@@ -22,8 +22,14 @@ import pyg_lib_tpu_torch
 from pyg_lib_tpu import ops as jops
 from pyg_lib_tpu.models import gnn as jgnn
 from pyg_lib_tpu_torch import ops
-from pyg_lib_tpu_torch.models import (GAT, GCN, SAGE, gat_params_from_jax,
-                                      gcn_forward_spmm, gcn_params_from_jax,
+from pyg_lib_tpu_torch.examples.train_rgcn_fullgraph_spmm import \
+    main as train_rgcn_example
+from pyg_lib_tpu_torch.models import (GAT, GCN, RGCN, SAGE, RGCNBatch,
+                                      build_rgcn_graphs, build_rgcn_planned,
+                                      gat_params_from_jax, gcn_forward_spmm,
+                                      gcn_params_from_jax, init_rgcn,
+                                      init_rgcn_spmm, rgcn_params_from_jax,
+                                      rgcn_spmm_params_from_jax,
                                       sage_params_from_jax)
 from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
 from test_torch_spmm import (ATOL, RTOL, features, powerlaw_graph,
@@ -143,7 +149,9 @@ def test_package_imports_neither_jax_nor_reference():
             'pyg_lib_tpu_torch.ops.scatter, '
             'pyg_lib_tpu_torch.ops.segment_coo, '
             'pyg_lib_tpu_torch.ops.composite, '
-            'pyg_lib_tpu_torch.ops.scatter_reduce; '
+            'pyg_lib_tpu_torch.ops.scatter_reduce, '
+            'pyg_lib_tpu_torch.ops.matmul, '
+            'pyg_lib_tpu_torch.examples.train_rgcn_fullgraph_spmm; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyg_lib_tpu')); "
             'assert not bad, bad')
@@ -169,7 +177,9 @@ def test_sources_import_neither_jax_nor_reference():
     assert {'segment_csr.py', 'segment_minmax.py', 'spmm_dedup_minmax.py',
             'plan_cache.py', 'gnn.py', 'softmax.py', 'segment_softmax.py',
             'spmm_range_fused.py', 'scatter.py', 'segment_coo.py',
-            'composite.py', 'scatter_reduce.py'} <= names and len(files) > 21
+            'composite.py', 'scatter_reduce.py', 'matmul.py',
+            'train_rgcn_fullgraph_spmm.py', 'headline.py'} <= names \
+        and len(files) > 24
     for path in files:
         bad = _imported_roots(path) & {'jax', 'jaxlib', 'pyg_lib_tpu'}
         assert not bad, f'{path.relative_to(REPO)} imports {bad}'
@@ -178,6 +188,13 @@ def test_sources_import_neither_jax_nor_reference():
 def test_entry_points_need_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     rowptr, col = uniform_graph(29, 50, 300)
+    rel = ('a', 'r', 'a')
+    rels, cols, types = {rel: rowptr}, {rel: col}, {'a': 50}
+    layer = {'w': np.zeros((1, 8, 4), np.float32), 'b': np.zeros(4),
+             'w_self': np.zeros((8, 4), np.float32)}
+    rgcn_spmm_tree = {'layers': [layer]}
+    rgcn_tree = {'layers': [{'w_rel': layer['w'], 'w_root': layer['w_self'],
+                             'b': layer['b']}]}
     for build in (lambda: ops.build_spmm_graph(rowptr, col),
                   lambda: ops.build_spmm_plan(rowptr, col),
                   lambda: ops.build_dedup_plan(rowptr, col),
@@ -194,7 +211,18 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
                   lambda: ops.build_weighted_fused_graph(
                       rowptr, col, 50, [(0, 50)], np.ones(len(col))),
                   lambda: GAT([8, 8, 4]),
-                  lambda: gat_params_from_jax(_jax_params(2))):
+                  lambda: gat_params_from_jax(_jax_params(2)),
+                  lambda: build_rgcn_graphs(rels, cols, types),
+                  lambda: build_rgcn_planned(rels, cols, types),
+                  lambda: build_rgcn_planned(rels, cols, types,
+                                             chunk='auto',
+                                             range_sliced=True),
+                  lambda: RGCN([8, 8, 4], 1), lambda: RGCNBatch([8, 8, 4], 2),
+                  lambda: init_rgcn([8, 4], 2),
+                  lambda: init_rgcn_spmm([8, 4], 2),
+                  lambda: rgcn_params_from_jax(rgcn_tree),
+                  lambda: rgcn_spmm_params_from_jax(rgcn_spmm_tree),
+                  lambda: train_rgcn_example(epochs=1)):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             build()
     assert pyg_lib_tpu_torch.cuda_version() == ''

@@ -322,3 +322,83 @@ def test_range_graph_options_and_refusals():
         ops.build_fused_range_plan(rowptr, col, 300, 1,
                                    bounds=[(0, 100), (150, 300)],
                                    device='cpu')
+
+
+def _hub_graph():
+    # Geometric degrees (a third of the rows empty), row 7 of 5,000 edges
+    # and the last row, in a partial tile, of 700.
+    rng = np.random.default_rng(23)
+    deg = rng.geometric(0.1, 300) - 1
+    deg[rng.random(300) < 0.33] = 0
+    deg[7], deg[299] = 5000, 700
+    rowptr = np.zeros(301, np.int64)
+    np.cumsum(deg, out=rowptr[1:])
+    return rowptr, rng.integers(0, 300, int(rowptr[-1])).astype(np.int64)
+
+
+def _runs(plan, row):
+    """Row ``row``'s slot run in each range: ``[(lo, hi), ...]`` in the
+    concatenated slots."""
+    tp, base = plan.tile_ptrs.long(), plan.slot_base.long()
+    t, r = divmod(row, 128)
+    return [(int(base[s] + tp[t, s, r]), int(base[s] + tp[t, s, r + 1]))
+            for s in range(base.shape[0])]
+
+
+def _k7_schedule(xm, plan, cut, long_len):
+    """K7's schedule with PyTorch: a row without a run of more than
+    ``long_len`` slots as the plain version sums it; a row with one as
+    the sum of its other runs plus the sum, in order, of its pieces'
+    sums."""
+    w = (plan.cat_weights if plan.cat_weights is not None else
+         torch.ones(plan.cat_cols.shape[0]))
+    terms = xm[plan.cat_cols.long()].float() * w[:, None]
+    out = ops.fused_range_plain(xm, plan)
+    for row, first, count in cut.rows.tolist():
+        acc = torch.zeros(xm.shape[1])
+        for lo, hi in _runs(plan, row):
+            if hi - lo <= long_len:
+                acc = acc + terms[lo:hi].sum(0)
+        pieces = torch.zeros(xm.shape[1])
+        for _, lo, hi in cut.pieces[first:first + count].tolist():
+            pieces = pieces + terms[lo:hi].sum(0)
+        out[row] = acc + pieces
+    return out
+
+
+@pytest.mark.parametrize('long_len', [1, 64, 512])
+@pytest.mark.parametrize('case', ['S1', 'S2', 'weighted'])
+def test_k7_pieces_cut_long_rows_and_match_pallas_kernel(monkeypatch,
+                                                         long_len, case):
+    from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
+
+    rowptr, col = _hub_graph()
+    kw = FUSED_CASES[case](rowptr, col)
+    plan_j, plan_t = _fused_pair(rowptr, col, 300, **kw)
+    monkeypatch.setattr(k7_mod, 'K7_LONG', long_len)
+    cut = k7_mod.k7_pieces(plan_t)
+    # Every row with a run of more than K7_LONG slots in one range, and
+    # no other, is listed; its pieces hold those runs' slots in range and
+    # slot order, at most K7_LONG each.
+    runs = [_runs(plan_t, row) for row in range(300)]
+    long_rows = [row for row in range(300)
+                 if any(hi - lo > long_len for lo, hi in runs[row])]
+    assert cut.rows[:, 0].tolist() == long_rows
+    assert cut.rows[:, 1].tolist() == np.concatenate(
+        [[0], np.cumsum(cut.rows[:, 2].numpy())[:-1]]).tolist()
+    assert int(cut.rows[:, 2].sum()) == cut.pieces.shape[0]
+    for row, first, count in cut.rows.tolist():
+        want = [p for lo, hi in runs[row] if hi - lo > long_len
+                for p in range(lo, hi)]
+        got = []
+        for q_row, lo, hi in cut.pieces[first:first + count].tolist():
+            assert q_row == row and 0 < hi - lo <= long_len
+            got += range(lo, hi)
+        assert got == want
+    assert k7_mod.k7_pieces(plan_t) is cut  # cached per plan
+    # The schedule's sums against the Pallas kernel in the interpreter.
+    x = features(5, 300, 16)
+    ref = np.asarray(jfused.fused_range_apply(jnp.asarray(x), plan_j,
+                                              interpret=True))
+    got = _k7_schedule(torch.from_numpy(x), plan_t, cut, long_len).numpy()
+    assert np.all(np.abs(got - ref) <= KERNEL_TOL * (1 + np.abs(ref)))
