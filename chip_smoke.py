@@ -44,7 +44,20 @@ ogbn-mag's full published shape:
   5.1G elements at F=349) and the range-sliced plans (K7 with weights,
   forward and backward). It runs first, in a process of its own
   (``python3 chip_smoke.py --rgcn``, with growable allocator segments):
-  the stacked form needs about 55 GB of the card.
+  the stacked form needs about 55 GB of the card;
+* the huge-graph step of ``bench/bench_sharded_huge.py`` at its full
+  size (2,000,000 nodes, 30,009,772 edges, F=128, 8 row splits; the value
+  and gradient of ``(spmm_sharded(x, g, 'mean', precision)**2).sum()``)
+  over ``build_spmm_graph_sharded`` plans, in five variants, each a path
+  of its own: uniform columns in bf16, f32 and int8 (K1), with
+  ``range_split=4`` (K1 per range) and with max and min (K4); Zipf(1.2)
+  columns built ``dedup='off'`` (K1, and K1's pieces over the
+  transpose's hub rows of up to 5.6M slots) and ``dedup='auto',
+  minmax='auto'`` (K2h and K2 as each split's plan says, K1 and its
+  pieces on the chunked backward; K5 for max). It runs in a process of
+  its own too (``python3 chip_smoke.py --sharded``); each variant's output
+  and gradient are held against the plain versions and against ``spmm``
+  over the unsharded graph.
 
 The script:
 
@@ -83,7 +96,9 @@ The script:
    peak memory for GAT, the padded-batch GAT and the R-GCN forms). The
    R-GCN part also times ``segment_matmul`` beside one ``torch.mm`` over
    the same rows, and its kernels on its own plans at F=349 (K7 and its
-   transpose beside ``torch.sparse.mm``).
+   transpose beside ``torch.sparse.mm``); the huge-graph part times K1
+   over the hub rows of the Zipf transpose's first split, cut and uncut,
+   beside ``torch.sparse.mm``.
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -146,6 +161,13 @@ RGCN_LR = 0.01
 # The R-GCN process's last line: this, then its launch counts as JSON.
 RGCN_RESULT = 'R-GCN launches: '
 BLOCK = 128  # feature columns per plain-version call at the bench shape
+# The huge graph's step (bench/bench_sharded_huge.py: testing.huge_graph,
+# 2,000,000 nodes, 30,009,772 edges): its width, row splits and S2's
+# column ranges, and the plain versions' columns a call there (a
+# [29.2M, 16] f64 slab for the power-law transpose's first split).
+HUGE_F, HUGE_SPLITS, HUGE_RANGES, HUGE_BLOCK = 128, 8, 4, 16
+# The sharded process's last line: this, then its results as JSON.
+SHARDED_RESULT = 'sharded launches: '
 # The earlier designs' times of K5 (its [N, F] key table) and K6 (a warp
 # per row) on this script's shapes, printed beside the current ones
 # (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
@@ -160,7 +182,8 @@ COUNTERS = {'K1': ('spmm_chunked', 'launches'),
             'K5': ('dedup_minmax', 'launches'),
             'K6': ('segment_softmax_planned', 'launches'),
             'K7': ('fused_range_sum', 'launches'),
-            'K1m': ('segment_sum_chunked', 'launches')}
+            'K1m': ('segment_sum_chunked', 'launches'),
+            'K1p': ('spmm_chunked', 'piece_launches')}
 SOURCES = {
     'K1': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
     'K2': ('spmm_dedup.cu', 'pyg_lib_tpu/ops/pallas/spmm_dedup.py:527'),
@@ -178,6 +201,7 @@ SOURCES = {
     'K7': ('spmm_range_fused.cu',
            'pyg_lib_tpu/ops/pallas/spmm_range_fused.py:221'),
     'K1m': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
+    'K1p': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
 }
 
 
@@ -255,14 +279,14 @@ def k6_row_sum_err(out, plan, idx=None):
     return float(dev.max()) if dev.numel() else 0.0
 
 
-def by_columns(fn, src, *args):
-    """A plain version whose columns are independent, run on ``BLOCK``
+def by_columns(fn, src, *args, block=BLOCK):
+    """A plain version whose columns are independent, run on ``block``
     columns of ``src`` at a time and joined: keeps its ``[E, F]``
-    temporaries to ``[E, BLOCK]`` at the bench shape."""
+    temporaries to ``[E, block]`` at the bench shape."""
     import torch
 
-    outs = [fn(src[:, f0:f0 + BLOCK].contiguous(), *args)
-            for f0 in range(0, src.shape[1], BLOCK)]
+    outs = [fn(src[:, f0:f0 + block].contiguous(), *args)
+            for f0 in range(0, src.shape[1], block)]
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts, 1) for parts in zip(*outs))
     return torch.cat(outs, 1)
@@ -822,21 +846,15 @@ def main():
     paths = Paths()
     launches, by_width, run_path = paths.launches, paths.by_width, paths.run
     torch.cuda.empty_cache()
-    with subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                           '--rgcn'], stdout=subprocess.PIPE,
-                          text=True) as child:
-        last = ''
-        for line in child.stdout:
-            print(line, end='', flush=True)
-            last = line
-    if child.returncode != 0 or not last.startswith(RGCN_RESULT):
-        raise AssertionError(f'the R-GCN paths failed (exit code '
-                             f'{child.returncode})')
-    rgcn = json.loads(last[len(RGCN_RESULT):])
-    for k, n in rgcn['launches'].items():
-        launches[k] += n
-    for kid, f, n in rgcn['by_width']:
-        by_width[kid, f] = by_width.get((kid, f), 0) + n
+    rgcn = child('--rgcn', RGCN_RESULT)
+    # -- 3a. the huge-graph step over sharded plans, in a process of its
+    # own too (its graphs and plans leave with it) ----------------------
+    sharded = child('--sharded', SHARDED_RESULT)
+    for res in (rgcn, sharded):
+        for k, n in res['launches'].items():
+            launches[k] += n
+        for kid, f, n in res['by_width']:
+            by_width[kid, f] = by_width.get((kid, f), 0) + n
 
     def profile_step(label, model, graph, ms, top_n=8, call=None):
         """One profiled training step (:func:`profile`); ``call``
@@ -969,8 +987,8 @@ def main():
     main_errs['K1m'] = check_msgs(f'uniform fwd F={F_BENCH}', msgs_u, plan)
     del msgs_u
     torch.cuda.empty_cache()
-    for kid, e in rgcn['errs'].items():  # at the R-GCN paths' shapes
-        main_errs[kid] = max(main_errs[kid], e)
+    for kid, e in [*rgcn['errs'].items(), *sharded['errs'].items()]:
+        main_errs[kid] = max(main_errs[kid], e)  # at those paths' shapes
         errs[kid] = max(errs[kid], e)
 
     # -- 4. the main paths, each counted on its own ----------------------
@@ -1742,7 +1760,25 @@ def main():
                                         g_uf.fwd))
         print(f'  {kid} F={f} f32 ({by_width[kid, f]} launches on the main '
               f'paths): {ms:.3f} ms', flush=True)
+    # K1's pieces, timed by the sharded process over the huge power-law
+    # graph's hub rows.
+    rows.append(dict(sharded['row'], launches=launches['K1p']))
     return smi, errs, rows
+
+
+def child(flag, result):
+    """Run ``python3 chip_smoke.py flag`` and echo its output; return the
+    JSON of its last line, which starts with ``result``."""
+    with subprocess.Popen([sys.executable, os.path.abspath(__file__), flag],
+                          stdout=subprocess.PIPE, text=True) as proc:
+        last = ''
+        for line in proc.stdout:
+            print(line, end='', flush=True)
+            last = line
+    if proc.returncode != 0 or not last.startswith(result):
+        raise AssertionError(f'the {flag} paths failed (exit code '
+                             f'{proc.returncode})')
+    return json.loads(last[len(result):])
 
 
 class Paths:
@@ -2269,6 +2305,584 @@ def rgcn_main():
                      sorted(paths.by_width.items())]}), flush=True)
 
 
+def capture_cotangent(out):
+    """A list that gets the cotangent autograd passes into the sum of
+    ``spmm_sharded`` (its ``_ShardedSum`` node) when ``out`` is
+    differentiated."""
+    node = out.grad_fn
+    while type(node).__name__ != '_ShardedSumBackward':
+        node = node.next_functions[0][0]
+    got = []
+    node.register_prehook(lambda grads: got.append(grads[0].detach()))
+    return got
+
+
+def sharded_paths(dev, run_path):
+    """The huge-graph step of ``bench/bench_sharded_huge.py`` at its full
+    size (``testing.huge_graph``: 2,000,000 nodes, 30,009,772 edges, F=128
+    f32, ``HUGE_SPLITS`` row splits): the value and gradient of
+    ``(spmm_sharded(x, g, reduce, precision)**2).sum()``, ``STEPS`` steps
+    a variant, each a path of its own:
+
+    * S1: uniform columns, ``chunk=512``; mean in bf16, f32 and int8 (K1);
+    * S2: uniform, ``chunk='auto', range_split=HUGE_RANGES`` (K1 a range);
+    * S3: S1's plans, max and min (K4 with the gather fused);
+    * S4: Zipf(1.2) columns, ``dedup='off'``; mean in bf16 (K1, and K1's
+      pieces over the transpose's hub rows, up to 5.6M slots);
+    * S5: Zipf(1.2), ``dedup='auto', minmax='auto'``; mean in bf16 (K2h or
+      K2 as each split's plan says, K1 and its pieces where a side stays
+      chunked) and max (K5).
+
+    Each variant's output and gradient are held against the plain
+    versions (sums in f64, ``HUGE_BLOCK`` columns at a time, within the
+    sum tolerance plus the kernel's addition depth; max and min bit for
+    bit, their gradient within the sum tolerance) and against ``spmm``
+    over ``build_spmm_graph`` of the same CSR. The first backward split
+    (the hub rows) goes through K1 and its pieces (S4) and K2 (S5) alone,
+    on random terms and on small integers, whose sums must come out
+    exact. Records build seconds, the unprofiled step, one profiled step,
+    peak memory and the bench's ``traffic_gbps``; times K1 over S4's
+    first backward split cut and uncut beside ``torch.sparse.mm`` on that
+    CSR. Returns the kernels' largest errors and K1's piece row of the
+    kernels line (without its launches)."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
+    from pyg_lib_tpu_torch.ops.kernels import spmm_dedup as k2_mod
+    from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
+    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import TR, _padded_rows
+    from pyg_lib_tpu_torch.testing import HUGE_NODES, huge_graph
+
+    tspmm = sys.modules['pyg_lib_tpu_torch.ops.spmm']
+    n, f = HUGE_NODES, HUGE_F
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((n, f), generator=gen, device=dev)
+
+    def kid_of(plan):
+        if isinstance(plan, ops.DedupSpmmPlan):
+            return 'K2h' if plan.num_hot else 'K2'
+        if isinstance(plan, ops.DedupMinmaxPlan):
+            return 'K5'
+        return 'K1'
+
+    def kids(plans):
+        out = {kid_of(p) for p in plans}
+        if any(isinstance(p, ops.SpmmPlan)
+               and k1_mod.k1_pieces(p).rows.shape[0] for p in plans):
+            out.add('K1p')
+        return out
+
+    def sums64(xm, plan):
+        """``spmm_chunked_plain`` with its sums in f64."""
+        slot, row = _padded_rows(plan.tile_ptr)
+        out = torch.zeros((plan.num_rows, xm.shape[1]), dtype=torch.float64,
+                          device=xm.device)
+        return out.index_add_(0, row, xm[plan.col_padded[slot].long()]
+                              .double())
+
+    def dedup64(xm, plan):
+        """``dedup_sum_plain`` of an unweighted plan (as the sharded ones
+        are) with its sums in f64, ``HUGE_BLOCK`` columns at a time."""
+        rows = plan.edge_meta[:, 0, :]
+        c, e = torch.nonzero(rows >= 0, as_tuple=True)
+        src = plan.uniq_cols[c * plan.uc + plan.edge_meta[c, 1, e].long()]
+        dst = plan.chunk_tile[c].long() * TR + rows[c, e].long()
+        del c, e
+        tiles = max(-(-plan.num_rows // TR), 1)
+        hot = plan.hot_w.double() if plan.num_hot else None
+        outs = []
+        for lo in range(0, xm.shape[1], HUGE_BLOCK):
+            xb = xm[:, lo:lo + HUGE_BLOCK]
+            out = torch.zeros((tiles * TR, xb.shape[1]), dtype=torch.float64,
+                              device=xm.device).index_add_(
+                                  0, dst, xb[src.long()].double())
+            if hot is not None:
+                out += hot @ xb[plan.hot_cols.long()].double()
+            outs.append(out[:plan.num_rows])
+        return torch.cat(outs, 1)
+
+    def k1_plain(xm, plan):
+        return by_columns(sums64, xm, plan, block=HUGE_BLOCK)
+
+    def plain_split(xm, plan, scale=None):
+        """The plain version of the split's kernel with its sums in f64:
+        the transpose's hub rows add up to 5.6M terms of one sign, each of
+        which an f32 index_add_ rounds to its running sum's ulp (its
+        result was 1% off on S4's first split)."""
+        if isinstance(plan, ops.DedupSpmmPlan):
+            out = dedup64(xm, plan)
+        elif isinstance(plan, ops.RangeSpmmPlan):
+            out = sum(by_columns(sums64, xm[lo:hi], p, block=HUGE_BLOCK)
+                      for (lo, hi), p in zip(plan.bounds, plan.plans))
+        else:
+            out = k1_plain(xm, plan)
+        return out if scale is None else out * scale[None, :].double()
+
+    def depth(plan):
+        """Per row of ``plan``, the most f32 roundings a term passes
+        through in its kernel, which keep the kernel within depth * 2**-24
+        of the terms' magnitude from the exact sum: K1's walk adds a row's
+        slots in order, a cut row's pieces of at most K1_LONG in 8 runs a
+        warp then across the warps and onto the row (csrc/row_pieces.cuh);
+        K1 per range adds the ranges' results; K2 adds a warp's run of at
+        most ec/16 edges, then at most 16 runs a chunk of the tile's
+        chunks in a block's range into shared memory, then the blocks
+        sharing the tile by atomics, the ranges being 8 per block the card
+        holds at once (1 to 4 an SM) over the F-blocks of 32 or 64
+        features (csrc/spmm_dedup.cu); K2h adds the row's hot list onto
+        that. Two more for a column scale and the mean's division."""
+        if isinstance(plan, ops.RangeSpmmPlan):
+            return (torch.stack([depth(p) for p in plan.plans]).amax(0)
+                    + len(plan.plans))
+        if isinstance(plan, ops.SpmmPlan):
+            bounds = plan.tile_ptr[:, 0, :TR + 1].long()
+            k = (bounds[:, 1:] - bounds[:, :-1]).reshape(-1)[:plan.num_rows]
+            cut = k1_mod.K1_LONG
+            pieces = -(-k // cut)
+            return torch.where(k > cut, cut + -(-pieces // 8) + 8, k) + 2
+        c = plan.num_chunks
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        r_lo = max(min(c, -(-8 * sms // -(-f // 32))), 1)
+        r_hi = max(min(c, -(-32 * sms // -(-f // 64))), 1)
+        tiles = max(-(-plan.num_rows // TR), 1)
+        ct = torch.bincount(plan.chunk_tile.long(), minlength=tiles)
+        in_range = ct.clamp(max=-(-c // r_lo))
+        blocks = torch.minimum(ct, -(-ct // max(c // r_hi, 1)) + 1)
+        d = (-(-plan.ec // 16) + 16 * in_range + blocks).repeat_interleave(
+            TR)[:plan.num_rows]
+        if plan.num_hot:
+            ptr = k2_mod.hot_list(plan).ptr.long()
+            d = d + (ptr[1:] - ptr[:-1])[:plan.num_rows] + 1
+        return d + 2
+
+    def depths(plans, rows):
+        return torch.cat([depth(p) for p in plans])[:rows]
+
+    def plain_sharded(v, plans, rows, precision):
+        """The sharded sum through the plain versions over the rows the
+        kernels read under ``precision``, and its Σ|terms|, in f64."""
+        if precision == 'int8':
+            xm, scale = ops.quantize_columns(v)
+        else:
+            xm, scale = (v.to(torch.bfloat16) if precision == 'bf16'
+                         else v), None
+        ref = torch.cat([plain_split(xm, p, scale) for p in plans])[:rows]
+        mag = torch.cat([plain_split(xm.abs(), p, scale)
+                         for p in plans])[:rows]
+        return ref, mag, scale
+
+    def check(label, kid, got, ref, mag, extra=0.0, why='', deep=None):
+        """Within SUM_RTOL * mag + SUM_ATOL, plus ``extra`` (``why``), and,
+        where ``deep`` gives each row's addition depth d (:func:`depth`),
+        plus d * 2**-24 * mag. The error counts as kernel ``kid``'s
+        against its plain version unless ``kid`` is None."""
+        err = (got.double() - ref.double()).abs()
+        e = float(err.max())
+        if kid is not None:
+            errs[kid] = max(errs.get(kid, 0.0), e)
+        same = ref.dtype == got.dtype and torch.equal(
+            got.view(torch.int32), ref.view(torch.int32))
+        tol = SUM_RTOL * mag + SUM_ATOL + extra
+        if deep is not None:
+            tol = tol + 2.0**-24 * deep[:, None] * mag
+            why += (f' + d * 2^-24 * sum|terms| for addition depth d, up '
+                    f'to {int(deep.max())}')
+        print(f'  {label}: max_abs_err {e:.3g} (tolerance {SUM_RTOL:g} * '
+              f'sum|terms| + {SUM_ATOL:g}{why}); largest error / '
+              f'max(sum|terms|, 1) {float((err / mag.clamp(min=1)).max()):.3g}'
+              f'{"; equal bit for bit" if same else ""}',
+              flush=True)
+        if (got.shape != ref.shape or not torch.isfinite(got).all()
+                or bool((err > tol).any())):
+            at = divmod(int((err - tol).argmax()), got.shape[1])
+            print(f'  {label}: worst at {at}: got {float(got[at]):.9g}, '
+                  f'plain {float(ref[at]):.9g}, sum|terms| '
+                  f'{float(mag[at]):.9g}, tolerance {float(tol[at]):.9g}',
+                  flush=True)
+            raise AssertionError(f'{label} disagrees: max_abs_err {e}')
+
+    def check_exact(label, kid, call, plan, plain):
+        """``call`` on ``plan`` over integers in [-1, 2] against ``plain``,
+        bit for bit: every partial sum of a row of up to 5.6M such terms
+        is an integer below 2**24, which f32 holds exactly, so a term
+        dropped or added twice shows."""
+        xi = torch.randint(-1, 3, (n, f), generator=gen, device=dev,
+                           dtype=torch.int8).to(torch.bfloat16)
+        got, ref = call(xi, plan), plain(xi, plan)
+        bad = int((got.double() != ref).sum())
+        print(f'  {kid} {label} over integers: '
+              f'{"equal bit for bit to" if not bad else f"{bad} DIFFER from"}'
+              f' the exact sums', flush=True)
+        if bad:
+            raise AssertionError(f'{kid} {label}: {bad} sums of integers '
+                                 f'are not exact')
+
+    def train(graph, reduce, precision):
+        """``STEPS`` steps; ms per step after the first, the last step's
+        output and gradient."""
+        xs = x.detach().requires_grad_()
+        for step in range(STEPS):
+            if step == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = ops.spmm_sharded(xs, graph, reduce, precision)
+            (grad, ) = torch.autograd.grad((out**2).sum(), xs)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / (STEPS - 1),
+                out.detach(), grad)
+
+    def variant(label, graph, reduce, precision, need, edges):
+        """One variant as a main path: its steps, the unprofiled step,
+        peak memory, traffic_gbps and one profiled step."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms, out, grad = run_path(f'sharded {label}', sorted(need),
+                                 lambda: train(graph, reduce, precision))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        gbps = 2 * (edges * f * 4 + edges * 4 + n * f * 4) / ms / 1e6
+        print(f'  {STEPS} {label} steps ({reduce}, precision={precision}): '
+              f'{ms:.3f} ms per step after the first, peak memory '
+              f'{peak:.2f} GiB, traffic_gbps {gbps:.1f}', flush=True)
+        xs = x.detach().requires_grad_()
+
+        def step():
+            o = ops.spmm_sharded(xs, graph, reduce, precision)
+            torch.autograd.grad((o**2).sum(), xs)
+
+        profile(f'sharded {label}', step, ms, top_n=10)
+        return out, grad
+
+    def check_mean(label, graph, precision, single, deg_in):
+        """A mean variant's output and gradient against the plain versions
+        and against ``spmm`` over the unsharded graph ``single``."""
+        fk = sorted({kid_of(p) for p in graph.fwd})[0]
+        bk = 'K1p' if 'K1p' in kids(graph.bwd) else kid_of(graph.bwd[0])
+        xs = x.detach().requires_grad_()
+        out = ops.spmm_sharded(xs, graph, 'mean', precision)
+        cap = capture_cotangent(out)
+        (grad, ) = torch.autograd.grad((out**2).sum(), xs)
+        out = out.detach()
+        d = graph.deg.clamp(min=1.0)[:, None]
+        ref, mag, _ = plain_sharded(x, graph.fwd, graph.num_rows, precision)
+        fdeep = depths(graph.fwd, graph.num_rows)
+        check(f'{fk} {label} forward against the plain versions', fk, out,
+              ref / d, mag / d, deep=fdeep)
+        ref, gmag, gscale = plain_sharded(cap[0], graph.bwd, graph.num_cols,
+                                          precision)
+        bdeep = depths(graph.bwd, graph.num_cols)
+        check(f'{bk} {label} gradient against the plain versions', bk, grad,
+              ref, gmag, deep=bdeep)
+        del ref
+        xu = x.detach().requires_grad_()
+        out_u = ops.spmm(xu, single, 'mean', precision)
+        (grad_u, ) = torch.autograd.grad((out_u**2).sum(), xu)
+        # Each side within its own depth of the exact sum.
+        check(f'{label} forward against the unsharded spmm', None, out,
+              out_u.detach(), mag / d, deep=fdeep + depth(single.fwd))
+        # The two cotangents may differ by rounding, and so their bf16
+        # rows or int8 quanta: one step a term.
+        extra, why = 0.0, ''
+        if precision == 'bf16':
+            extra, why = 2.0**-8 * gmag, ' + 2^-8 * sum|terms|'
+        elif precision == 'int8':
+            extra = deg_in[:, None] * 2.0 * gscale[None, :]
+            why = ' + two quanta a term'
+        check(f'{label} gradient against the unsharded spmm', None, grad,
+              grad_u, gmag, extra, why, deep=bdeep + depth(single.bwd))
+
+    def winners(plans, deg, is_min):
+        """The plain versions' max/min values (0 on an empty row) and
+        winning source rows (``n`` on an empty row) over ``plans``."""
+        vals, tgts = [], []
+        for p in plans:
+            if isinstance(p, ops.DedupMinmaxPlan):
+                v, q = by_columns(ops.dedup_minmax_plain, x, p, is_min,
+                                  block=HUGE_BLOCK)
+                idx = p.uniq_cols
+            else:
+                v, q = by_columns(ops.segment_max_plain, x, p, p.col_padded,
+                                  is_min, block=HUGE_BLOCK)
+                idx = p.col_padded
+            hit = q < POS_NONE
+            tgts.append(torch.where(hit, idx[torch.where(hit, q, 0).long()],
+                                    n).long())
+            vals.append(v)
+            del q, hit
+        rows = deg.shape[0]
+        empty = (deg < 0.5)[:, None]
+        vals = torch.cat(vals)[:rows]
+        vals = torch.where(empty, 0.0, -vals if is_min else vals)
+        return vals, torch.where(empty, n, torch.cat(tgts)[:rows])
+
+    def check_winner_grad(label, out, grad, tgt):
+        """The winner-only gradient against the cotangents of ``(out**2)
+        .sum()`` added in f64 into the winners ``tgt``, within the sum
+        tolerance: the backward adds them in f64 too, and a hub column's
+        come from millions of rows."""
+        cot = (2.0 * out).double()
+        gref, gmag = (torch.zeros((n + 1, f), dtype=torch.float64,
+                                  device=dev).scatter_add_(0, tgt, c)[:n]
+                      for c in (cot, cot.abs()))
+        del cot
+        check(label, None, grad, gref, gmag)
+
+    def check_minmax(label, graph, reduce, single, out, grad):
+        """Max/min values bit for bit against the plain versions and the
+        unsharded ``spmm``, and each path's winner-only gradient against
+        its own winners. A dedup min/max plan's tie goes to the least
+        column, the chunked plan's to the first edge (the JAX package's
+        contract): the two paths' winners may differ only where their
+        values tie."""
+        is_min = reduce == 'min'
+        plans = graph.mm if graph.mm is not None else graph.fwd
+        kid = kid_of(plans[0]) if isinstance(plans[0],
+                                             ops.DedupMinmaxPlan) else 'K4'
+        vals, tgt = winners(plans, graph.deg, is_min)
+        same = torch.equal(bits(out), bits(vals))
+        print(f'  {kid} {label}: values '
+              f'{"equal bit for bit" if same else "DIFFER"} from the plain '
+              f'versions', flush=True)
+        if not same:
+            raise AssertionError(f'{label} values disagree')
+        errs[kid] = errs.get(kid, 0.0)
+        del vals
+        check_winner_grad(f'{label} gradient against the plain versions',
+                          out, grad, tgt)
+        xu = x.detach().requires_grad_()
+        out_u = ops.spmm(xu, single, reduce)
+        (grad_u, ) = torch.autograd.grad((out_u**2).sum(), xu)
+        out_u = out_u.detach()
+        same = torch.equal(bits(out), bits(out_u))
+        print(f'  {label}: values {"equal bit for bit" if same else "DIFFER"}'
+              f' from the unsharded spmm', flush=True)
+        if not same:
+            raise AssertionError(f'{label} disagrees with the unsharded spmm')
+        _, tgt_u = winners([single.mm if single.mm is not None else
+                            single.fwd], single.deg, is_min)
+        moved = tgt_u != tgt
+        pad = torch.cat([x, x.new_zeros((1, f))])
+        tied = torch.equal(pad.gather(0, tgt)[moved],
+                           pad.gather(0, tgt_u)[moved])
+        print(f'  {label}: {int(moved.sum())} winners differ from the '
+              f'unsharded path\'s, {"all" if tied else "NOT all"} at tied '
+              f'values', flush=True)
+        if not tied:
+            raise AssertionError(f'{label}: winners differ from the '
+                                 f'unsharded path\'s off a tie')
+        del pad, moved, tgt
+        check_winner_grad(f'{label} unsharded gradient against its plain '
+                          f'versions', out_u, grad_u, tgt_u)
+
+    def timed(build, *args, **kw):
+        t0 = time.perf_counter()
+        return build(*args, **kw), time.perf_counter() - t0
+
+    def describe_sides(name, graph):
+        for side in ('fwd', 'bwd', 'mm'):
+            plans = getattr(graph, side)
+            if plans is None:
+                continue
+            p = plans[0]
+            extra = ''
+            if isinstance(p, ops.DedupSpmmPlan):
+                extra = (f' ec={p.ec} uc={p.uc} hot={p.num_hot} hot_w='
+                         f'{None if p.hot_w is None else p.hot_w.dtype}')
+            elif isinstance(p, ops.DedupMinmaxPlan):
+                extra = f' ec={p.ec} uc={p.uc} scan_len={p.scan_len}'
+            elif isinstance(p, ops.RangeSpmmPlan):
+                extra = (f' ranges={len(p.plans)} chunk={p.plans[0].chunk} '
+                         f'chunks={p.plans[0].num_chunks}')
+            else:
+                longest = int((p.tile_ptr[:, 0, 1:129] -
+                               p.tile_ptr[:, 0, :128]).max())
+                extra = f' chunk={p.chunk} longest row {longest}'
+            chunks = getattr(p, 'num_chunks', None)
+            print(f'  {name} {side}: {len(plans)} x {type(p).__name__}'
+                  f'{"" if chunks is None else f" chunks={chunks}"}{extra}; '
+                  f'kernels {sorted(kids(plans))}', flush=True)
+
+    report = {}
+
+    # -- uniform columns: S1, S3, S2 --------------------------------------
+    t0 = time.perf_counter()
+    rp, cl = huge_graph('uniform')
+    edges = int(rp[-1])
+    t_gen = time.perf_counter() - t0
+    g1, report['S1 build s'] = timed(ops.build_spmm_graph_sharded, rp, cl,
+                                     HUGE_SPLITS, chunk=512)
+    u1, report['uniform unsharded build s'] = timed(ops.build_spmm_graph,
+                                                    rp, cl, chunk=512)
+    deg_in = torch.from_numpy(np.bincount(cl, minlength=n).astype(
+        np.float32)).to(dev)
+    print(f'huge graph (bench_sharded_huge.py, seed 0): {n} nodes, {edges} '
+          f'edges, F={f}, {HUGE_SPLITS} splits ({t_gen:.1f} s); builds (s): '
+          f'S1 {report["S1 build s"]:.1f}, unsharded '
+          f'{report["uniform unsharded build s"]:.1f}', flush=True)
+    describe_sides('S1', g1)
+    if not all(isinstance(p, ops.SpmmPlan) for p in g1.fwd + g1.bwd):
+        raise AssertionError('S1 did not get plain split plans')
+    for precision in ('bf16', None, 'int8'):
+        label = f'S1 {precision or "f32"}'
+        variant(label, g1, 'mean', precision, ('K1', ), edges)
+        check_mean(label, g1, precision, u1, deg_in)
+    for reduce in ('max', 'min'):
+        out, grad = variant(f'S3 {reduce}', g1, reduce, None, ('K4', ),
+                            edges)
+        check_minmax(f'S3 {reduce}', g1, reduce, u1, out, grad)
+        del out, grad
+    del g1
+    g2, report['S2 build s'] = timed(ops.build_spmm_graph_sharded, rp, cl,
+                                     HUGE_SPLITS, chunk='auto',
+                                     range_split=HUGE_RANGES)
+    print(f'  S2 build {report["S2 build s"]:.1f} s', flush=True)
+    describe_sides('S2', g2)
+    variant('S2 bf16', g2, 'mean', 'bf16', ('K1', ), edges)
+    check_mean('S2 bf16', g2, 'bf16', u1, deg_in)
+    del g2, u1, rp, cl, deg_in
+    torch.cuda.empty_cache()
+
+    # -- Zipf(1.2) columns: S4, S5 ----------------------------------------
+    t0 = time.perf_counter()
+    rp, cl = huge_graph('powerlaw')
+    t_gen = time.perf_counter() - t0
+    g4, report['S4 build s'] = timed(ops.build_spmm_graph_sharded, rp, cl,
+                                     HUGE_SPLITS, chunk=512)
+    u4, report['powerlaw unsharded build s'] = timed(ops.build_spmm_graph,
+                                                     rp, cl, chunk=512)
+    deg_in = torch.from_numpy(np.bincount(cl, minlength=n).astype(
+        np.float32)).to(dev)
+    print(f'huge power-law graph ({t_gen:.1f} s): longest column '
+          f'{int(deg_in.max())} edges; builds (s): S4 '
+          f'{report["S4 build s"]:.1f}, unsharded '
+          f'{report["powerlaw unsharded build s"]:.1f}', flush=True)
+    describe_sides('S4', g4)
+    if 'K1p' not in kids(g4.bwd):
+        raise AssertionError('S4 backward has no row that K1 cuts')
+    variant('S4 bf16', g4, 'mean', 'bf16', kids(g4.fwd) | kids(g4.bwd),
+            edges)
+    check_mean('S4 bf16', g4, 'bf16', u4, deg_in)
+
+    # K1 alone over S4's first backward split (the hub rows), on random
+    # terms and on integers; then timed cut and uncut beside
+    # torch.sparse.mm on that split's CSR.
+    plan = g4.bwd[0]
+    t_ptr, t_col = tspmm._transpose_csr(rp, cl, n)
+    npd = plan.num_rows
+    e0 = int(t_ptr[npd])
+    cut = k1_mod.k1_pieces(plan)
+    gb = torch.randn((n, f), generator=gen, device=dev)
+    g16 = gb.to(torch.bfloat16)
+    longest = int((plan.tile_ptr[:, 0, 1:129] - plan.tile_ptr[:, 0, :128])
+                  .max())
+    check(f'K1p S4 backward split 0 (rows up to {longest} slots, '
+          f'{cut.pieces.shape[0]} pieces) bf16', 'K1p',
+          ops.spmm_chunked(g16, plan), k1_plain(g16, plan),
+          k1_plain(g16.abs(), plan))
+    check_exact('S4 backward split 0', 'K1p', ops.spmm_chunked, plan,
+                k1_plain)
+    k1_ms = {'bf16': cuda_ms(lambda: ops.spmm_chunked(g16, plan), iters=5),
+             'f32': cuda_ms(lambda: ops.spmm_chunked(gb, plan), iters=5)}
+    plain_ms = cuda_ms(lambda: by_columns(ops.spmm_chunked_plain, g16, plan,
+                                          block=HUGE_BLOCK), iters=1,
+                       warmup=1)
+    k1_mod.K1_LONG, long_len = 1 << 30, k1_mod.K1_LONG
+    try:
+        whole_ms = cuda_ms(lambda: ops.spmm_chunked(g16, plan), iters=1,
+                           warmup=1)
+    finally:
+        k1_mod.K1_LONG = long_len
+    a = torch.sparse_csr_tensor(
+        torch.from_numpy(t_ptr[:npd + 1]), torch.from_numpy(t_col[:e0]),
+        torch.ones(e0), (npd, n)).to(dev)
+    lib = {'f32': (a, gb)}
+    try:
+        lib['bf16'] = (a.to(torch.bfloat16), g16)
+        torch.sparse.mm(*lib['bf16'])
+    except RuntimeError as err:  # no bf16 CSR product in this build
+        print(f'  torch.sparse.mm bf16: {str(err)[:120]}', flush=True)
+        del lib['bf16']
+    lib_ms = {k: cuda_ms(lambda: torch.sparse.mm(*v), iters=5)
+              for k, v in lib.items()}
+    del a
+    nbytes = (n * f * 2 + plan.col_padded.numel() * 4 +
+              plan.tile_ptr.shape[0] * 129 * 4 + cut.pieces.numel() * 4 +
+              cut.rows.numel() * 4 + npd * f * 4)
+    floor = e0 * f * 2 / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, e0 * f / F32_FLOPS) * 1e3
+    print(f'  K1 S4 backward split 0 ({e0} edges) F={f}: bf16 '
+          f'{k1_ms["bf16"]:.3f} ms ({whole_ms:.3f} ms with no row cut), f32 '
+          f'{k1_ms["f32"]:.3f} ms; bound {bound_ms:.3f} ms, gather floor '
+          f'{floor:.3f} ms (bf16); plain {plain_ms:.3f} ms; torch.sparse.mm '
+          + ', '.join(f'{k} {v:.3f} ms' for k, v in lib_ms.items()),
+          flush=True)
+    row = {'name': 'K1p', 'route': 'cuda',
+           'source': f'pyg_lib_tpu_torch/csrc/{SOURCES["K1p"][0]}',
+           'replaces': SOURCES['K1p'][1], 'max_abs_err': errs['K1p'],
+           'ms': k1_ms['bf16'], 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+           'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >=
+                        e0 * f / F32_FLOPS else 'operations'),
+           'library_ms': lib_ms.get('bf16', lib_ms['f32'])}
+    del g4, t_ptr, t_col, cut, gb, g16, lib
+    torch.cuda.empty_cache()
+
+    g5, report['S5 build s'] = timed(ops.build_spmm_graph_sharded, rp, cl,
+                                     HUGE_SPLITS, dedup='auto',
+                                     minmax='auto')
+    print(f'  S5 build {report["S5 build s"]:.1f} s', flush=True)
+    describe_sides('S5', g5)
+    if not isinstance(g5.fwd[0], ops.DedupSpmmPlan) or g5.mm is None:
+        raise AssertionError('S5 did not get dedup and min/max split plans')
+    variant('S5 bf16', g5, 'mean', 'bf16', kids(g5.fwd) | kids(g5.bwd),
+            edges)
+    check_mean('S5 bf16', g5, 'bf16', u4, deg_in)
+    out, grad = variant('S5 max', g5, 'max', None, kids(g5.mm) if
+                        isinstance(g5.mm[0], ops.DedupMinmaxPlan) else
+                        ('K4', ), edges)
+    check_minmax('S5 max', g5, 'max', u4, out, grad)
+    del out, grad
+    # The same hub rows as S5's backward plan has them, through its kernel
+    # alone, as K1's above.
+    plan = g5.bwd[0]
+    kid = kid_of(plan)
+    call, plain = ((ops.dedup_sum, dedup64)
+                   if isinstance(plan, ops.DedupSpmmPlan) else
+                   (ops.spmm_chunked, k1_plain))
+    g16 = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
+    check(f'{kid} S5 backward split 0 bf16', kid, call(g16, plan),
+          plain(g16, plan), plain(g16.abs(), plan))
+    check_exact('S5 backward split 0', kid, call, plan, plain)
+    print(f'sharded build seconds: {report}', flush=True)
+    return errs, row
+
+
+def sharded_main():
+    """``python3 chip_smoke.py --sharded``: the huge-graph paths
+    (:func:`sharded_paths`) in a process of their own, as :func:`main`
+    runs them; its last line is :data:`SHARDED_RESULT` and, as JSON, the
+    paths' launch counts (all, and K1's by width), the kernels' largest
+    errors against their plain versions and K1's piece row of the
+    kernels line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device is available')
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pyg_lib_tpu_torch import _build
+
+    _build.build()  # built by the calling process: loaded
+    paths = Paths()
+    t0 = time.perf_counter()
+    errs, row = sharded_paths(torch.device('cuda', 0), paths.run)
+    paths.restore()
+    print(f'sharded paths: {time.perf_counter() - t0:.1f} s', flush=True)
+    print(SHARDED_RESULT + json.dumps({
+        'launches': paths.launches, 'errs': errs, 'row': row,
+        'by_width': [[kid, f, n] for (kid, f), n in
+                     sorted(paths.by_width.items())]}), flush=True)
+
+
 def work(plan, f):
     """Bytes (each input read once, the output written once) and f32
     operations that one K1/K2 call on ``plan`` at width ``f`` needs. K2
@@ -2364,6 +2978,9 @@ if __name__ == '__main__':
         os.environ.setdefault('PYTORCH_CUDA_ALLOC_CONF',
                               'expandable_segments:True')
         rgcn_main()
+        sys.exit(0)
+    if sys.argv[1:] == ['--sharded']:
+        sharded_main()
         sys.exit(0)
     import torch
 

@@ -24,6 +24,9 @@
 //   rows narrower than a slice).
 // In the vector branch a warp loads CHUNK slots before it adds them; the
 // scalar branch takes a slot at a time, its loop unrolled.
+//
+// Both kernels leave a slot run longer than a cut length out of their row
+// walk and sum it in pieces (row_pieces.cuh).
 #pragma once
 
 #include <type_traits>

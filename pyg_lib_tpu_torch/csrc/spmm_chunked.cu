@@ -41,8 +41,18 @@
 //   (tools/time_segment.py, PERF.md);
 // * each output row is written once, with no atomics and no zero fill:
 //   every row of a real tile owns its (possibly empty) slot range, and
-//   rows past num_rows are skipped. Sums run in f32 in slot order, so
-//   the result is deterministic and the same whichever branch runs.
+//   rows past num_rows are skipped (a cut row, below, once more). Sums
+//   run in f32 in slot order, so the result is deterministic and the same
+//   whichever branch runs;
+// * a row of more than long_len slots (a hub row: the transpose of a Zipf
+//   graph has rows of millions of edges) is left out of the walk, which
+//   writes 0 there, and cut into pieces of at most long_len slots
+//   (k1_pieces in the wrapper), a warp each (walk_pieces_kernel), whose
+//   sums a third launch adds in slot order onto the row (merge_pieces;
+//   both in row_pieces.cuh, as K7 cuts its long runs). The walk only tests
+//   each row's length on bounds it reads anyway: a row that is not cut
+//   gets the same bits as before the cut existed.
+#include "row_pieces.cuh"
 #include "row_walk.cuh"
 
 namespace pygt {
@@ -57,7 +67,8 @@ __global__ void __launch_bounds__(K1_WARPS * 32,
                        const int* __restrict__ col_padded,
                        const int* __restrict__ tile_ptr,
                        const float* __restrict__ scale,
-                       float* __restrict__ out, int num_rows, int F) {
+                       float* __restrict__ out, int num_rows, int F,
+                       int long_len) {
   const int t = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -68,7 +79,8 @@ __global__ void __launch_bounds__(K1_WARPS * 32,
     const int64_t row = static_cast<int64_t>(t) * TR + r;
     if (row >= num_rows) break;
     float acc[NV][W] = {};
-    walk.run(x, col_padded, nullptr, ptr[r], ptr[r + 1], acc);
+    if (ptr[r + 1] - ptr[r] <= long_len)  // a longer row is cut into pieces
+      walk.run(x, col_padded, nullptr, ptr[r], ptr[r + 1], acc);
     walk.write(out, scale, row, acc);
   }
 }
@@ -76,26 +88,29 @@ __global__ void __launch_bounds__(K1_WARPS * 32,
 template <typename T, bool GATHER>
 void launch(const void* x, const int* col_padded, const int* tile_ptr,
             const float* scale, float* out, int num_tiles, int num_rows,
-            int F, cudaStream_t stream) {
+            int F, const Pieces& pc, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   walk_dispatch<T>(x, out, scale, F, [&](auto w, auto nv) {
     constexpr int W = decltype(w)::value, NV = decltype(nv)::value;
     chunked_sum_kernel<T, W, NV, GATHER>
         <<<walk_grid(num_tiles, F, W, NV), K1_WARPS * 32, 0, stream>>>(
-            xt, col_padded, tile_ptr, scale, out, num_rows, F);
+            xt, col_padded, tile_ptr, scale, out, num_rows, F, pc.long_len);
+    launch_pieces<T, W, NV, GATHER, false>(xt, col_padded, nullptr, pc, F,
+                                           stream);
   });
+  launch_merge(pc, scale, out, F, stream);
 }
 
 template <typename T>
 void launch_any(const void* x, const int* col_padded, const int* tile_ptr,
                 const float* scale, float* out, int num_tiles, int num_rows,
-                int F, cudaStream_t stream) {
+                int F, const Pieces& pc, cudaStream_t stream) {
   if (col_padded != nullptr)
     launch<T, true>(x, col_padded, tile_ptr, scale, out, num_tiles,
-                    num_rows, F, stream);
+                    num_rows, F, pc, stream);
   else
     launch<T, false>(x, col_padded, tile_ptr, scale, out, num_tiles,
-                     num_rows, F, stream);
+                     num_rows, F, pc, stream);
 }
 
 }  // namespace
@@ -103,27 +118,42 @@ void launch_any(const void* x, const int* col_padded, const int* tile_ptr,
 
 // x [N, F] (f32, bf16 or int8 by x_dtype), col_padded [E_pad] int32 or
 // null (then x is the padded messages [>= E_pad, F]), tile_ptr
-// [num_tiles, 8, 256] int32, scale [F] f32 or null, out [num_rows, F] f32.
-// Returns cudaGetLastError() after the launch.
+// [num_tiles, 8, 256] int32, scale [F] f32 or null, out [num_rows, F] f32
+// (written in full). Rows of more than long_len slots come as a derived
+// table (k1_pieces in the wrapper): pieces [num_pieces, 3] int32 (row,
+// first slot, end slot; at most long_len slots each, a row's in slot
+// order) and long_rows [num_long, 3] int32 (row, first piece, piece
+// count); part [num_pieces, F] f32 is scratch.
+// Returns cudaGetLastError() after the launches.
 extern "C" int pygt_spmm_chunked(const void* x, int x_dtype,
                                  const void* col_padded, const void* tile_ptr,
                                  const void* scale, void* out, int num_tiles,
-                                 int num_rows, int F, void* stream) {
+                                 int num_rows, int F, int long_len,
+                                 const void* pieces, int num_pieces,
+                                 const void* long_rows, int num_long,
+                                 void* part, void* stream) {
   using namespace pygt;
   const int* cp = static_cast<const int*>(col_padded);
   const int* tp = static_cast<const int*>(tile_ptr);
   const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
+  const Pieces pc{long_len,
+                  static_cast<const int*>(pieces),
+                  num_pieces,
+                  static_cast<const int*>(long_rows),
+                  num_long,
+                  static_cast<float*>(part)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case F32:
-      launch_any<float>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
+      launch_any<float>(x, cp, tp, sc, o, num_tiles, num_rows, F, pc, s);
       break;
     case BF16:
-      launch_any<__nv_bfloat16>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
+      launch_any<__nv_bfloat16>(x, cp, tp, sc, o, num_tiles, num_rows, F, pc,
+                                s);
       break;
     case I8:
-      launch_any<int8_t>(x, cp, tp, sc, o, num_tiles, num_rows, F, s);
+      launch_any<int8_t>(x, cp, tp, sc, o, num_tiles, num_rows, F, pc, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

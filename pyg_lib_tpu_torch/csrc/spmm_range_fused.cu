@@ -43,11 +43,13 @@
 //   left out of the row's walk and cut into pieces of at most long_len
 //   slots (k7_pieces in the wrapper), a warp each, by a second kernel
 //   whose sums go to a partial table; a third adds each such row's
-//   pieces in order, scaled, to what the walk wrote. A warp walking such
+//   pieces in order, scaled, to what the walk wrote (both kernels in
+//   row_pieces.cuh, which K1 shares). A warp walking such
 //   a row alone took 382 ms at F=349 where torch.sparse.mm took 13.5
 //   (PERF.md). The walk itself only tests each run's length, on bounds it
 //   reads anyway, and the pieces are the same in both branches, so the
 //   two still give the same bits.
+#include "row_pieces.cuh"
 #include "row_walk.cuh"
 
 namespace pygt {
@@ -88,54 +90,6 @@ __global__ void __launch_bounds__(K7_WARPS * 32,
   }
 }
 
-// A block per (K7_WARPS pieces, slice of the row): a warp per piece, its
-// sum written unscaled to row q of the partial table part.
-template <typename T, int W, int NV, bool WEIGHTED>
-__global__ void __launch_bounds__(K7_WARPS * 32,
-                                  walk_blocks<T, W, NV, WEIGHTED>())
-    range_fused_piece_kernel(const T* __restrict__ x,
-                             const int* __restrict__ cols,
-                             const float* __restrict__ w,
-                             const int* __restrict__ pieces, int num_pieces,
-                             float* __restrict__ part, int F) {
-  const int q = blockIdx.x * K7_WARPS + (threadIdx.x >> 5);
-  if (q >= num_pieces) return;
-  const int lane = threadIdx.x & 31;
-  const RowWalk<T, W, NV, true, WEIGHTED> walk(
-      F, blockIdx.y * (32 * W * NV) + lane * W, lane);
-  float acc[NV][W] = {};
-  walk.run(x, cols, w, pieces[3 * q + 1], pieces[3 * q + 2], acc);
-  walk.write(part, nullptr, q, acc);
-}
-
-// One thread per (row with a cut run, feature): the row's piece sums added
-// in piece order, times the column scale if given, added to what the walk
-// wrote.
-__global__ void range_fused_pieces(const int* __restrict__ long_rows,
-                                   const float* __restrict__ part,
-                                   const float* __restrict__ scale,
-                                   float* __restrict__ out, int F) {
-  const int f = blockIdx.y * blockDim.x + threadIdx.x;
-  if (f >= F) return;
-  const int* lr = long_rows + 3 * blockIdx.x;  // (row, first piece, count)
-  float acc = 0.0f;
-  for (int q = lr[1]; q < lr[1] + lr[2]; ++q)
-    acc += part[static_cast<int64_t>(q) * F + f];
-  float* dst = out + static_cast<int64_t>(lr[0]) * F + f;
-  *dst += scale != nullptr ? acc * scale[f] : acc;
-}
-
-// The pieces of one call, as the wrapper passes them (k7_pieces).
-struct Pieces {
-  int long_len;
-  const int* pieces;  // [num_pieces, 3]: row, first slot, end slot
-  int num_pieces;
-  const int* long_rows;  // [num_long, 3]: row, first piece, piece count
-                         // (the rows with a cut run)
-  int num_long;
-  float* part;  // [num_pieces, F] scratch
-};
-
 template <typename T, bool WEIGHTED>
 void launch(const void* x, const int* cols, const float* w,
             const int* tile_ptrs, const int* slot_base, int S, int S8,
@@ -148,15 +102,9 @@ void launch(const void* x, const int* cols, const float* w,
         <<<walk_grid(num_tiles, F, W, NV), K7_WARPS * 32, 0, st>>>(
             xt, cols, w, tile_ptrs, slot_base, S, S8, scale, out, num_rows,
             F, pc.long_len);
-    if (pc.num_pieces > 0)
-      range_fused_piece_kernel<T, W, NV, WEIGHTED>
-          <<<walk_grid((pc.num_pieces + K7_WARPS - 1) / K7_WARPS, F, W, NV),
-             K7_WARPS * 32, 0, st>>>(xt, cols, w, pc.pieces, pc.num_pieces,
-                                     pc.part, F);
+    launch_pieces<T, W, NV, true, WEIGHTED>(xt, cols, w, pc, F, st);
   });
-  if (pc.num_long > 0)
-    range_fused_pieces<<<dim3(pc.num_long, (F + 127) / 128), 128, 0, st>>>(
-        pc.long_rows, pc.part, scale, out, F);
+  launch_merge(pc, scale, out, F, st);
 }
 
 template <typename T>

@@ -1,5 +1,6 @@
 """Device ops of the port: planned SpMM over chunked, dedup and
-range-split plans (and ``spmm_csr`` over a cached plan), the CSR segment
+range-split plans (and ``spmm_csr`` over a cached plan, ``spmm_sharded``
+over row-split plans), the CSR segment
 family, exact max/min, the attention primitives (``softmax_csr``, the
 padded-space softmax and sum, ``sddmm``), the scatter and sorted-COO
 families, the scatter composites, ``fused_scatter_reduce`` and the
@@ -48,19 +49,22 @@ from pyg_lib_tpu_torch.ops.segment_csr import (gather_csr, segment_add_csr,
                                                segment_min_csr,
                                                segment_sum_csr)
 from pyg_lib_tpu_torch.ops.softmax import softmax_csr
-from pyg_lib_tpu_torch.ops.spmm import (RangeSpmmPlan, SpmmGraph,
-                                        build_spmm_graph,
+from pyg_lib_tpu_torch.ops.spmm import (RangeSpmmPlan, ShardedSpmmGraph,
+                                        SpmmGraph, build_spmm_graph,
+                                        build_spmm_graph_sharded,
                                         build_weighted_fused_graph, sddmm,
                                         segment_max_padded,
                                         segment_min_padded,
                                         segment_softmax_padded,
-                                        segment_sum_padded, spmm, spmm_csr)
+                                        segment_sum_padded, spmm, spmm_csr,
+                                        spmm_sharded)
 
 __all__ = [
     'DedupMinmaxPlan', 'DedupSpmmPlan', 'FusedRangePlan', 'RangeSpmmPlan',
-    'SpmmGraph', 'SpmmPlan', 'auto_chunk', 'build_dedup_minmax_plan',
-    'build_dedup_plan', 'build_fused_range_plan', 'build_spmm_graph',
-    'build_spmm_plan', 'build_weighted_fused_graph', 'dedup_minmax',
+    'ShardedSpmmGraph', 'SpmmGraph', 'SpmmPlan', 'auto_chunk',
+    'build_dedup_minmax_plan', 'build_dedup_plan', 'build_fused_range_plan',
+    'build_spmm_graph', 'build_spmm_graph_sharded', 'build_spmm_plan',
+    'build_weighted_fused_graph', 'dedup_minmax',
     'dedup_minmax_apply', 'dedup_minmax_plain', 'dedup_pairs',
     'dedup_plan_apply', 'dedup_sum', 'dedup_sum_plain', 'estimate_dedup',
     'estimate_minmax_config', 'fused_range_apply', 'fused_range_plain',
@@ -79,5 +83,5 @@ __all__ = [
     'segment_sum_chunked_plain', 'segment_sum_coo', 'segment_sum_csr',
     'segment_sum_csr_kernel', 'segment_sum_csr_plain', 'segment_sum_padded',
     'softmax_csr', 'spmm', 'spmm_chunked', 'spmm_chunked_plain', 'spmm_csr',
-    'spmm_plan_apply',
+    'spmm_plan_apply', 'spmm_sharded',
 ]

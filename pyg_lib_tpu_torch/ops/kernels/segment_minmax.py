@@ -43,10 +43,9 @@ import torch
 
 from pyg_lib_tpu_torch import _build
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (PTR_SUB, TP, TR,
-                                                        SpmmPlan,
+                                                        SpmmPlan, _cached,
                                                         _check_cuda,
                                                         _padded_rows)
-from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import _cached
 
 __all__ = ['NEG', 'POS_NONE', 'K4Pieces', 'k4_merge', 'k4_pieces',
            'segment_max_kernel', 'segment_max_plain', 'segment_max_split']

@@ -42,9 +42,8 @@ from pyg_lib_tpu_torch import _build
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import _row_bounds
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (DTYPE_CODE, PTR_SUB,
                                                         TP, SpmmPlan,
-                                                        _check_cuda,
+                                                        _cached, _check_cuda,
                                                         _padded_rows)
-from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import _cached
 
 __all__ = ['k6_cut', 'k6_rows', 'k6_stretch', 'segment_softmax_planned',
            'segment_softmax_plain', 'segment_softmax_split']

@@ -7,6 +7,12 @@ package. On the card, K1 computes ``out[r] = Σ x[col_padded[p]]`` over
 row ``r``'s padded slots with the gather fused into the reduction, so the
 padded message slab the TPU path materialises never exists here.
 
+K1 walks each row with one warp. A row of more than ``K1_LONG`` slots (a
+hub row: the transpose of a power-law graph has rows of millions) is left
+out of that walk and cut into pieces of at most ``K1_LONG`` slots
+(:func:`k1_pieces`), a warp each, whose sums a last launch adds up in
+order; K7 cuts its long runs the same way.
+
 K1 has two wrappers, each K1 for a CUDA tensor and a plain PyTorch
 version for a CPU tensor: :func:`spmm_chunked` gathers through
 ``col_padded`` (plain: :func:`spmm_chunked_plain`), and
@@ -15,6 +21,7 @@ coordinates, ``msgs_padded[p]`` (plain: :func:`segment_sum_chunked_plain`).
 """
 
 import ctypes
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -24,9 +31,10 @@ from pyg_lib_tpu_torch import _build
 from pyg_lib_tpu_torch.utils import _resolve_device
 
 __all__ = [
-    'SpmmPlan', 'build_spmm_plan', 'spmm_plan_apply', 'spmm_chunked',
-    'spmm_chunked_plain', 'segment_sum_chunked', 'segment_sum_chunked_plain',
-    'auto_chunk', 'quantize_columns',
+    'RowPieces', 'SpmmPlan', 'build_spmm_plan', 'k1_pieces',
+    'spmm_plan_apply', 'spmm_chunked', 'spmm_chunked_plain',
+    'segment_sum_chunked', 'segment_sum_chunked_plain', 'auto_chunk',
+    'quantize_columns',
 ]
 
 TR = 128  # output rows per tile
@@ -35,6 +43,9 @@ PTR_SUB = 8  # sublane copies of each tile-pointer row (kept for parity)
 
 # Element type codes of the C entry points (csrc/common.cuh).
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# The row length above which K1 cuts a row into pieces of at most K1_LONG
+# slots, a warp each (K7's K7_LONG); the kernel takes it as an argument.
+K1_LONG = 512
 
 
 class SpmmPlan(NamedTuple):
@@ -220,6 +231,38 @@ def build_spmm_plan(rowptr, col, chunk=512, with_edge_maps: bool = False,
     )
 
 
+# (what, id of each source tensor) -> (weak references to the sources,
+# their _version counters, the derived tables); an entry goes when one of
+# its sources is freed.
+_derived = {}
+
+
+def _cached(what, sources, make):
+    """``make(*sources)``, cached per source tensor object (a weak
+    reference, not its address, which a freed buffer hands on) and its
+    in-place version: a plan given another tensor by ``_replace``, or one
+    changed in place, gets fresh tables. An inference tensor has no
+    version counter and is keyed on its object alone: a change made to it
+    in place under ``torch.inference_mode`` is not seen."""
+    key = (what, ) + tuple(id(t) for t in sources)
+    version = tuple(None if t.is_inference() else t._version
+                    for t in sources)
+    hit = _derived.get(key)
+    if (hit is not None and all(r() is t for r, t in zip(hit[0], sources))
+            and hit[1] == version):
+        return hit[2]
+
+    def drop(ref, key=key):
+        entry = _derived.get(key)
+        if entry is not None and any(r is ref for r in entry[0]):
+            del _derived[key]
+
+    value = make(*sources)
+    _derived[key] = (tuple(weakref.ref(t, drop) for t in sources), version,
+                     value)
+    return value
+
+
 def _padded_rows(tile_ptr: torch.Tensor):
     """``(slot, row)`` of every real padded slot, read off ``tile_ptr``."""
     bounds = tile_ptr[:, 0, :TR + 1].long()  # [T, TR+1]
@@ -230,6 +273,57 @@ def _padded_rows(tile_ptr: torch.Tensor):
     starts = torch.cumsum(counts, 0) - counts
     k = torch.arange(rows.shape[0], device=counts.device)
     return lo[rows] + k - starts[rows], rows
+
+
+class RowPieces(NamedTuple):
+    """Slot runs longer than a cut length, cut into pieces (K1, K7)."""
+    pieces: torch.Tensor  # [P, 3] int32: row, first slot, end slot
+    rows: torch.Tensor  # [L, 3] int32: row, first piece, piece count
+
+
+def _derive_pieces(tile_ptrs, slot_base, num_rows, long_len) -> RowPieces:
+    """The runs of more than ``long_len`` slots of the S ranges whose
+    tile-pointer rows are ``tile_ptrs[:, :S]`` and whose first slots are
+    ``slot_base`` (``[S]``), cut into pieces of at most ``long_len``: a
+    row's pieces in range and slot order."""
+    s_eff = slot_base.shape[0]
+    bounds = tile_ptrs[:, :s_eff, :TR + 1].long()  # [T, S, TR + 1]
+    # Per row and range: the run's first slot in the concatenation, its
+    # length.
+    lo = (bounds[:, :, :-1] + slot_base.long()[None, :, None]).transpose(
+        1, 2).reshape(-1, s_eff)[:num_rows]
+    n = (bounds[:, :, 1:] - bounds[:, :, :-1]).transpose(1, 2).reshape(
+        -1, s_eff)[:num_rows]
+    long_run = n > long_len
+    rows = torch.nonzero(long_run.any(1)).reshape(-1)
+    # The rows' runs, row-major and in range order; a short run gets none.
+    n = torch.where(long_run[rows], n[rows], 0).reshape(-1)
+    lo = lo[rows].reshape(-1)
+    count = -(-n // long_len)
+    first = torch.cumsum(count, 0) - count
+    of = torch.repeat_interleave(torch.arange(n.shape[0], device=n.device),
+                                 count)
+    start = lo[of] + (torch.arange(of.shape[0], device=n.device) -
+                      first[of]) * long_len
+    end = torch.minimum(start + long_len, (lo + n)[of])
+    per_row = count.reshape(-1, s_eff).sum(1)
+    return RowPieces(
+        pieces=torch.stack([rows[of // s_eff], start, end],
+                           1).int().contiguous(),
+        rows=torch.stack([rows, torch.cumsum(per_row, 0) - per_row, per_row],
+                         1).int().contiguous())
+
+
+def k1_pieces(plan: SpmmPlan) -> RowPieces:
+    """The piece table K1 reads for ``plan``'s rows of more than
+    ``K1_LONG`` slots: each cut into pieces of at most ``K1_LONG`` in slot
+    order. Derived with tensor ops on the plan's device on first use and
+    cached per ``tile_ptr`` (:func:`_cached`)."""
+    return _cached(('k1_pieces', plan.num_rows, K1_LONG), (plan.tile_ptr, ),
+                   lambda tp: _derive_pieces(
+                       tp, torch.zeros(1, dtype=torch.int32,
+                                       device=tp.device), plan.num_rows,
+                       K1_LONG))
 
 
 def segment_sum_chunked_plain(msgs_padded: torch.Tensor,
@@ -259,10 +353,9 @@ def _k1_lib():
     lib = _build.load('spmm_chunked')
     fn = lib.pygt_spmm_chunked
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, vp, i, vp, i, vp,
+                       vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -280,9 +373,10 @@ def _check_cuda(name, t, dtype, shape=None, device=None):
 
 
 def _launch_k1(x: torch.Tensor, idx: Optional[torch.Tensor], plan: SpmmPlan,
-               scale: Optional[torch.Tensor]) -> torch.Tensor:
+               scale: Optional[torch.Tensor]):
     """Check K1's inputs and launch it: ``x[idx[p]]``, or ``x[p]`` when
-    ``idx`` is ``None``, summed over each row's slots."""
+    ``idx`` is ``None``, summed over each row's slots. Returns the sums and
+    whether rows were cut into pieces (:func:`k1_pieces`)."""
     dev = x.device
     if x.dim() != 2 or x.dtype not in DTYPE_CODE:
         raise ValueError(f'x must be a 2-D f32/bf16/int8 tensor, got '
@@ -302,18 +396,23 @@ def _launch_k1(x: torch.Tensor, idx: Optional[torch.Tensor], plan: SpmmPlan,
         raise ValueError('K1 indexes rows and slots with int32')
     out = torch.empty((plan.num_rows, f), dtype=torch.float32, device=dev)
     if plan.num_rows == 0 or f == 0:
-        return out
+        return out, False
+    cut = k1_pieces(plan)
+    npieces = cut.pieces.shape[0]
+    part = torch.empty((npieces, f), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _k1_lib()(x.data_ptr(), DTYPE_CODE[x.dtype],
                         None if idx is None else idx.data_ptr(),
                         plan.tile_ptr.data_ptr(),
                         None if scale is None else scale.data_ptr(),
-                        out.data_ptr(), num_tiles, plan.num_rows, f,
+                        out.data_ptr(), num_tiles, plan.num_rows, f, K1_LONG,
+                        cut.pieces.data_ptr(), npieces, cut.rows.data_ptr(),
+                        cut.rows.shape[0], part.data_ptr(),
                         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'K1 (spmm_chunked.cu) launch failed: CUDA error '
                            f'{err}')
-    return out
+    return out, npieces > 0
 
 
 def spmm_chunked(x: torch.Tensor, plan: SpmmPlan,
@@ -324,16 +423,19 @@ def spmm_chunked(x: torch.Tensor, plan: SpmmPlan,
     ``x`` is f32, bf16 or int8. A CUDA ``x`` launches the kernel (and
     raises on anything it does not take); a CPU ``x`` runs
     :func:`spmm_chunked_plain`. ``spmm_chunked.launches`` counts kernel
-    launches.
+    calls, ``spmm_chunked.piece_launches`` those that also cut rows into
+    pieces.
     """
     if not x.is_cuda:
         return spmm_chunked_plain(x, plan, scale)
-    out = _launch_k1(x, plan.col_padded, plan, scale)
+    out, cut = _launch_k1(x, plan.col_padded, plan, scale)
     spmm_chunked.launches += 1
+    spmm_chunked.piece_launches += cut
     return out
 
 
 spmm_chunked.launches = 0
+spmm_chunked.piece_launches = 0
 
 
 def segment_sum_chunked(msgs_padded: torch.Tensor,
@@ -345,16 +447,20 @@ def segment_sum_chunked(msgs_padded: torch.Tensor,
 
     A CUDA tensor launches K1 with no column index; a CPU tensor runs
     :func:`segment_sum_chunked_plain`. ``segment_sum_chunked.launches``
-    counts these launches, apart from :func:`spmm_chunked`'s.
+    counts these calls, apart from :func:`spmm_chunked`'s, and
+    ``segment_sum_chunked.piece_launches`` those that cut rows into
+    pieces.
     """
     if not msgs_padded.is_cuda:
         return segment_sum_chunked_plain(msgs_padded, plan)
-    out = _launch_k1(msgs_padded, None, plan, None)
+    out, cut = _launch_k1(msgs_padded, None, plan, None)
     segment_sum_chunked.launches += 1
+    segment_sum_chunked.piece_launches += cut
     return out
 
 
 segment_sum_chunked.launches = 0
+segment_sum_chunked.piece_launches = 0
 
 
 def spmm_plan_apply(x: torch.Tensor, plan: SpmmPlan,

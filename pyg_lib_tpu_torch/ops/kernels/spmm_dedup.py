@@ -16,22 +16,21 @@ K2h, the row list of ``hot_w``'s non-zeros (:func:`hot_list`).
 """
 
 import ctypes
-import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from pyg_lib_tpu_torch import _build
-from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (DTYPE_CODE, TR,
-                                                        _check_cuda,
-                                                        quantize_columns)
+# _derived is the derived tables' cache, which _cached fills.
+from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (  # noqa: F401
+    DTYPE_CODE, TR, _cached, _check_cuda, _derived, quantize_columns)
 from pyg_lib_tpu_torch.utils import _resolve_device
 
 __all__ = [
     'ColdEdges', 'DedupSpmmPlan', 'HotList', 'build_dedup_plan',
-    'cold_edges', 'cold_pass_fits', 'dedup_plan_apply', 'dedup_sum', 'dedup_sum_plain',
-    'estimate_dedup', 'hot_list',
+    'cold_edges', 'cold_pass_fits', 'dedup_plan_apply', 'dedup_sum',
+    'dedup_sum_plain', 'estimate_dedup', 'hot_list', 'pad_hot', 'pad_plan',
 ]
 
 META_SUB = 8  # rows of the edge-metadata block (3 used)
@@ -217,11 +216,9 @@ def build_dedup_plan(rowptr, col, ec: int = 512, uc='auto',
     int8 for counts up to 127, bf16 up to 256, f32 otherwise and for
     weight sums. Like the JAX package, the builder holds ``hot_w`` in f32
     on the host first (4.3 GB at 262,144 rows and 4,096 hot columns).
+    ``pad_to_chunks`` appends all-pad chunks (on the last tile, with no
+    edge) up to that chunk count, as :func:`pad_plan` does.
     """
-    if pad_to_chunks is not None:
-        raise NotImplementedError(
-            'pad_to_chunks is not ported yet (ROADMAP Queue 1 item 10, '
-            'sharded plans)')
     device = _resolve_device(device)
     rowptr = np.asarray(rowptr, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
@@ -290,6 +287,13 @@ def build_dedup_plan(rowptr, col, ec: int = 512, uc='auto',
             lids.append(lp)
             ws.append(wp)
             tiles.append(t)
+    if pad_to_chunks is not None:
+        while len(tiles) < pad_to_chunks:
+            uniqs.append(np.zeros(uc, np.int32))
+            rows.append(np.full(ec, -1, np.int32))
+            lids.append(np.zeros(ec, np.int32))
+            ws.append(np.zeros(ec, np.float32))
+            tiles.append(tiles[-1] if tiles else 0)
 
     c = len(tiles)
     meta = np.zeros((c, META_SUB, ec), np.int32)
@@ -322,6 +326,57 @@ def build_dedup_plan(rowptr, col, ec: int = 512, uc='auto',
         hot_cols=hot_cols,
         hot_w=hot_w,
     )
+
+
+def pad_plan(plan: DedupSpmmPlan, num_chunks: int) -> DedupSpmmPlan:
+    """``plan`` with all-pad chunks appended up to ``num_chunks``: no edge
+    (local rows -1), on the last chunk's tile, so they add nothing. The
+    sharded builder pads its splits to one chunk count, as the JAX package
+    does (where it lets them share one compiled kernel)."""
+    extra = num_chunks - plan.num_chunks
+    if extra <= 0:
+        return plan
+    dev = plan.edge_meta.device
+    meta = torch.zeros((extra, META_SUB, plan.ec), dtype=torch.int32,
+                       device=dev)
+    meta[:, 0, :] = -1
+    last = (plan.chunk_tile[-1:] if plan.num_chunks else
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    return plan._replace(
+        uniq_cols=torch.cat([plan.uniq_cols, torch.zeros(
+            extra * plan.uc, dtype=torch.int32, device=dev)]),
+        edge_meta=torch.cat([plan.edge_meta, meta]),
+        chunk_tile=torch.cat([plan.chunk_tile, last.expand(extra)]))
+
+
+def pad_hot(plan: DedupSpmmPlan, num_hot: int,
+            dtype: Optional[torch.dtype] = None) -> DedupSpmmPlan:
+    """``plan`` with its hot level padded to ``num_hot`` columns: all-zero
+    count columns naming column 0, which add nothing. ``dtype`` casts
+    ``hot_w`` (through f32) so that sibling plans also agree on its
+    storage; a plan with no hot level gets an all-zero one of ``dtype``
+    (int8 by default). Raises ``ValueError`` for fewer columns than the
+    plan has."""
+    h = plan.num_hot
+    if dtype is not None and h and plan.hot_w.dtype != dtype:
+        plan = plan._replace(hot_w=plan.hot_w.float().to(dtype))
+    if num_hot <= 0 or h == num_hot:
+        return plan
+    if num_hot < h:
+        raise ValueError('cannot shrink the hot level')
+    dev = plan.edge_meta.device
+    num_tiles = max(-(-plan.num_rows // TR), 1)
+    if h == 0:
+        return plan._replace(
+            hot_cols=torch.zeros(num_hot, dtype=torch.int32, device=dev),
+            hot_w=torch.zeros((num_tiles * TR, num_hot),
+                              dtype=dtype or torch.int8, device=dev))
+    return plan._replace(
+        hot_cols=torch.cat([plan.hot_cols, torch.zeros(
+            num_hot - h, dtype=torch.int32, device=dev)]),
+        hot_w=torch.cat([plan.hot_w, torch.zeros(
+            (plan.hot_w.shape[0], num_hot - h), dtype=plan.hot_w.dtype,
+            device=dev)], 1))
 
 
 def dedup_sum_plain(x: torch.Tensor, plan: DedupSpmmPlan,
@@ -401,38 +456,6 @@ def _derive_cold_edges(edge_meta: torch.Tensor,
         w = torch.gather(edge_meta[:, 2, :], 1, order)[keep].view(
             torch.float32)
     return ColdEdges(ptr=ptr.int(), code=code, w=w, num_uniq=num_uniq)
-
-
-# (what, id of each source tensor) -> (weak references to the sources,
-# their _version counters, the derived tables); an entry goes when one of
-# its sources is freed.
-_derived = {}
-
-
-def _cached(what, sources, make):
-    """``make(*sources)``, cached per source tensor object (a weak
-    reference, not its address, which a freed buffer hands on) and its
-    in-place version: a plan given another tensor by ``_replace``, or one
-    changed in place, gets fresh tables. An inference tensor has no
-    version counter and is keyed on its object alone: a change made to it
-    in place under ``torch.inference_mode`` is not seen."""
-    key = (what, ) + tuple(id(t) for t in sources)
-    version = tuple(None if t.is_inference() else t._version
-                    for t in sources)
-    hit = _derived.get(key)
-    if (hit is not None and all(r() is t for r, t in zip(hit[0], sources))
-            and hit[1] == version):
-        return hit[2]
-
-    def drop(ref, key=key):
-        entry = _derived.get(key)
-        if entry is not None and any(r is ref for r in entry[0]):
-            del _derived[key]
-
-    value = make(*sources)
-    _derived[key] = (tuple(weakref.ref(t, drop) for t in sources), version,
-                     value)
-    return value
 
 
 def hot_list(plan: DedupSpmmPlan) -> HotList:

@@ -31,7 +31,7 @@ PyTorch version (:func:`dedup_minmax_plain`, the counterpart of
 """
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,9 +40,9 @@ from pyg_lib_tpu_torch import _build
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (NEG, POS_NONE,
                                                           k4_merge,
                                                           winner_values)
-from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import TR, _check_cuda
-from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (META_SUB, _cached,
-                                                      _pack_tile,
+from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (TR, _cached,
+                                                        _check_cuda)
+from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (META_SUB, _pack_tile,
                                                       _tile_slices,
                                                       estimate_dedup)
 from pyg_lib_tpu_torch.utils import _resolve_device
@@ -50,7 +50,7 @@ from pyg_lib_tpu_torch.utils import _resolve_device
 __all__ = [
     'DedupMinmaxPlan', 'K5Units', 'build_dedup_minmax_plan', 'dedup_minmax',
     'dedup_minmax_apply', 'dedup_minmax_plain', 'dedup_minmax_split',
-    'dedup_pairs', 'estimate_minmax_config', 'k5_units',
+    'dedup_pairs', 'estimate_minmax_config', 'k5_units', 'pad_minmax_plan',
 ]
 
 # Unique slots a plan may hold: the TPU kernel carries slot positions
@@ -241,6 +241,30 @@ def build_dedup_minmax_plan(rowptr, col, ec: int = 512, uc='auto',
         uc=int(uc),
         scan_len=int(scan_len),
     )
+
+
+def pad_minmax_plan(plan: DedupMinmaxPlan, num_chunks: int,
+                    scan_len: Optional[int] = None) -> DedupMinmaxPlan:
+    """``plan`` with all-pad chunks appended up to ``num_chunks`` (every
+    edge a pad, local row ``TR``, on the last chunk's tile) and its scan
+    depth raised to ``scan_len``, as the JAX package pads the sharded
+    builder's splits to one kernel shape."""
+    if scan_len is not None and scan_len > plan.scan_len:
+        plan = plan._replace(scan_len=int(scan_len))
+    extra = num_chunks - plan.num_chunks
+    if extra <= 0:
+        return plan
+    dev = plan.edge_meta.device
+    meta = torch.zeros((extra, META_SUB, plan.ec), dtype=torch.int32,
+                       device=dev)
+    meta[:, 0, :] = TR  # pad edges name no output row
+    last = (plan.chunk_tile[-1:] if plan.num_chunks else
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    return plan._replace(
+        uniq_cols=torch.cat([plan.uniq_cols, torch.zeros(
+            extra * plan.uc, dtype=torch.int32, device=dev)]),
+        edge_meta=torch.cat([plan.edge_meta, meta]),
+        chunk_tile=torch.cat([plan.chunk_tile, last.expand(extra)]))
 
 
 def dedup_minmax_plain(x: torch.Tensor, plan: DedupMinmaxPlan,

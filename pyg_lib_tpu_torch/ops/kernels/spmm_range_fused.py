@@ -21,7 +21,8 @@ pointers.
 K7 walks each row with one warp; a row's run of more than ``K7_LONG``
 slots in one range is left out of that walk and cut into pieces of at
 most ``K7_LONG`` slots (:func:`k7_pieces`), a warp each, whose sums a
-last launch adds up in order, scales and adds to the rest of the row.
+last launch adds up in order, scales and adds to the rest of the row
+(K1's design for its long rows too, ``csrc/row_walk.cuh``).
 
 :func:`fused_range_sum` is the kernel's wrapper: K7 for a CUDA tensor, the
 plain PyTorch version (:func:`fused_range_plain`, which follows the JAX
@@ -36,18 +37,13 @@ import numpy as np
 import torch
 
 from pyg_lib_tpu_torch import _build
-from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (DTYPE_CODE, PTR_SUB,
-                                                        TP, TR,
-                                                        _build_padded_layout,
-                                                        _check_cuda,
-                                                        _padded_rows,
-                                                        auto_chunk,
-                                                        build_spmm_plan,
-                                                        quantize_columns)
-from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import _cached
+from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (
+    DTYPE_CODE, PTR_SUB, TP, TR, RowPieces, _build_padded_layout, _cached,
+    _check_cuda, _derive_pieces, _padded_rows, auto_chunk, build_spmm_plan,
+    quantize_columns)
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['FusedRangePlan', 'K7Pieces', 'build_fused_range_plan',
+__all__ = ['FusedRangePlan', 'build_fused_range_plan',
            'fused_range_apply', 'fused_range_plain', 'fused_range_sum',
            'k7_pieces']
 
@@ -251,42 +247,7 @@ def fused_range_plain(xm: torch.Tensor, plan: FusedRangePlan,
     return out if scale is None else out * scale[None, :]
 
 
-class K7Pieces(NamedTuple):
-    """The runs of more than ``K7_LONG`` slots, cut into pieces."""
-    pieces: torch.Tensor  # [P, 3] int32: row, first slot, end slot
-    rows: torch.Tensor  # [L, 3] int32: row, first piece, piece count
-
-
-def _derive_pieces(tile_ptrs, slot_base, num_rows, long_len) -> K7Pieces:
-    s_eff = slot_base.shape[0]
-    bounds = tile_ptrs[:, :s_eff, :TR + 1].long()  # [T, S, TR + 1]
-    # Per row and range: the run's first slot in the concatenation, its
-    # length.
-    lo = (bounds[:, :, :-1] + slot_base.long()[None, :, None]).transpose(
-        1, 2).reshape(-1, s_eff)[:num_rows]
-    n = (bounds[:, :, 1:] - bounds[:, :, :-1]).transpose(1, 2).reshape(
-        -1, s_eff)[:num_rows]
-    long_run = n > long_len
-    rows = torch.nonzero(long_run.any(1)).reshape(-1)
-    # The rows' runs, row-major and in range order; a short run gets none.
-    n = torch.where(long_run[rows], n[rows], 0).reshape(-1)
-    lo = lo[rows].reshape(-1)
-    count = -(-n // long_len)
-    first = torch.cumsum(count, 0) - count
-    of = torch.repeat_interleave(torch.arange(n.shape[0], device=n.device),
-                                 count)
-    start = lo[of] + (torch.arange(of.shape[0], device=n.device) -
-                      first[of]) * long_len
-    end = torch.minimum(start + long_len, (lo + n)[of])
-    per_row = count.reshape(-1, s_eff).sum(1)
-    return K7Pieces(
-        pieces=torch.stack([rows[of // s_eff], start, end],
-                           1).int().contiguous(),
-        rows=torch.stack([rows, torch.cumsum(per_row, 0) - per_row, per_row],
-                         1).int().contiguous())
-
-
-def k7_pieces(plan: FusedRangePlan) -> K7Pieces:
+def k7_pieces(plan: FusedRangePlan) -> RowPieces:
     """The piece table K7 reads for ``plan``'s runs of more than
     ``K7_LONG`` slots (a row's slots in one range): each such run cut
     into pieces of at most ``K7_LONG``, a row's pieces in range and slot

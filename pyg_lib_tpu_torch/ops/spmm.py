@@ -2,12 +2,14 @@
 
 Port of ``pyg_lib_tpu/ops/spmm.py`` (sum/add/mean over the chunked, the
 deduplicated and the range-split plans, max/min over the chunked and the
-dedup min/max plans, and the padded-space primitives of attention layers).
+dedup min/max plans, the row-split plans of graphs too large for one plan,
+and the padded-space primitives of attention layers).
 :func:`build_spmm_graph` builds the forward plan and the plan of the
-transposed graph on the host once per graph; :func:`spmm` runs them. The
-sum's gradient is the same kernel over the transpose plan,
-d/dx (A @ x) = Aᵀ @ g; the max/min gradient goes to each row's winning
-source row only.
+transposed graph on the host once per graph; :func:`spmm` runs them
+(:func:`build_spmm_graph_sharded` and :func:`spmm_sharded` the same, one
+plan per row split). The sum's gradient is the same kernel over the
+transpose plan, d/dx (A @ x) = Aᵀ @ g; the max/min gradient goes to each
+row's winning source row only.
 """
 
 from typing import NamedTuple, Optional, Union
@@ -23,24 +25,29 @@ from pyg_lib_tpu_torch.ops.kernels.segment_softmax import (
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import (TR, SpmmPlan,
                                                         auto_chunk,
                                                         build_spmm_plan,
+                                                        quantize_columns,
                                                         segment_sum_chunked,
+                                                        spmm_chunked,
                                                         spmm_plan_apply)
 from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (DedupSpmmPlan,
                                                       build_dedup_plan,
                                                       dedup_plan_apply,
-                                                      estimate_dedup)
+                                                      dedup_sum,
+                                                      estimate_dedup, pad_hot,
+                                                      pad_plan)
 from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import (
     DedupMinmaxPlan, build_dedup_minmax_plan, dedup_minmax, dedup_pairs,
-    estimate_minmax_config)
+    estimate_minmax_config, pad_minmax_plan)
 from pyg_lib_tpu_torch.ops.kernels.spmm_range_fused import (
     FusedRangePlan, _column_range_csrs, _equal_ranges, build_fused_range_plan,
-    fused_range_apply)
+    fused_range_apply, fused_range_sum)
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['RangeSpmmPlan', 'SpmmGraph', 'build_spmm_graph',
+__all__ = ['RangeSpmmPlan', 'ShardedSpmmGraph', 'SpmmGraph',
+           'build_spmm_graph', 'build_spmm_graph_sharded',
            'build_weighted_fused_graph', 'sddmm', 'segment_max_padded',
            'segment_min_padded', 'segment_softmax_padded',
-           'segment_sum_padded', 'spmm', 'spmm_csr']
+           'segment_sum_padded', 'spmm', 'spmm_csr', 'spmm_sharded']
 
 
 class RangeSpmmPlan(NamedTuple):
@@ -126,6 +133,16 @@ def _range_plan_apply(x: torch.Tensor, rp: RangeSpmmPlan,
     return out
 
 
+def _mode(value, what: str) -> str:
+    """``dedup``/``minmax`` as ``'off'``, ``'auto'`` or ``'on'`` (booleans
+    taken as off and on)."""
+    if value not in ('off', 'auto', 'on', False, True):
+        raise ValueError(f"{what} must be 'off', 'auto' or 'on', got "
+                         f'{value!r}')
+    return {'off': 'off', False: 'off', 'on': 'on', True: 'on',
+            'auto': 'auto'}[value]
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1 '
                                f'item {item})')
@@ -200,16 +217,8 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
     """
     if reorder not in ('off', False):
         raise _not_ported("reorder != 'off'", '12 (partition/)')
-    if dedup not in ('off', 'auto', 'on', False, True):
-        raise ValueError(f"dedup must be 'off', 'auto' or 'on', got "
-                         f'{dedup!r}')
-    dedup = {'off': 'off', False: 'off', 'on': 'on', True: 'on',
-             'auto': 'auto'}[dedup]
-    if minmax not in ('off', 'auto', 'on', False, True):
-        raise ValueError(f"minmax must be 'off', 'auto' or 'on', got "
-                         f'{minmax!r}')
-    minmax = {'off': 'off', False: 'off', 'on': 'on', True: 'on',
-              'auto': 'auto'}[minmax]
+    dedup = _mode(dedup, 'dedup')
+    minmax = _mode(minmax, 'minmax')
     device = _resolve_device(device)
     rowptr = np.asarray(rowptr, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
@@ -381,41 +390,64 @@ def spmm(x: torch.Tensor, graph: SpmmGraph, reduce: str = 'sum',
     return out
 
 
-class _ExactMax(torch.autograd.Function):
+def _exact_max(src, plan, idx, is_min, empty):
     """Exact per-row max (min: of the negated messages, negated back) over
     a chunked plan (K4; messages ``src[idx[p]]``, or ``src[p]`` when
-    ``idx`` is ``None``) or a dedup min/max plan (K5). Rows in ``empty``
-    give 0. The gradient is winner-only: each row's cotangent goes to the
-    one source row that won, mapped from its position only here."""
+    ``idx`` is ``None``) or a dedup min/max plan (K5), 0 in the rows of
+    ``empty``: the values, each winner's position (-1 for none) and the
+    index that maps a position to its source row."""
+    src32 = src.float().contiguous()
+    if isinstance(plan, DedupMinmaxPlan):
+        vals, pos = dedup_minmax(src32, plan, negate=is_min)
+        idx = plan.uniq_cols
+    else:
+        vals, pos = segment_max_kernel(src32, plan, idx, negate=is_min)
+    if is_min:
+        vals = -vals
+    vals = torch.where(empty, torch.zeros_like(vals), vals)
+    pos = torch.where(empty | (pos >= POS_NONE), torch.full_like(pos, -1),
+                      pos)
+    return vals, pos, idx
+
+
+def _winner_grad(g, found, n, dtype):
+    """The winner-only gradient of ``[n, F]`` sources: each row's
+    cotangent (rows of ``g`` in the order of ``found``'s ``(pos, idx)``
+    pairs) added into the source row that won. Added in f64: a hub column
+    of a power-law graph wins in millions of rows, and an f32 sum of m
+    terms in any order may be off by m * 2**-24 of their magnitude
+    (PERF.md)."""
+    grad = torch.zeros((n + 1, g.shape[1]), dtype=torch.float64,
+                       device=g.device)  # row n: the rows with no winner
+    lo = 0
+    for pos, idx in found:
+        part = g[lo:lo + pos.shape[0]]
+        pos = pos[:part.shape[0]]
+        lo += pos.shape[0]
+        hit = pos >= 0
+        slot = torch.where(hit, pos, torch.zeros_like(pos)).long()
+        tgt = slot if idx is None else idx[slot].long()
+        grad.scatter_add_(0, torch.where(hit, tgt, n), part.double())
+    return grad[:n].to(dtype)
+
+
+class _ExactMax(torch.autograd.Function):
+    """:func:`_exact_max` of one plan. The gradient is winner-only: each
+    row's cotangent goes to the one source row that won, mapped from its
+    position only here."""
 
     @staticmethod
     def forward(ctx, src, plan, idx, is_min, empty):
-        src32 = src.float().contiguous()
-        if isinstance(plan, DedupMinmaxPlan):
-            vals, pos = dedup_minmax(src32, plan, negate=is_min)
-            idx = plan.uniq_cols
-        else:
-            vals, pos = segment_max_kernel(src32, plan, idx, negate=is_min)
-        if is_min:
-            vals = -vals
-        vals = torch.where(empty, torch.zeros_like(vals), vals)
-        pos = torch.where(empty | (pos >= POS_NONE), torch.full_like(pos, -1),
-                          pos)
+        vals, pos, ctx.idx = _exact_max(src, plan, idx, is_min, empty)
         ctx.save_for_backward(pos)
-        ctx.idx, ctx.n, ctx.dtype = idx, src.shape[0], src.dtype
+        ctx.n, ctx.dtype = src.shape[0], src.dtype
         return vals
 
     @staticmethod
     def backward(ctx, g):
         (pos, ) = ctx.saved_tensors
-        hit = pos >= 0
-        slot = torch.where(hit, pos, torch.zeros_like(pos)).long()
-        tgt = slot if ctx.idx is None else ctx.idx[slot].long()
-        tgt = torch.where(hit, tgt, torch.full_like(tgt, ctx.n))
-        grad = torch.zeros((ctx.n + 1, g.shape[1]), dtype=g.dtype,
-                           device=g.device)
-        grad.scatter_add_(0, tgt, g)  # row n takes the rows with no winner
-        return grad[:ctx.n].to(ctx.dtype), None, None, None, None
+        return (_winner_grad(g, [(pos, ctx.idx)], ctx.n, ctx.dtype), None,
+                None, None, None)
 
 
 def _rows_nonempty(plan: SpmmPlan) -> torch.Tensor:
@@ -448,6 +480,293 @@ def _gathered_max_padded(src: torch.Tensor,
     values and gradient are the same."""
     return _ExactMax.apply(src, plan, plan.col_padded, False,
                            ~_rows_nonempty(plan)[:, None])
+
+
+# -- row-split plans for graphs too large for one plan ------------------------
+
+
+class ShardedSpmmGraph(NamedTuple):
+    """Row-range-split plans (:func:`build_spmm_graph_sharded`).
+
+    ``fwd`` holds one plan per split of the destination rows, ``bwd`` one
+    per split of the transpose's rows (the source nodes), each over its
+    rows only; ``mm`` (``minmax=...``) per-split ``reduce='max'/'min'``
+    schedules over the pair-deduped edges. Every split has the same row
+    count (the last one padded with empty rows) and, per side, the same
+    chunk count.
+    """
+    fwd: tuple
+    bwd: tuple
+    deg: torch.Tensor  # [num_rows] f32 row degrees (for reduce='mean')
+    num_rows: int
+    num_cols: int
+    mm: Optional[tuple] = None  # per-split min/max plans, or None
+
+
+def _split_csrs(rowptr, col, num_rows: int, num_splits: int) -> list:
+    """``num_splits`` CSRs of ``ceil(num_rows / num_splits)`` rows each,
+    over consecutive row ranges; the last ends in empty rows."""
+    npd = -(-num_rows // num_splits)
+    subs = []
+    for i in range(num_splits):
+        lo, hi = min(i * npd, num_rows), min((i + 1) * npd, num_rows)
+        sub_rp = np.empty(npd + 1, np.int64)
+        sub_rp[:hi - lo + 1] = rowptr[lo:hi + 1] - rowptr[lo]
+        sub_rp[hi - lo + 1:] = sub_rp[hi - lo]  # trailing empty rows
+        subs.append((sub_rp, col[rowptr[lo]:rowptr[hi]]))
+    return subs
+
+
+def _widest(dtypes) -> torch.dtype:
+    """The widest of int8, bf16 and f32 among ``dtypes``."""
+    rank = [torch.int8, torch.bfloat16, torch.float32]
+    return max(dtypes, key=rank.index)
+
+
+def build_spmm_graph_sharded(rowptr, col, num_splits: int, chunk=512,
+                             num_cols: Optional[int] = None,
+                             range_split: int = 1, dedup='off',
+                             minmax='off', device=None) -> ShardedSpmmGraph:
+    """Host-side, once per graph: ``num_splits`` row-range plans of the
+    graph and of its transpose, with their tensors on ``device`` (default:
+    the CUDA card). Each split's plan holds only its own rows' slots, so a
+    graph whose one plan would not fit still runs (:func:`spmm_sharded`).
+
+    The splits take ``ceil(rows / num_splits)`` rows each and, per side,
+    one chunk count (pad chunks appended), as in the JAX package, where
+    equal shapes share one compiled kernel. ``chunk='auto'`` sizes one
+    chunk over the splits. ``range_split=S`` builds a
+    :class:`RangeSpmmPlan` per split (K1 per column range), all with one
+    chunk size and count.
+
+    ``dedup`` in {'off', 'auto', 'on'} gives every split of a side the
+    dedup plan (``'auto'``: where :func:`estimate_dedup` on the whole side
+    predicts a gain of at least 1.3), each split with its own ``uc``
+    estimate, rebuilt at the largest, a hot level of at most
+    ``max(2**30 // num_splits, 32 MiB)`` bytes, and all padded to one
+    chunk count, hot width and ``hot_w`` type (:func:`pad_plan`,
+    :func:`pad_hot`). ``minmax`` in {'off', 'auto', 'on'} also builds
+    per-split max/min plans over the pair-deduped edges: dedup min/max
+    plans (K5; ``'auto'``: where the gain on the whole deduped graph is
+    at least 1.3) padded to one chunk count and scan depth
+    (:func:`pad_minmax_plan`), else chunked plans. Neither goes with
+    ``range_split``.
+    """
+    dedup = _mode(dedup, 'dedup')
+    minmax = _mode(minmax, 'minmax')
+    if dedup != 'off' and range_split > 1:
+        raise ValueError('dedup is incompatible with range_split')
+    if minmax != 'off' and range_split > 1:
+        raise ValueError('minmax is incompatible with range_split')
+    device = _resolve_device(device)
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    col = np.asarray(col, dtype=np.int64)
+    num_rows = rowptr.shape[0] - 1
+    if num_cols is None:
+        num_cols = num_rows
+
+    def chunked(subs, ck):
+        cmax = max(_plan_chunks(s_rp, ck) for s_rp, _ in subs)
+        return tuple(build_spmm_plan(s_rp, s_cl, chunk=ck, pad_to_chunks=cmax,
+                                     device=device) for s_rp, s_cl in subs)
+
+    def split_plans(rp, cl, n_rows, n_cols):
+        subs = _split_csrs(rp, cl, n_rows, num_splits)
+        if dedup != 'off':
+            ec = auto_chunk(rp) if chunk == 'auto' else int(chunk)
+            if dedup == 'on' or estimate_dedup(rp, cl, ec=ec)[1] >= 1.3:
+                # The hot level's byte budget is per plan: shared out over
+                # the splits, as in the JAX package.
+                hb = max((1 << 30) // num_splits, 32 << 20)
+                plans = [build_dedup_plan(s_rp, s_cl, ec=ec, uc='auto',
+                                          hot_budget_bytes=hb, device=device)
+                         for s_rp, s_cl in subs]
+                ucmax = max(p.uc for p in plans)
+                plans = [p if p.uc == ucmax else build_dedup_plan(
+                    s_rp, s_cl, ec=ec, uc=ucmax, hot_budget_bytes=hb,
+                    device=device) for p, (s_rp, s_cl) in zip(plans, subs)]
+                cmax = max(p.num_chunks for p in plans)
+                hmax = max(p.num_hot for p in plans)
+                hdt = (_widest([p.hot_w.dtype for p in plans if p.num_hot])
+                       if hmax else None)
+                return tuple(pad_hot(pad_plan(p, cmax), hmax, dtype=hdt)
+                             for p in plans)
+        if range_split > 1:
+            bounds = _equal_ranges(n_cols, range_split)
+            range_rps = [rp_r for s_rp, s_cl in subs
+                         for rp_r, _, _ in _column_range_csrs(s_rp, s_cl,
+                                                              bounds)]
+            if chunk != 'auto':
+                ck = chunk
+            else:
+                ck = (max(auto_chunk(rp_r) for rp_r in range_rps)
+                      if range_rps else 512)
+            cmax = max((_plan_chunks(rp_r, ck) for rp_r in range_rps),
+                       default=1)
+            return tuple(_build_range_plan(s_rp, s_cl, n_cols, range_split,
+                                           ck, pad_to_chunks=cmax,
+                                           device=device)
+                         for s_rp, s_cl in subs)
+        ck = (max(auto_chunk(s_rp) for s_rp, _ in subs) if chunk == 'auto'
+              else chunk)
+        return chunked(subs, ck)
+
+    fwd = split_plans(rowptr, col, num_rows, num_cols)
+    t_ptr, t_col = _transpose_csr(rowptr, col, num_cols)
+    bwd = split_plans(t_ptr, t_col, num_cols, num_rows)
+    del t_ptr, t_col
+
+    mm = None
+    if minmax != 'off':
+        # One gate on the whole deduped graph, so every split takes the
+        # same kind of schedule.
+        rp_d, cl_d = dedup_pairs(rowptr, col)
+        ec_mm, uc_mm = estimate_minmax_config(rp_d, cl_d)
+        subs_d = _split_csrs(rp_d, cl_d, num_rows, num_splits)
+        if minmax == 'on' or estimate_dedup(rp_d, cl_d, ec=ec_mm)[1] >= 1.3:
+            plans = [build_dedup_minmax_plan(s_rp, s_cl, ec=ec_mm, uc=uc_mm,
+                                             _pre_deduped=True, device=device)
+                     for s_rp, s_cl in subs_d]
+            cmax = max(p.num_chunks for p in plans)
+            smax = max(p.scan_len for p in plans)
+            mm = tuple(pad_minmax_plan(p, cmax, scan_len=smax)
+                       for p in plans)
+        else:
+            mm = chunked(subs_d, max(auto_chunk(s_rp) for s_rp, _ in subs_d)
+                         if chunk == 'auto' else int(chunk))
+
+    deg = torch.from_numpy(np.diff(rowptr).astype(np.float32)).to(device)
+    return ShardedSpmmGraph(fwd=fwd, bwd=bwd, deg=deg, num_rows=num_rows,
+                            num_cols=int(num_cols), mm=mm)
+
+
+def _plan_sum(xm: torch.Tensor, plan) -> torch.Tensor:
+    """``plan``'s kernel over rows already in their read type (f32, bf16
+    or int8): ``[num_rows, F]`` f32 sums."""
+    if isinstance(plan, DedupSpmmPlan):
+        return dedup_sum(xm, plan)
+    if isinstance(plan, FusedRangePlan):
+        return fused_range_sum(xm, plan)
+    if isinstance(plan, RangeSpmmPlan):
+        out = None
+        for (lo, hi), p in zip(plan.bounds, plan.plans):
+            o = spmm_chunked(xm[lo:hi], p)
+            out = o if out is None else out + o
+        return out
+    return spmm_chunked(xm, plan)
+
+
+def _sharded_apply(x: torch.Tensor, plans, num_rows: int,
+                   precision: Optional[str] = None) -> torch.Tensor:
+    """Every split's sums, concatenated and trimmed to ``num_rows``. The
+    rows are cast to bf16 or quantised (``'int8'``: per column, over the
+    whole table, so that every split shares the scales) once for all
+    splits; an int8 ``x`` under ``'int8'`` is taken as already quantised
+    and its raw f32 sums are returned."""
+    scale = None
+    if precision == 'int8' and x.dtype != torch.int8:
+        xm, scale = quantize_columns(x)
+    elif precision == 'bf16':
+        xm = x.to(torch.bfloat16).contiguous()
+    else:
+        xm = x.contiguous()
+    out = torch.cat([_plan_sum(xm, p) for p in plans])[:num_rows]
+    if scale is not None:
+        out = out * scale[None, :]
+    return out if x.dtype == torch.int8 else out.to(x.dtype)
+
+
+class _ShardedSum(torch.autograd.Function):
+    """Sum over the forward splits; the backward is the same over the
+    transpose's splits, in the forward's precision."""
+
+    @staticmethod
+    def forward(ctx, x, graph, precision):
+        ctx.graph, ctx.precision = graph, precision
+        return _sharded_apply(x, graph.fwd, graph.num_rows, precision)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_sharded_apply(g, ctx.graph.bwd, ctx.graph.num_cols,
+                               ctx.precision), None, None)
+
+
+class _ShardedMax(torch.autograd.Function):
+    """:func:`_exact_max` of each split, concatenated and trimmed to
+    ``num_rows``. The backward adds every split's winners into one
+    gradient (JAX's ``_spmm_sharded_minmax_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, plans, is_min, empty, num_rows):
+        npd = plans[0].num_rows
+        outs, found = [], []
+        for i, p in enumerate(plans):
+            idx = p.col_padded if isinstance(p, SpmmPlan) else None
+            vals, pos, idx = _exact_max(x, p, idx, is_min,
+                                        empty[i * npd:(i + 1) * npd, None])
+            outs.append(vals)
+            found.append((pos, idx))
+        ctx.save_for_backward(*[pos for pos, _ in found])
+        ctx.idx = [idx for _, idx in found]
+        ctx.n, ctx.dtype = x.shape[0], x.dtype
+        return torch.cat(outs)[:num_rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_winner_grad(g, list(zip(ctx.saved_tensors, ctx.idx)),
+                             ctx.n, ctx.dtype), None, None, None, None)
+
+
+def _sharded_minmax(x: torch.Tensor, graph: ShardedSpmmGraph,
+                    is_min: bool) -> torch.Tensor:
+    """Exact max/min per split (K5 on a dedup min/max plan, K4 with the
+    gather fused on a chunked one), concatenated and trimmed; an empty row
+    gives 0, and the gradient goes to each row's winner only."""
+    plans = graph.mm if graph.mm is not None else graph.fwd
+    empty = torch.ones(plans[0].num_rows * len(plans), dtype=torch.bool,
+                       device=graph.deg.device)
+    empty[:graph.num_rows] = graph.deg < 0.5
+    return _ShardedMax.apply(x, plans, is_min, empty, graph.num_rows)
+
+
+def spmm_sharded(x: torch.Tensor, graph: ShardedSpmmGraph,
+                 reduce: str = 'sum',
+                 precision: Optional[str] = None) -> torch.Tensor:
+    """:func:`spmm` over a :class:`ShardedSpmmGraph`: each split's kernel
+    writes its rows, the splits' results are joined.
+
+    ``precision`` as in :func:`spmm` (``'int8'`` quantises ``x`` once, so
+    every split shares its column scales). ``reduce='max'/'min'`` is exact,
+    with the winner-only gradient, over ``graph.mm`` (a graph built
+    ``minmax='auto'/'on'``) or else plain chunked split plans; it ignores
+    ``precision``. ``x`` must be ``[num_cols, F]`` on the graph's device.
+    """
+    if x.device != graph.deg.device:
+        raise ValueError(f'x is on {x.device} but the graph is on '
+                         f'{graph.deg.device}')
+    if x.dim() != 2 or x.shape[0] != graph.num_cols:
+        raise ValueError(f'x must be [{graph.num_cols}, F] for this graph, '
+                         f'got {tuple(x.shape)}')
+    if reduce in ('max', 'min'):
+        plans = graph.mm if graph.mm is not None else graph.fwd
+        if not all(isinstance(p, (SpmmPlan, DedupMinmaxPlan))
+                   for p in plans):
+            raise ValueError(
+                "spmm_sharded reduce='max'/'min' needs plain split plans "
+                "or a graph built with minmax='auto'/'on'")
+        return _sharded_minmax(x, graph, reduce == 'min').to(x.dtype)
+    if reduce not in ('sum', 'add', 'mean'):
+        raise ValueError(f"spmm reduce must be 'sum', 'add' or 'mean', got "
+                         f'{reduce!r}')
+    if precision not in (None, 'highest', 'bf16', 'int8'):
+        raise ValueError(f"spmm precision must be None, 'highest', 'bf16' "
+                         f"or 'int8', got {precision!r}")
+    if precision == 'highest':
+        precision = None
+    out = _ShardedSum.apply(x, graph, precision)
+    if reduce == 'mean':
+        out = out / graph.deg.clamp(min=1.0).to(out.dtype)[:, None]
+    return out
 
 
 # -- padded-space primitives (attention layers) -------------------------------

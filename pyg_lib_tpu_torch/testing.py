@@ -3,8 +3,9 @@ synthetic graphs the card's checks and timings run on."""
 
 import numpy as np
 
-__all__ = ['MAG_EDGES', 'MAG_NODES', 'cycle_graph', 'mag_graph',
-           'powerlaw_graph', 'uniform_graph']
+__all__ = ['HUGE_EDGES', 'HUGE_NODES', 'MAG_EDGES', 'MAG_NODES',
+           'cycle_graph', 'huge_graph', 'mag_graph', 'powerlaw_graph',
+           'uniform_graph']
 
 # ogbn-mag's published node and edge counts (OGB, full size), with the
 # relations named as in the dataset.
@@ -56,6 +57,35 @@ def powerlaw_graph(n: int, e: int):
     rowptr = np.zeros(n + 1, np.int64)
     np.cumsum(np.bincount(row, minlength=n), out=rowptr[1:])
     return rowptr, col[order].astype(np.int64)
+
+
+# bench/bench_sharded_huge.py's graph: 2M nodes and 31M edges asked for
+# (30,009,772 made at seed 0).
+HUGE_NODES, HUGE_EDGES = 2_000_000, 31_000_000
+
+
+def huge_graph(family: str = 'uniform', n: int = HUGE_NODES,
+               e: int = HUGE_EDGES):
+    """``bench/bench_sharded_huge.py``'s graph (seed 0): row degrees
+    uniform in ``[0, 2e/n)`` scaled to about ``e`` edges, columns uniform
+    (``family='uniform'``) or Zipf(1.2) (``'powerlaw'``: in-degree skew of
+    the papers100M class). Returns CSR ``(rowptr, col)``, both int64."""
+    if family not in ('uniform', 'powerlaw'):
+        raise ValueError(f"family must be 'uniform' or 'powerlaw', got "
+                         f'{family!r}')
+    rng = np.random.default_rng(0)
+    deg = rng.integers(0, 2 * e // n, size=n)
+    deg = (deg * (e / max(deg.sum(), 1))).astype(np.int64)
+    rowptr = np.zeros(n + 1, np.int64)
+    rowptr[1:] = np.cumsum(deg)
+    e_actual = int(rowptr[-1])
+    if family == 'powerlaw':
+        p = 1.0 / np.arange(1, n + 1)**1.2
+        p /= p.sum()
+        col = rng.choice(n, size=e_actual, p=p).astype(np.int64)
+    else:
+        col = rng.integers(0, n, size=e_actual).astype(np.int64)
+    return rowptr, col
 
 
 def mag_graph(num_nodes=None, edges=None, skew: bool = True):

@@ -6,7 +6,8 @@
     python3 pyg_lib_tpu_torch/tools/time_segment.py A.cu B.cu B.cu A.cu
 
 Each argument is a source with the C interface of ``spmm_chunked.cu``
-(``pygt_spmm_chunked``: K1 and its ``msgs_padded`` entry K1m),
+(``pygt_spmm_chunked``: K1 and its ``msgs_padded`` entry K1m, with or
+without its piece table),
 ``segment_csr.cu`` (``pygt_segment_sum_csr``, with or without its
 scratch arguments), ``segment_minmax.cu`` (``pygt_segment_max``, with or
 without its piece table) or ``spmm_range_fused.cu``
@@ -15,8 +16,10 @@ optionally followed by ``@NAME=VALUE`` pairs joined by ``,`` that set
 constants of the wrapper module for that argument's calls
 (``UNITS_PER_SM`` of ``segment_csr.py``, ``K4_LONG`` of
 ``segment_minmax.py``, which must equal the source's ``LONG``,
-``K7_LONG`` of ``spmm_range_fused.py``: ``@K7_LONG=1073741824`` cuts no
-run, and a K7 source without the piece table needs it). A source
+``K7_LONG`` of ``spmm_range_fused.py`` and ``K1_LONG`` of
+``spmm_chunked.py``: ``@K7_LONG=1073741824`` cuts no run, and a K7 source
+without the piece table needs it, as a K1 source without one needs
+``@K1_LONG=1073741824``). A source
 may include headers kept beside it, which it reads before those of
 ``csrc``. The sources are built by ``_build.build_variants``, all in
 parallel. On ``chip_smoke.py``'s graphs, F=512 f32 unless a label says
@@ -24,8 +27,9 @@ otherwise, in the order given, so that ``A B B A`` interleaves two
 versions on one card:
 
 * K1 on the uniform graph's forward and backward plans (F=512 and F=47;
-  bf16, and int8 with its column scale, at F=512), K1m on the forward
-  plan's padded messages (F=512, and GAT's F=48 and F=4), and K1 per
+  bf16, and int8 with its column scale, at F=512) and on the power-law
+  graph's chunked forward plan (F=512; no row there is cut), K1m on the
+  forward plan's padded messages (F=512, and GAT's F=48 and F=4), and K1 per
   range of the ``range_split=4`` graph (partial sums added); K7 on the
   ``range_split=4, range_fused`` graph's forward and backward plans
   (F=512 and F=47; the forward also at the R-GCN's F=128 and F=349), on
@@ -133,6 +137,30 @@ def _k3_call(lib, nparams):
                      [vp, i, vp, i64, vp, i64, i, vp], launch)
 
 
+def _k1_lib_of(lib, nparams):
+    """``lib`` as K1's wrapper calls it: the current interface as it is;
+    the one before the piece table (10 parameters, every row walked whole)
+    behind a shim that drops the piece arguments, and refuses a call that
+    has pieces to add."""
+    import types
+
+    if nparams != 10:
+        return lib
+    fn = lib.pygt_spmm_chunked
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, vp]
+    fn.restype = ctypes.c_int
+
+    def call(*a):  # a[11]: the number of pieces; a[15]: the stream
+        if a[11]:
+            raise SystemExit('K1 before its piece table cuts no row: give '
+                             'it @K1_LONG=1073741824')
+        return fn(*a[:9], a[15])
+
+    call.argtypes = fn.argtypes  # the wrapper sets none on a shim
+    return types.SimpleNamespace(pygt_spmm_chunked=call)
+
+
 def _k7_lib_of(lib, nparams):
     """``lib`` as K7's wrapper calls it: the current interface as it is;
     the one before the piece table (14 parameters, every run walked whole)
@@ -174,6 +202,7 @@ def _sum_cases(x, gen):
     g_uf, g_ur, g_w, w = chip_smoke.range_graphs(rp, cl)
     rp_p, cl_p = powerlaw_graph(n, chip_smoke.N_EDGES)
     g_pf = ops.build_spmm_graph(rp_p, cl_p, range_split=4, range_fused=True)
+    g_pp = ops.build_spmm_plan(rp_p, cl_p)
     x47 = x[:, :47].contiguous()
     x128 = x[:, :128].contiguous()
     x349 = x[:, :349].contiguous()
@@ -227,6 +256,7 @@ def _sum_cases(x, gen):
                k1('uniform bwd F=47', x47, g_u.bwd),
                k1('uniform fwd bf16', xb, g_u.fwd),
                k1('uniform fwd int8+scale', xq, g_u.fwd, scale),
+               k1('power-law fwd', x, g_pp),
                # GAT's widths: 4 heads of 128 and of 12 channels, and the
                # heads alone (the softmax backward's row sums).
                k1m(msgs), k1m(msgs[:, :48].contiguous()),
@@ -337,7 +367,7 @@ def main(args):
         saved = ab.set_constants(module, attrs)
         if kid in ('K1', 'K7'):
             if kid == 'K1':
-                _build._loaded['spmm_chunked'] = lib
+                _build._loaded['spmm_chunked'] = _k1_lib_of(lib, nparams)
             else:
                 _build._loaded['spmm_range_fused'] = _k7_lib_of(lib, nparams)
             for label, call, _, floor in sums[kid]:

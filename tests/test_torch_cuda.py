@@ -1238,3 +1238,133 @@ def test_rgcn_forms_match_cpu(dev, form):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(c, a, rtol=1e-4,
                                    atol=1e-4 * max(1.0, float(a.abs().max())))
+
+
+# K1 and K1m on the 120,000-edge hub row, its rows of more than K1_LONG
+# slots cut into pieces at lengths of 1, 37 and 512, and at none (a warp
+# walks each whole row). Pieces and the merge must give the plain sum, the
+# same bits from both branches, one launch a call and a piece launch only
+# where a row is cut; a row that is not cut keeps the bits of the walk
+# with no cut.
+@pytest.mark.parametrize('long_len', [1, 37, 512, 1 << 30])
+@pytest.mark.parametrize('entry', ['K1', 'K1m'])
+@pytest.mark.parametrize('f', [3, 128, 512])
+def test_k1_long_rows_cut_at_any_length(dev, monkeypatch, long_len, entry,
+                                        f):
+    from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
+
+    plan = _hub_sum_plan('K1', dev)
+    rows = plan.col_padded.shape[0] if entry == 'K1m' else 2000
+    xm, _ = _inputs(rows, f, 'f32', dev)
+    if entry == 'K1m':
+        run, plain, counter = (ops.segment_sum_chunked,
+                               ops.segment_sum_chunked_plain,
+                               ops.segment_sum_chunked)
+    else:
+        run, plain, counter = (ops.spmm_chunked, ops.spmm_chunked_plain,
+                               ops.spmm_chunked)
+    monkeypatch.setattr(k1_mod, 'K1_LONG', 1 << 30)
+    whole = run(xm, plan)
+    monkeypatch.setattr(k1_mod, 'K1_LONG', long_len)
+    cut = k1_mod.k1_pieces(plan)
+    assert (cut.rows.shape[0] > 0) == (long_len < 120_000)
+    ref = plain(xm, plan)
+    mag = plain(xm.abs(), plan)
+    outs = []
+    for src in (xm, _one_element_in(xm)):
+        before = (counter.launches, counter.piece_launches)
+        got = run(src, plan)
+        torch.cuda.synchronize()
+        assert (counter.launches, counter.piece_launches) == (
+            before[0] + 1, before[1] + int(cut.rows.shape[0] > 0))
+        assert bool(((got - ref).abs() <= RTOL * mag + ATOL).all())
+        outs.append(got)
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    kept = torch.ones(plan.num_rows, dtype=torch.bool, device=dev)
+    kept[cut.rows[:, 0].long()] = False
+    assert torch.equal(outs[0][kept].view(torch.int32),
+                       whole[kept].view(torch.int32))
+
+
+# K1 with rows cut in every type: bf16 and int8 (with its column scale)
+# at the hub row, against the plain version.
+@pytest.mark.parametrize('mode', ['bf16', 'int8'])
+@pytest.mark.parametrize('f', [47, 512])
+def test_k1_long_rows_cut_in_every_type(dev, mode, f):
+    plan = _hub_sum_plan('K1', dev)
+    xm, scale = _inputs(2000, f, mode, dev)
+    before = ops.spmm_chunked.piece_launches
+    got = ops.spmm_chunked(xm, plan, scale)
+    torch.cuda.synchronize()
+    assert ops.spmm_chunked.piece_launches == before + 1
+    ref = ops.spmm_chunked_plain(xm, plan, scale)
+    xa = xm.abs() if mode != 'int8' else xm.abs().to(torch.int8)
+    mag = ops.spmm_chunked_plain(xa, plan, scale)
+    assert bool(((got - ref).abs() <= RTOL * mag + ATOL).all())
+
+
+# A K2h launch over a hot level of pads only: a split without hot columns
+# lifted by pad_hot to its siblings' width, whose row list is empty.
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16,
+                                   torch.float32])
+def test_k2h_over_an_all_pad_hot_level(dev, dtype):
+    from pyg_lib_tpu_torch.ops.kernels.spmm_dedup import (hot_list, pad_hot,
+                                                          pad_plan)
+
+    rowptr, col = GRAPHS['powerlaw']()
+    bare = ops.build_dedup_plan(rowptr, col, ec=256, hot='off', device=dev)
+    lifted = pad_hot(pad_plan(bare, bare.num_chunks + 9), 64, dtype=dtype)
+    assert lifted.num_hot == 64 and hot_list(lifted).src.numel() == 0
+    x = torch.randn((3000, 47), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    before = ops.dedup_sum.hot_launches
+    got = ops.dedup_sum(x, lifted)
+    torch.cuda.synchronize()
+    assert ops.dedup_sum.hot_launches == before + 1
+    ref = ops.dedup_sum_plain(x, bare)
+    mag = ops.dedup_sum_plain(x.abs(), bare)
+    assert bool(((got - ref).abs() <= RTOL * mag + ATOL).all())
+
+
+# A small sharded graph on the card against the same graph on the CPU
+# (the plain versions): plain split plans, column ranges, dedup splits
+# with padded hot levels and min/max plans; sum and mean in every
+# precision, max and min exact with their gradients. The transpose's hub
+# rows (thousands of terms, K1's pieces) sum in other orders: each sum
+# within 1e-5 * Σ|terms| + 1e-5, Σ|terms| from |x| and |cot| on the CPU.
+@pytest.mark.parametrize('kind', ['plain', 'range', 'dedup'])
+def test_spmm_sharded_matches_cpu(dev, kind):
+    rowptr, col = GRAPHS['powerlaw']()
+    kw = {'plain': dict(chunk=128),
+          'range': dict(chunk='auto', range_split=3),
+          'dedup': dict(dedup='on', minmax='on')}[kind]
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(3000, 40)).astype(np.float32)
+    cot = rng.normal(size=(3000, 40)).astype(np.float32)
+    cases = [(r, p) for r in ('sum', 'mean') for p in (None, 'bf16', 'int8')]
+    if kind != 'range':
+        cases += [('max', None), ('min', None)]
+    graphs = {device: ops.build_spmm_graph_sharded(rowptr, col, 3,
+                                                   device=device, **kw)
+              for device in ('cpu', dev)}
+    for reduce, precision in cases:
+        outs = []
+        for device, graph in graphs.items():
+            xt = torch.tensor(x, device=device, requires_grad=True)
+            out = ops.spmm_sharded(xt, graph, reduce, precision)
+            (grad, ) = torch.autograd.grad(
+                (out * torch.tensor(cot, device=device)).sum(), xt)
+            outs.append((out.detach().cpu(), grad.cpu()))
+        (a, ga), (b, gb) = outs
+        # Σ|terms|: the sums over |x| and |cot|; for max/min the winners'
+        # |cot|.
+        exact = reduce in ('max', 'min')
+        xa = torch.tensor(x if exact else np.abs(x), requires_grad=True)
+        mag = ops.spmm_sharded(xa, graphs['cpu'], reduce)
+        (gmag, ) = torch.autograd.grad(
+            (mag * torch.tensor(np.abs(cot))).sum(), xa)
+        if exact:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert bool(((b - a).abs() <= RTOL * mag + ATOL).all())
+        assert bool(((gb - ga).abs() <= RTOL * gmag + ATOL).all())

@@ -183,3 +183,69 @@ def test_cpu_wrappers_do_not_count_launches():
     before = ops.spmm_chunked.launches
     ops.spmm(torch.from_numpy(features(12, 300, 8)), graph)
     assert ops.spmm_chunked.launches == before
+
+
+def _hub_graph():
+    # Geometric degrees (a third of the rows empty), row 7 of 5,000 edges
+    # and the last row, in a partial tile, of 700.
+    rng = np.random.default_rng(23)
+    deg = rng.geometric(0.1, 300) - 1
+    deg[rng.random(300) < 0.33] = 0
+    deg[7], deg[299] = 5000, 700
+    rowptr = np.zeros(301, np.int64)
+    np.cumsum(deg, out=rowptr[1:])
+    return rowptr, rng.integers(0, 300, int(rowptr[-1])).astype(np.int64)
+
+
+def _k1_schedule(x, plan, cut):
+    """K1's schedule with PyTorch: a row that is not cut as the plain
+    version sums it; a cut row as the sum, in order, of its pieces'
+    sums."""
+    terms = x[plan.col_padded.long()].float()
+    out = ops.spmm_chunked_plain(x, plan)
+    for row, first, count in cut.rows.tolist():
+        acc = torch.zeros(x.shape[1])
+        for _, lo, hi in cut.pieces[first:first + count].tolist():
+            acc = acc + terms[lo:hi].sum(0)
+        out[row] = acc
+    return out
+
+
+@pytest.mark.parametrize('long_len', [1, 64, 512])
+@pytest.mark.parametrize('graph', ['hub', 'powerlaw_transpose'])
+def test_k1_pieces_cut_long_rows_and_match_pallas_kernel(monkeypatch,
+                                                         long_len, graph):
+    if graph == 'hub':
+        rowptr, col = _hub_graph()
+    else:  # the transpose of a Zipf graph: hub rows of hundreds of edges
+        rp, cl = GRAPHS['powerlaw']()
+        rowptr, col = _csr(cl, np.repeat(np.arange(300), np.diff(rp)), 300)
+    plan_j = jchunked.build_spmm_plan(rowptr, col, chunk=128)
+    plan_t = ops.build_spmm_plan(rowptr, col, chunk=128, device='cpu')
+    monkeypatch.setattr(tchunked, 'K1_LONG', long_len)
+    cut = tchunked.k1_pieces(plan_t)
+    # Every row of more than K1_LONG slots, and no other, is listed; its
+    # pieces hold its slots in order, at most K1_LONG each.
+    bounds = plan_t.tile_ptr[:, 0, :].long()
+    runs = [(int(bounds[r // 128, r % 128]), int(bounds[r // 128,
+                                                        r % 128 + 1]))
+            for r in range(300)]
+    long_rows = [r for r, (lo, hi) in enumerate(runs) if hi - lo > long_len]
+    assert long_rows and len(long_rows) < 300
+    assert cut.rows[:, 0].tolist() == long_rows
+    assert cut.rows[:, 1].tolist() == np.concatenate(
+        [[0], np.cumsum(cut.rows[:, 2].numpy())[:-1]]).tolist()
+    assert int(cut.rows[:, 2].sum()) == cut.pieces.shape[0]
+    for row, first, count in cut.rows.tolist():
+        got = []
+        for q_row, lo, hi in cut.pieces[first:first + count].tolist():
+            assert q_row == row and 0 < hi - lo <= long_len
+            got += range(lo, hi)
+        assert got == list(range(*runs[row]))
+    assert tchunked.k1_pieces(plan_t) is cut  # cached per plan
+    # The schedule's sums against the Pallas kernel in the interpreter.
+    x = features(5, 300, 16)
+    ref = np.asarray(jchunked.spmm_plan_apply(jnp.asarray(x), plan_j,
+                                              interpret=True))
+    got = _k1_schedule(torch.from_numpy(x), plan_t, cut).numpy()
+    assert np.all(np.abs(got - ref) <= KERNEL_TOL * (1 + np.abs(ref)))
