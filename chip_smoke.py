@@ -45,6 +45,16 @@ ogbn-mag's full published shape:
   forward and backward). It runs first, in a process of its own
   (``python3 chip_smoke.py --rgcn``, with growable allocator segments):
   the stacked form needs about 55 GB of the card;
+* OGB's GIN (5 layers of 300, MLP hidden 600, a head to 47) trains
+  (Adam) on the uniform graph's CSR (K3 at F=300); PyG's PointNet++
+  (two set-abstraction levels, ``fps`` and ``radius`` each step, max
+  pools by K4, F1 for ``fps``) and a DGCNN (k=20, one static ``knn``
+  graph) train on 32 clouds of 1,024 points of ``make_cloud``'s shapes;
+  GIN and PointNet++ are held against their plain computation, DGCNN
+  against the same model on the CPU. The 14 sampled, ``index_sort``,
+  spline and geometry ops then run on the card against the CPU (F1 also
+  on one cloud of 100,000 points), and F1 is timed beside its plain
+  version, a batched plain loop and its latency floor;
 * the huge-graph step of ``bench/bench_sharded_huge.py`` at its full
   size (2,000,000 nodes, 30,009,772 edges, F=128, 8 row splits; the value
   and gradient of ``(spmm_sharded(x, g, 'mean', precision)**2).sum()``)
@@ -98,7 +108,9 @@ The script:
    the same rows, and its kernels on its own plans at F=349 (K7 and its
    transpose beside ``torch.sparse.mm``); the huge-graph part times K1
    over the hub rows of the Zipf transpose's first split, cut and uncut,
-   beside ``torch.sparse.mm``.
+   beside ``torch.sparse.mm``. The R-GCN's kernel checks hold K2, K2h
+   and K7 against f64 sums of their terms (:func:`sums64`), as the
+   huge-graph checks do.
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -168,6 +180,47 @@ BLOCK = 128  # feature columns per plain-version call at the bench shape
 HUGE_F, HUGE_SPLITS, HUGE_RANGES, HUGE_BLOCK = 128, 8, 4, 16
 # The sharded process's last line: this, then its results as JSON.
 SHARDED_RESULT = 'sharded launches: '
+# OGB's GIN (ogb examples/graphproppred/mol/main_pyg.py, --num_layer 5
+# --emb_dim 300): 5 layers of 300, MLP hidden 600 (hidden_mult 2), here on
+# the uniform graph's CSR with x at F=300 and a linear head to 47 classes.
+GIN_DIMS, GIN_CLASSES = [300] * 6, 47
+# With no batch norm (the JAX package's GIN has none), each layer's sum
+# over about 15.5 neighbours grows the activations some 16-fold: unit
+# features gave logits near 1e4 and a rising loss (16,023 to 47,801 in 3
+# Adam steps on the H100), so the features are drawn at this scale.
+GIN_X_SCALE = 1e-4
+# Adam's first steps move every weight by about the learning rate, which
+# 5 such layers compound: at 1e-3 the loss rose (4.3 to 32 in 5 steps on a
+# 20,000-node uniform graph on the CPU), at 1e-4 it falls.
+GIN_LR = 1e-4
+# PyG's examples/pointnet2_classification.py without batch norm and
+# dropout: SA levels (ratio, r, input features, MLP), the global MLP over
+# [x, pos] and the head; radius(max_num_neighbors=64); 32 clouds of 1,024
+# points of make_cloud's shapes (seed 0) in place of ModelNet; 10 classes.
+CLOUDS, CLOUD_POINTS, POINT_CLASSES = 32, 1024, 10
+SA_LEVELS = ((0.5, 0.2, 0, [64, 64, 128]), (0.25, 0.4, 128, [128, 128, 256]))
+GLOBAL_MLP, PN_HEAD = [259, 256, 512, 1024], [1024, 512, 256, POINT_CLASSES]
+RADIUS_CAP = 64
+# PyG's examples/dgcnn_classification.py with one static knn graph per
+# cloud: k=20, EdgeConv [3, 64, 128], a max over each cloud, a head.
+DGCNN_K, DGCNN_DIMS = 20, [3, 64, 128]
+DGCNN_HEAD = [128, 1024, 512, 256, POINT_CLASSES]
+POINT_LR = 1e-3
+# The device-op phase: F1 alone on one cloud of BIG_CLOUD points (ratio
+# BIG_RATIO); spline_weighting at PyG examples/faust.py's SplineConv(., 32,
+# dim=3, kernel_size=5) widths over the FAUST mesh's 41,328 directed edges
+# (6,890 vertices, 13,776 faces), M_in 1 (conv1) and 32; graclus_cluster
+# and edge_sample on a graph of GRACLUS_NODES nodes.
+BIG_CLOUD, BIG_RATIO = 100_000, 0.1
+# DGCNN's dynamic EdgeConv layers run knn over 64 features a point: knn is
+# timed there (cosine) with its dot products summed one feature at a time
+# and with them from one GEMM a block.
+KNN_FEATURES = 64
+FAUST_EDGES, SPLINE_KERNEL, SPLINE_OUT = 41_328, 5, 32
+GRACLUS_NODES = 20_000
+# A knn, radius or nearest pair may differ between the card and the CPU
+# only where its f64 distance lies within this of the k-th distance or r².
+PAIR_RTOL = 1e-6
 # The earlier designs' times of K5 (its [N, F] key table) and K6 (a warp
 # per row) on this script's shapes, printed beside the current ones
 # (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
@@ -183,7 +236,8 @@ COUNTERS = {'K1': ('spmm_chunked', 'launches'),
             'K6': ('segment_softmax_planned', 'launches'),
             'K7': ('fused_range_sum', 'launches'),
             'K1m': ('segment_sum_chunked', 'launches'),
-            'K1p': ('spmm_chunked', 'piece_launches')}
+            'K1p': ('spmm_chunked', 'piece_launches'),
+            'F1': ('fps_kernel', 'launches')}
 SOURCES = {
     'K1': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
     'K2': ('spmm_dedup.cu', 'pyg_lib_tpu/ops/pallas/spmm_dedup.py:527'),
@@ -202,6 +256,7 @@ SOURCES = {
            'pyg_lib_tpu/ops/pallas/spmm_range_fused.py:221'),
     'K1m': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
     'K1p': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
+    'F1': ('fps.cu', 'pyg_lib_tpu/ops/geometry.py:59'),
 }
 
 
@@ -302,20 +357,36 @@ def tie_values(n, f, gen, dev):
     return v
 
 
-def leaky_relu_signs(fn):
-    """Run ``fn()``; return its result and, for each ``leaky_relu`` call
-    it made, in order, which inputs were > 0 (the branch taken)."""
+def relu_signs(fn, replay=None):
+    """Run ``fn()``; return its result and, for each ``leaky_relu`` and
+    ``torch.relu`` call it made, in order, which inputs were > 0 (the
+    branch taken). With ``replay``, such a list from another run, each
+    call takes the recorded branch instead (``where(sign, x, slope·x)``,
+    0 for relu): a plain path then takes the kernel path's branches."""
     import torch
     from torch.overrides import TorchFunctionMode
 
-    signs = []
+    leaky = torch.nn.functional.leaky_relu
+    signs = [] if replay is None else list(replay)
+    at = [0]
 
     class Record(TorchFunctionMode):
 
         def __torch_function__(self, func, types, args=(), kwargs=None):
-            if func is torch.nn.functional.leaky_relu:
-                signs.append(args[0].detach() > 0)
-            return func(*args, **(kwargs or {}))
+            kwargs = kwargs or {}
+            if func is not leaky and func is not torch.relu:
+                return func(*args, **kwargs)
+            x = args[0]
+            if replay is None:
+                signs.append(x.detach() > 0)
+                return func(*args, **kwargs)
+            sign = signs[at[0]].to(x.device)
+            at[0] += 1
+            if func is torch.relu:
+                return torch.where(sign, x, torch.zeros_like(x))
+            slope = kwargs.get('negative_slope',
+                               args[1] if len(args) > 1 else 0.01)
+            return torch.where(sign, x, x * slope)
 
     with Record():
         result = fn()
@@ -325,7 +396,7 @@ def leaky_relu_signs(fn):
 def plain_gat_batch(params, x, rowptr, row, col, signs=None):
     """``gat_forward`` through the plain versions: the plain K3
     (``segment_sum_csr_plain``) in place of K3. With ``signs``, from
-    :func:`leaky_relu_signs` on the kernel path, each layer's leaky_relu
+    :func:`relu_signs` on the kernel path, each layer's leaky_relu
     takes the kernel path's branch: a logit within the two paths'
     rounding difference of 0 would otherwise switch slope (1 or 0.2) and
     move an attention-weight gradient by 0.8 |g·h|. Returns the output
@@ -1471,7 +1542,7 @@ def main():
           flush=True)
 
     gat_leaves = list(gat_b.parameters())
-    out, signs = leaky_relu_signs(lambda: gat_b(x, *batch_b))
+    out, signs = relu_signs(lambda: gat_b(x, *batch_b))
     if len(signs) != len(gat_b.w):
         raise AssertionError(f'GATBatch made {len(signs)} leaky_relu calls '
                              f'for {len(gat_b.w)} layers')
@@ -1493,6 +1564,10 @@ def main():
     profile_step('GATBatch uniform', gat_b, None, gat_b_ms, top_n=16,
                  call=lambda: gat_b(x, *batch_b))
     del gat_b, row_b, col_b, batch_b
+    torch.cuda.empty_cache()
+
+    # -- 4a. GIN, PointNet++ and DGCNN, and the geometry ops --------------
+    f1_row = geometry_paths(dev, run_path, rp_u, cl_u)
     torch.cuda.empty_cache()
 
     paths.restore()
@@ -1763,6 +1838,7 @@ def main():
     # K1's pieces, timed by the sharded process over the huge power-law
     # graph's hub rows.
     rows.append(dict(sharded['row'], launches=launches['K1p']))
+    rows.append(dict(f1_row, launches=launches['F1']))
     return smi, errs, rows
 
 
@@ -1916,6 +1992,129 @@ def describe(plan):
                 f'weighted={plan.weights is not None}')
     return (f'K1 chunked chunk={plan.chunk} '
             f'E_pad={plan.col_padded.numel()}')
+
+
+def _terms(plan):
+    """The terms of the kernel that applies ``plan``: a list of ``(src,
+    dst, w)``, each term ``w * x[src]`` added into row ``dst`` (``w`` None
+    for 1), and the rows of the result before it is cut to
+    ``plan.num_rows``. K1 (``SpmmPlan``) reads each real slot's column;
+    K1 per range (``RangeSpmmPlan``) and K7 (``FusedRangePlan``) each
+    range's slots at ``lo_s + col``, K7 times the range's weights; K2
+    (``DedupSpmmPlan``) each real edge's unique row times its weight, and
+    K2h its hot list's entries times their counts or weight sums."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import TR, _padded_rows
+
+    def slots(p, lo=0, w=None):
+        slot, row = _padded_rows(p.tile_ptr)
+        return (p.col_padded[slot].long() + lo, row,
+                None if w is None else w[slot])
+
+    if isinstance(plan, ops.SpmmPlan):
+        return [slots(plan)], plan.num_rows
+    if isinstance(plan, (ops.RangeSpmmPlan, ops.FusedRangePlan)):
+        ws = getattr(plan, 'weights', None) or [None] * len(plan.plans)
+        return [slots(p, lo, w) for (lo, _), p, w in
+                zip(plan.bounds, plan.plans, ws)], plan.num_rows
+    meta = plan.edge_meta
+    c, e = torch.nonzero(meta[:, 0, :] >= 0, as_tuple=True)
+    terms = [(plan.uniq_cols[c * plan.uc + meta[c, 1, e].long()].long(),
+              plan.chunk_tile[c].long() * TR + meta[c, 0, e].long(),
+              meta[c, 2, e].view(torch.float32) if plan.weighted else None)]
+    rows = max(-(-plan.num_rows // TR), 1) * TR
+    if plan.num_hot:
+        # From the plan's dense hot_w, not the hot list K2h reads, which
+        # is derived from it: a fault there must not reach the reference.
+        row, h = torch.nonzero(plan.hot_w, as_tuple=True)
+        terms.append((plan.hot_cols[h].long(), row, plan.hot_w[row, h]))
+    return terms, rows
+
+
+def sums64(xm, plan, absolute=False, block=HUGE_BLOCK):
+    """What the kernel that applies ``plan`` to ``xm`` computes (K1, K1 per
+    range, K2, K2h or K7, weighted or not: :func:`_terms`), summed in f64,
+    ``block`` columns at a time; with ``absolute``, the sums of the terms'
+    magnitudes, Σ|terms|. An f32 sum of the same terms is off by its own
+    rounding, up to its addition depth times 2**-24 of Σ|terms|, which on
+    rows of thousands of terms is more than the kernels' bound allows."""
+    import torch
+
+    terms, rows = _terms(plan)
+    outs = []
+    for lo in range(0, xm.shape[1], block):
+        xb = xm[:, lo:lo + block]
+        out = torch.zeros((rows, xb.shape[1]), dtype=torch.float64,
+                          device=xm.device)
+        for src, dst, w in terms:
+            msgs = xb[src].double()
+            if w is not None:
+                msgs *= w.double()[:, None]
+            out.index_add_(0, dst, msgs.abs() if absolute else msgs)
+        outs.append(out[:plan.num_rows])
+    return torch.cat(outs, 1)
+
+
+def depth(plan, f):
+    """Per row of ``plan``, the most f32 roundings a term passes through in
+    the kernel that applies it at width ``f``, which keep the kernel within
+    depth * 2**-24 of the terms' magnitude from the exact sum: K1's walk
+    adds a row's slots in order, a cut row's pieces of at most K1_LONG in
+    8 runs a warp then across the warps and onto the row
+    (csrc/row_pieces.cuh); K1 per range adds the ranges' results; K7's
+    walk adds a row's slots of every range in order, its runs of more than
+    K7_LONG slots in a range cut into pieces as K1's, and a weight is
+    fused into its term's addition; K2 adds a warp's run of at most ec/16
+    edges, then at most 16 runs a chunk of the tile's chunks in a block's
+    range into shared memory, then the blocks sharing the tile by
+    atomics, the ranges being 8 per block the card holds at once (1 to 4
+    an SM) over the F-blocks of 32 or 64 features (csrc/spmm_dedup.cu),
+    and one more for a weight; K2h adds the row's hot entries onto that. Two
+    more for a column scale and the mean's division."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
+    from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
+    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import TR
+
+    def runs(p):  # each row's slot count in plan p
+        bounds = p.tile_ptr[:, 0, :TR + 1].long()
+        return (bounds[:, 1:] - bounds[:, :-1]).reshape(-1)[:plan.num_rows]
+
+    def cut(k, long_len):  # depth of runs k, cut above long_len
+        pieces = -(-k // long_len)
+        return torch.where(k > long_len,
+                           long_len + -(-pieces // 8) + 8, k)
+
+    if isinstance(plan, ops.RangeSpmmPlan):
+        return (torch.stack([depth(p, f) for p in plan.plans]).amax(0)
+                + len(plan.plans))
+    if isinstance(plan, ops.SpmmPlan):
+        return cut(runs(plan), k1_mod.K1_LONG) + 2
+    if isinstance(plan, ops.FusedRangePlan):
+        long_len = k7_mod.K7_LONG
+        k = torch.stack([runs(p) for p in plan.plans])
+        walked = torch.where(k > long_len, 0, k).sum(0)
+        pieces = torch.where(k > long_len, -(-k // long_len), 0).sum(0)
+        return (walked + torch.where(pieces > 0,
+                                     long_len + -(-pieces // 8) + 9, 0) + 2)
+    c = plan.num_chunks
+    sms = torch.cuda.get_device_properties(
+        plan.chunk_tile.device).multi_processor_count
+    r_lo = max(min(c, -(-8 * sms // -(-f // 32))), 1)
+    r_hi = max(min(c, -(-32 * sms // -(-f // 64))), 1)
+    tiles = max(-(-plan.num_rows // TR), 1)
+    ct = torch.bincount(plan.chunk_tile.long(), minlength=tiles)
+    in_range = ct.clamp(max=-(-c // r_lo))
+    blocks = torch.minimum(ct, -(-ct // max(c // r_hi, 1)) + 1)
+    d = (-(-plan.ec // 16) + 16 * in_range + blocks).repeat_interleave(
+        TR)[:plan.num_rows] + int(plan.weighted)
+    if plan.num_hot:
+        d = d + (plan.hot_w != 0).sum(1)[:plan.num_rows] + 1
+    return d + 2
 
 
 def rgcn_paths(dev, run_path):
@@ -2192,18 +2391,32 @@ def rgcn_paths(dev, run_path):
         f = MAG_DIMS[-1]
         errs = {}
 
-        def check(label, kid, got, ref, mag):
-            """A kernel's output against its plain version's, within
-            SUM_RTOL of the sum of the terms' magnitudes (``mag``)."""
-            err = (got - ref).abs()
+        def check(label, kid, got, ref, mag, against='its plain version',
+                  note=''):
+            """A kernel's output against ``ref``, within SUM_RTOL of the
+            sum of the terms' magnitudes (``mag``)."""
+            err = (got.double() - ref.double()).abs()
             e = float(err.max()) if err.numel() else 0.0
             errs[kid] = max(errs.get(kid, 0.0), e)
-            print(f'  {kid} {label}: max_abs_err {e:.3g} (tolerance '
-                  f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
+            print(f'  {kid} {label}: max_abs_err {e:.3g} against {against} '
+                  f'(tolerance {SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})'
+                  f'{note}', flush=True)
             if (not torch.isfinite(got).all()
                     or bool((err > SUM_RTOL * mag + SUM_ATOL).any())):
-                raise AssertionError(f'{kid} {label} disagrees with its '
-                                     f'plain version: max_abs_err {e}')
+                raise AssertionError(f'{kid} {label} disagrees with '
+                                     f'{against}: max_abs_err {e}')
+
+        def check64(label, kid, got, plan, src):
+            """:func:`check` against the f64 sums of the kernel's terms
+            (:func:`sums64`), with the error over Σ|terms| and the
+            kernel's addition depth (:func:`depth`) printed beside it."""
+            ref, mag = sums64(src, plan), sums64(src, plan, absolute=True)
+            rel = float(((got.double() - ref).abs() / mag.clamp(min=1))
+                        .max()) if got.numel() else 0.0
+            check(label, kid, got, ref, mag, 'the f64 sums',
+                  f'; largest error / max(sum|terms|, 1) {rel:.3g}; '
+                  f'addition depth up to '
+                  f'{int(depth(plan, got.shape[1]).max())}')
 
         for k in rels:
             for side, plan in (('fwd', graphs[k].fwd),
@@ -2213,8 +2426,7 @@ def rgcn_paths(dev, run_path):
                 run = (ops.dedup_sum if isinstance(plan, ops.DedupSpmmPlan)
                        else ops.spmm_chunked)
                 kid, label = rgcn_kid(plan), f'per-relation {k[1]} {side}'
-                check(f'{label} F={f}', kid, run(xs, plan),
-                      plain_sum(xs, plan), plain_sum(xs.abs(), plan))
+                check64(f'{label} F={f}', kid, run(xs, plan), plan, xs)
                 ms = cuda_ms(lambda: run(xs, plan))
                 floor = edges[k[1]] * f * 4 / HBM_BYTES_PER_S * 1e3
                 print(f'  {kid} {label} F={f} f32: {ms:.3f} ms, gather '
@@ -2239,8 +2451,8 @@ def rgcn_paths(dev, run_path):
                 ('backward (transpose)', sliced.graphs['paper'].bwd,
                  g_paper, a[1])):
             label = f'range-sliced into paper {side}'
-            check(f'{label} F={f}', 'K7', ops.fused_range_sum(src, plan),
-                  plain_sum(src, plan), plain_sum(src.abs(), plan))
+            check64(f'{label} F={f}', 'K7', ops.fused_range_sum(src, plan),
+                    plan, src)
             ms = cuda_ms(lambda: ops.fused_range_sum(src, plan), iters=3,
                          warmup=1)
             lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, src), iters=3,
@@ -2349,9 +2561,7 @@ def sharded_paths(dev, run_path):
 
     from pyg_lib_tpu_torch import ops
     from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
-    from pyg_lib_tpu_torch.ops.kernels import spmm_dedup as k2_mod
     from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
-    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import TR, _padded_rows
     from pyg_lib_tpu_torch.testing import HUGE_NODES, huge_graph
 
     tspmm = sys.modules['pyg_lib_tpu_torch.ops.spmm']
@@ -2374,91 +2584,16 @@ def sharded_paths(dev, run_path):
             out.add('K1p')
         return out
 
-    def sums64(xm, plan):
-        """``spmm_chunked_plain`` with its sums in f64."""
-        slot, row = _padded_rows(plan.tile_ptr)
-        out = torch.zeros((plan.num_rows, xm.shape[1]), dtype=torch.float64,
-                          device=xm.device)
-        return out.index_add_(0, row, xm[plan.col_padded[slot].long()]
-                              .double())
-
-    def dedup64(xm, plan):
-        """``dedup_sum_plain`` of an unweighted plan (as the sharded ones
-        are) with its sums in f64, ``HUGE_BLOCK`` columns at a time."""
-        rows = plan.edge_meta[:, 0, :]
-        c, e = torch.nonzero(rows >= 0, as_tuple=True)
-        src = plan.uniq_cols[c * plan.uc + plan.edge_meta[c, 1, e].long()]
-        dst = plan.chunk_tile[c].long() * TR + rows[c, e].long()
-        del c, e
-        tiles = max(-(-plan.num_rows // TR), 1)
-        hot = plan.hot_w.double() if plan.num_hot else None
-        outs = []
-        for lo in range(0, xm.shape[1], HUGE_BLOCK):
-            xb = xm[:, lo:lo + HUGE_BLOCK]
-            out = torch.zeros((tiles * TR, xb.shape[1]), dtype=torch.float64,
-                              device=xm.device).index_add_(
-                                  0, dst, xb[src.long()].double())
-            if hot is not None:
-                out += hot @ xb[plan.hot_cols.long()].double()
-            outs.append(out[:plan.num_rows])
-        return torch.cat(outs, 1)
-
-    def k1_plain(xm, plan):
-        return by_columns(sums64, xm, plan, block=HUGE_BLOCK)
-
     def plain_split(xm, plan, scale=None):
-        """The plain version of the split's kernel with its sums in f64:
-        the transpose's hub rows add up to 5.6M terms of one sign, each of
-        which an f32 index_add_ rounds to its running sum's ulp (its
-        result was 1% off on S4's first split)."""
-        if isinstance(plan, ops.DedupSpmmPlan):
-            out = dedup64(xm, plan)
-        elif isinstance(plan, ops.RangeSpmmPlan):
-            out = sum(by_columns(sums64, xm[lo:hi], p, block=HUGE_BLOCK)
-                      for (lo, hi), p in zip(plan.bounds, plan.plans))
-        else:
-            out = k1_plain(xm, plan)
+        """The plain version of the split's kernel with its sums in f64
+        (:func:`sums64`): the transpose's hub rows add up to 5.6M terms of
+        one sign, each of which an f32 index_add_ rounds to its running
+        sum's ulp (its result was 1% off on S4's first split)."""
+        out = sums64(xm, plan)
         return out if scale is None else out * scale[None, :].double()
 
-    def depth(plan):
-        """Per row of ``plan``, the most f32 roundings a term passes
-        through in its kernel, which keep the kernel within depth * 2**-24
-        of the terms' magnitude from the exact sum: K1's walk adds a row's
-        slots in order, a cut row's pieces of at most K1_LONG in 8 runs a
-        warp then across the warps and onto the row (csrc/row_pieces.cuh);
-        K1 per range adds the ranges' results; K2 adds a warp's run of at
-        most ec/16 edges, then at most 16 runs a chunk of the tile's
-        chunks in a block's range into shared memory, then the blocks
-        sharing the tile by atomics, the ranges being 8 per block the card
-        holds at once (1 to 4 an SM) over the F-blocks of 32 or 64
-        features (csrc/spmm_dedup.cu); K2h adds the row's hot list onto
-        that. Two more for a column scale and the mean's division."""
-        if isinstance(plan, ops.RangeSpmmPlan):
-            return (torch.stack([depth(p) for p in plan.plans]).amax(0)
-                    + len(plan.plans))
-        if isinstance(plan, ops.SpmmPlan):
-            bounds = plan.tile_ptr[:, 0, :TR + 1].long()
-            k = (bounds[:, 1:] - bounds[:, :-1]).reshape(-1)[:plan.num_rows]
-            cut = k1_mod.K1_LONG
-            pieces = -(-k // cut)
-            return torch.where(k > cut, cut + -(-pieces // 8) + 8, k) + 2
-        c = plan.num_chunks
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        r_lo = max(min(c, -(-8 * sms // -(-f // 32))), 1)
-        r_hi = max(min(c, -(-32 * sms // -(-f // 64))), 1)
-        tiles = max(-(-plan.num_rows // TR), 1)
-        ct = torch.bincount(plan.chunk_tile.long(), minlength=tiles)
-        in_range = ct.clamp(max=-(-c // r_lo))
-        blocks = torch.minimum(ct, -(-ct // max(c // r_hi, 1)) + 1)
-        d = (-(-plan.ec // 16) + 16 * in_range + blocks).repeat_interleave(
-            TR)[:plan.num_rows]
-        if plan.num_hot:
-            ptr = k2_mod.hot_list(plan).ptr.long()
-            d = d + (ptr[1:] - ptr[:-1])[:plan.num_rows] + 1
-        return d + 2
-
     def depths(plans, rows):
-        return torch.cat([depth(p) for p in plans])[:rows]
+        return torch.cat([depth(p, f) for p in plans])[:rows]
 
     def plain_sharded(v, plans, rows, precision):
         """The sharded sum through the plain versions over the rows the
@@ -2580,7 +2715,7 @@ def sharded_paths(dev, run_path):
         (grad_u, ) = torch.autograd.grad((out_u**2).sum(), xu)
         # Each side within its own depth of the exact sum.
         check(f'{label} forward against the unsharded spmm', None, out,
-              out_u.detach(), mag / d, deep=fdeep + depth(single.fwd))
+              out_u.detach(), mag / d, deep=fdeep + depth(single.fwd, f))
         # The two cotangents may differ by rounding, and so their bf16
         # rows or int8 quanta: one step a term.
         extra, why = 0.0, ''
@@ -2590,7 +2725,7 @@ def sharded_paths(dev, run_path):
             extra = deg_in[:, None] * 2.0 * gscale[None, :]
             why = ' + two quanta a term'
         check(f'{label} gradient against the unsharded spmm', None, grad,
-              grad_u, gmag, extra, why, deep=bdeep + depth(single.bwd))
+              grad_u, gmag, extra, why, deep=bdeep + depth(single.bwd, f))
 
     def winners(plans, deg, is_min):
         """The plain versions' max/min values (0 on an empty row) and
@@ -2778,10 +2913,10 @@ def sharded_paths(dev, run_path):
                   .max())
     check(f'K1p S4 backward split 0 (rows up to {longest} slots, '
           f'{cut.pieces.shape[0]} pieces) bf16', 'K1p',
-          ops.spmm_chunked(g16, plan), k1_plain(g16, plan),
-          k1_plain(g16.abs(), plan))
+          ops.spmm_chunked(g16, plan), sums64(g16, plan),
+          sums64(g16.abs(), plan))
     check_exact('S4 backward split 0', 'K1p', ops.spmm_chunked, plan,
-                k1_plain)
+                sums64)
     k1_ms = {'bf16': cuda_ms(lambda: ops.spmm_chunked(g16, plan), iters=5),
              'f32': cuda_ms(lambda: ops.spmm_chunked(gb, plan), iters=5)}
     plain_ms = cuda_ms(lambda: by_columns(ops.spmm_chunked_plain, g16, plan,
@@ -2846,13 +2981,12 @@ def sharded_paths(dev, run_path):
     # alone, as K1's above.
     plan = g5.bwd[0]
     kid = kid_of(plan)
-    call, plain = ((ops.dedup_sum, dedup64)
-                   if isinstance(plan, ops.DedupSpmmPlan) else
-                   (ops.spmm_chunked, k1_plain))
+    call = (ops.dedup_sum if isinstance(plan, ops.DedupSpmmPlan) else
+            ops.spmm_chunked)
     g16 = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
     check(f'{kid} S5 backward split 0 bf16', kid, call(g16, plan),
-          plain(g16, plan), plain(g16.abs(), plan))
-    check_exact('S5 backward split 0', kid, call, plan, plain)
+          sums64(g16, plan), sums64(g16.abs(), plan))
+    check_exact('S5 backward split 0', kid, call, plan, sums64)
     print(f'sharded build seconds: {report}', flush=True)
     return errs, row
 
@@ -2881,6 +3015,462 @@ def sharded_main():
         'launches': paths.launches, 'errs': errs, 'row': row,
         'by_width': [[kid, f, n] for (kid, f), n in
                      sorted(paths.by_width.items())]}), flush=True)
+
+
+def plain_kernels():
+    """A context in which the port's ops run F1, K3 and K4 through their
+    plain versions on the card (K3's and K4's ``BLOCK`` columns at a
+    time): the models' plain computation."""
+    import contextlib
+    from unittest import mock
+
+    from pyg_lib_tpu_torch import ops
+
+    # The module, not the op of its name that the package exports.
+    geo_mod = sys.modules['pyg_lib_tpu_torch.ops.geometry']
+    seg_mod = sys.modules['pyg_lib_tpu_torch.ops.segment_csr']
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(geo_mod, 'fps_kernel',
+                                          ops.fps_plain))
+    stack.enter_context(mock.patch.object(
+        seg_mod, 'segment_sum_csr_kernel',
+        lambda src, ptr: by_columns(ops.segment_sum_csr_plain, src, ptr)))
+    stack.enter_context(mock.patch.object(
+        seg_mod, 'segment_max_kernel',
+        lambda src, plan, idx, negate=False: by_columns(
+            ops.segment_max_plain, src, plan, idx, negate)))
+    return stack
+
+
+def cloud_batch(dev):
+    """``CLOUDS`` clouds of ``CLOUD_POINTS`` points of ``make_cloud``'s
+    shapes (seed 0): the points on ``dev``, their host ptr, the labels."""
+    import torch
+
+    from pyg_lib_tpu_torch.examples.train_pointcloud import make_cloud
+
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 3, CLOUDS)
+    pts = np.concatenate([make_cloud(rng, int(y), CLOUD_POINTS)
+                          for y in labels])
+    ptr = np.arange(CLOUDS + 1, dtype=np.int64) * CLOUD_POINTS
+    return (torch.from_numpy(pts).to(dev), ptr,
+            torch.from_numpy(labels).to(dev))
+
+
+def grouping(pos, ptr, ratio, r):
+    """One set-abstraction level's grouping, as PyG's SAModule builds it:
+    ``fps`` centroids of each cloud of the host ``ptr``, their host ptr,
+    and the centroids' ``radius`` groups (at most ``RADIUS_CAP``) as a CSR
+    over the centroids with no trailing pad (``E == rowptr[-1]``)."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    idx = ops.fps(pos, ptr, ratio)
+    n = np.diff(ptr)
+    m = np.where(n > 0, np.maximum(1, np.ceil(ratio * n)), 0)
+    cptr = np.concatenate([[0], np.cumsum(m)]).astype(np.int64)
+    pairs = ops.radius(pos, pos[idx.long()], r, ptr, cptr, RADIUS_CAP)
+    counts = torch.bincount(pairs[0], minlength=idx.shape[0])
+    rowptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return idx, cptr, rowptr, pairs[1]
+
+
+def pointnet2(p, pos, ptr):
+    """PointNet++ classification logits of the clouds ``pos`` (host
+    ``ptr``): the SA levels over ``grouping``, the global MLP over ``[x,
+    pos]``, a max over each cloud and the head; and each level's edge
+    count."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.models import pointnet_sa_forward
+    from pyg_lib_tpu_torch.models.extra import _mlp
+
+    feat, edges = None, []
+    for (ratio, r, _, _), sa in zip(SA_LEVELS, p['sa']):
+        idx, ptr, rowptr, col = grouping(pos, ptr, ratio, r)
+        edges.append(int(col.shape[0]))
+        pos, feat = pointnet_sa_forward(sa, pos, feat, idx, rowptr, col)
+    h = _mlp(p['glob'], torch.cat([feat, pos], 1))
+    pooled = ops.segment_max_csr(h, torch.from_numpy(ptr).to(h.device))[0]
+    return _mlp(p['head'], pooled), edges
+
+
+def fps_batched_loop(pos, clouds):
+    """The nearest thing to a library call for F1: one plain PyTorch loop
+    over all clouds at once (clouds padded to the longest, pad distances
+    -inf), each step a handful of batched launches."""
+    import torch
+
+    lo, n, m, start = (torch.from_numpy(c).to(pos.device)
+                       for c in np.asarray(clouds).T)
+    nmax, b = int(n.max()), lo.shape[0]
+    at = torch.arange(nmax, device=pos.device)
+    real = at[None, :] < n[:, None]
+    pts = pos[(lo[:, None] + at[None, :]).clamp(max=pos.shape[0] - 1)]
+    dist = torch.where(real, float('inf'), float('-inf'))
+    picks = torch.zeros((b, int(m.max())), dtype=torch.int64,
+                        device=pos.device)
+    picks[:, 0] = start
+    rows = torch.arange(b, device=pos.device)
+    for i in range(1, picks.shape[1]):
+        sq = pts - pts[rows, picks[:, i - 1]][:, None, :]
+        sq = sq * sq
+        d = sq[..., 0]
+        for j in range(1, pos.shape[1]):
+            d = d + sq[..., j]
+        dist = torch.minimum(dist, d)
+        picks[:, i] = dist.argmax(1)
+    keep = torch.arange(picks.shape[1], device=pos.device)[None, :] < m[:,
+                                                                        None]
+    return (picks + lo[:, None])[keep].to(torch.int32)
+
+
+def check_pairs(label, got, ref, d64, bound):
+    """``got`` (the card's) equal to ``ref`` (the CPU's), except pairs in
+    one and not the other whose f64 distance ``d64(q, c)`` lies within
+    ``PAIR_RTOL`` relative of ``bound(q)`` (the query's k-th distance, or
+    r²); the pairs both hold come in the same order."""
+    if torch_equal(got, ref):
+        print(f'  {label}: {ref.shape[-1]} pairs, equal', flush=True)
+        return
+    g = list(map(tuple, got.cpu().reshape(2, -1).T.tolist()))
+    r = list(map(tuple, ref.reshape(2, -1).T.tolist()))
+    gs, rs = set(g), set(r)
+    odd = gs ^ rs
+    far = [(q, c) for q, c in odd
+           if abs(d64(q, c) - bound(q)) > PAIR_RTOL * bound(q)]
+    same_order = [t for t in g if t in rs] == [t for t in r if t in gs]
+    print(f'  {label}: {len(odd)} of {len(r)} pairs differ, {len(far)} of '
+          f'them beyond {PAIR_RTOL:g} of the bound; common pairs in the '
+          f'same order: {same_order}', flush=True)
+    if far or not same_order:
+        raise AssertionError(f'{label} differs between the card and the CPU')
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def device_ops(dev, rp, cl, pos, ptr):
+    """Each of the 14 ops of ``ops.sampled``, ``ops.index_sort``,
+    ``ops.spline`` and ``ops.geometry`` on the card against the same call
+    on CPU copies of its inputs: floats within 1e-5 of max|CPU|; fps,
+    graclus_cluster, edge_sample, index_sort and grid_cluster equal;
+    knn, radius and nearest as :func:`check_pairs` says. Returns F1's
+    largest error (0 when equal) and the big cloud. Also times knn at
+    ``KNN_FEATURES`` with its dot products summed and from a GEMM."""
+    from unittest import mock
+
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    geo_mod = sys.modules['pyg_lib_tpu_torch.ops.geometry']
+
+    gen = torch.Generator().manual_seed(13)
+    n = rp.shape[0] - 1
+    dst = torch.from_numpy(np.repeat(np.arange(n), np.diff(rp)))
+    src = torch.from_numpy(cl.astype(np.int64))
+    left = torch.randn((n, 64), generator=gen)
+    right = torch.randn((n, 64), generator=gen) + 3.0
+    for op in (ops.sampled_add, ops.sampled_sub, ops.sampled_mul,
+               ops.sampled_div):
+        got = op(left.to(dev), right.to(dev), dst.to(dev), src.to(dev))
+        close(f'  {op.__name__} [{n}, 64] at {src.shape[0]} edges', got.cpu(),
+              op(left, right, dst, src), rtol=1e-5)
+    got = ops.index_sort(src.to(dev), max_value=n)
+    ref = ops.index_sort(src)
+    if not (torch_equal(got[0], ref[0]) and torch_equal(got[1], ref[1])):
+        raise AssertionError('index_sort differs between the card and CPU')
+    print(f'  index_sort over {src.shape[0]} column ids: equal', flush=True)
+    del left, right, dst, src
+
+    pseudo = torch.rand((FAUST_EDGES, 3), generator=gen)
+    ks = torch.full((3, ), SPLINE_KERNEL, dtype=torch.int64)
+    for degree in (1, 2, 3):
+        for is_open in (1, 0):
+            op_ = torch.full((3, ), is_open, dtype=torch.int64)
+            got = ops.spline_basis(pseudo.to(dev), ks.to(dev), op_.to(dev),
+                                   degree)
+            ref = ops.spline_basis(pseudo, ks, op_, degree)
+            close(f'  spline_basis degree {degree} open {is_open} basis',
+                  got[0].cpu(), ref[0], rtol=1e-5)
+            if not torch_equal(got[1], ref[1]):
+                raise AssertionError('spline_basis weight_index differs')
+    basis, wi = ops.spline_basis(pseudo, ks, torch.ones(3, dtype=torch.int64))
+    for m_in in (1, 32):
+        x = torch.randn((FAUST_EDGES, m_in), generator=gen)
+        w = torch.randn((SPLINE_KERNEL**3, m_in, SPLINE_OUT), generator=gen)
+        got = ops.spline_weighting(x.to(dev), w.to(dev), basis.to(dev),
+                                   wi.to(dev))
+        close(f'  spline_weighting [{FAUST_EDGES}, {m_in}] by '
+              f'[{SPLINE_KERNEL**3}, {m_in}, {SPLINE_OUT}]', got.cpu(),
+              ops.spline_weighting(x, w, basis, wi), rtol=1e-5)
+
+    pos_c = pos.cpu()
+    big = torch.randn((BIG_CLOUD, 3), generator=gen)
+    err = 0
+    for label, pts, p, ratio in (
+            (f'{CLOUDS} clouds of {CLOUD_POINTS}', pos_c, ptr, 0.5),
+            (f'one cloud of {BIG_CLOUD}', big, [0, BIG_CLOUD], BIG_RATIO)):
+        got = ops.fps(pts.to(dev), p, ratio)
+        ref = ops.fps(pts, p, ratio)
+        err = max(err, int((got.cpu().long() - ref.long()).abs().max()))
+        print(f'  fps {label} ratio {ratio}: {ref.shape[0]} picks, '
+              f'{"equal" if torch_equal(got, ref) else "DIFFER"}',
+              flush=True)
+        if not torch_equal(got, ref):
+            raise AssertionError('F1 differs from its plain version')
+    p64 = pos_c.double()
+
+    def dist(a, b):
+        return lambda q, c: float(((a[q] - b[c])**2).sum())
+
+    knn_ref = ops.knn(pos_c, pos_c, DGCNN_K, ptr, ptr)
+    kth = dist(p64, p64)
+    check_pairs(f'knn k={DGCNN_K} over {CLOUDS} clouds',
+                ops.knn(pos, pos, DGCNN_K, ptr, ptr), knn_ref, kth,
+                lambda q: kth(q, int(knn_ref[1, q * DGCNN_K + DGCNN_K - 1])))
+    feat = torch.randn((pos.shape[0], KNN_FEATURES), generator=gen).to(dev)
+    knn_ms = {}
+    for how, dots in (('summed', geo_mod._dots),
+                      ('GEMM', lambda x, y: x @ y.T)):
+        with mock.patch.object(geo_mod, '_dots', dots):  # TF32 is off here
+            knn_ms[how] = cuda_ms(lambda: ops.knn(
+                feat, feat, DGCNN_K, ptr, ptr, cosine=True), iters=3)
+    print(f'  knn k={DGCNN_K} cosine over {CLOUDS} clouds at '
+          f'F={KNN_FEATURES}: {knn_ms["summed"]:.3f} ms with the dot '
+          f'products summed one feature at a time, {knn_ms["GEMM"]:.3f} ms '
+          f'from a GEMM', flush=True)
+    del feat
+    idx, cptr, _, _ = grouping(pos_c, ptr, *SA_LEVELS[0][:2])
+    cen = pos_c[idx.long()]
+    r = SA_LEVELS[0][1]
+    ref = ops.radius(pos_c, cen, r, ptr, cptr, RADIUS_CAP)
+    check_pairs(f'radius r={r} cap {RADIUS_CAP} (SA1)',
+                ops.radius(pos, cen.to(dev), r, ptr, cptr, RADIUS_CAP), ref,
+                dist(cen.double(), p64), lambda q: r * r)
+    ref = ops.nearest(pos_c, cen, ptr, cptr)
+    got = ops.nearest(pos, cen.to(dev), ptr, cptr)
+    near = dist(p64, cen.double())
+    check_pairs('nearest (points to SA1 centroids)',
+                torch.stack([torch.arange(got.shape[0]), got.cpu()]),
+                torch.stack([torch.arange(ref.shape[0]), ref]), near,
+                lambda q: near(q, int(ref[q])))
+    size = torch.tensor([0.1, 0.1, 0.1])
+    if not torch_equal(ops.grid_cluster(pos, size.to(dev)),
+                       ops.grid_cluster(pos_c, size)):
+        raise AssertionError('grid_cluster differs between the card and CPU')
+    print('  grid_cluster size 0.1: equal', flush=True)
+
+    g_rng = np.random.default_rng(17)
+    deg = g_rng.integers(1, 10, GRACLUS_NODES)
+    g_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    g_col = g_rng.integers(0, GRACLUS_NODES, int(g_ptr[-1]))
+    g_w = g_rng.random(g_col.shape[0]).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (g_ptr, g_col, g_w)]
+    for name, call in (
+            ('graclus_cluster', lambda a: ops.graclus_cluster(*a, seed=3)),
+            ('edge_sample', lambda a: ops.edge_sample(
+                torch.arange(GRACLUS_NODES, device=a[0].device), a[0],
+                count=5, seed=3))):
+        got, ref = call([a.to(dev) for a in args]), call(args)
+        if got.device.type != dev.type or not torch_equal(got, ref):
+            raise AssertionError(f'{name} differs between the card and CPU')
+        print(f'  {name} on {GRACLUS_NODES} nodes: equal', flush=True)
+    return err, big
+
+
+def geometry_paths(dev, run_path, rp, cl):
+    """The GIN, PointNet++ and EdgeConv (DGCNN) paths, each trained
+    ``STEPS`` Adam steps as a path of its own, and the device-op phase.
+
+    * GIN ``GIN_DIMS`` (K3, 5 launches a forward) on the CSR ``(rp, cl)``
+      with x at F=300 (seed 19) and a linear head to ``GIN_CLASSES``;
+    * PointNet++ (F1 and K4) on ``CLOUDS`` clouds: ``fps`` and ``radius``
+      each step, both SA levels pooled by K4 through ``edge_perm``;
+    * DGCNN (no kernel of the repo) over one static ``knn`` graph.
+
+    With the initial weights, GIN's and PointNet++'s loss and weight
+    gradients are held against the same model through the plain versions
+    (:func:`plain_kernels`), DGCNN's against the same model on the CPU,
+    each with the kernel path's ReLU branches, within ``GCN_RTOL``. Each
+    path gets one profiled step. Then :func:`device_ops`, and F1 timed on
+    the clouds beside its plain version, the batched plain loop and its
+    latency floor (:func:`fps_floor`). Returns F1's row of the kernels line (without its
+    launches)."""
+    import copy
+
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.models import (gin_forward, init_edgeconv,
+                                          init_gin, init_pointnet_sa,
+                                          edgeconv_forward)
+    from pyg_lib_tpu_torch.models.extra import _init_mlp, _mlp, _Module
+    from pyg_lib_tpu_torch.ops.kernels.fps import fps_floor
+
+    t_all = time.perf_counter()
+    gen = torch.Generator().manual_seed(19)
+    n = rp.shape[0] - 1
+    rowptr = torch.from_numpy(rp).to(dev)
+    row = torch.from_numpy(cl.astype(np.int64)).to(dev)
+    x = (torch.randn((n, GIN_DIMS[0]), generator=gen) * GIN_X_SCALE).to(dev)
+    y = torch.randint(0, GIN_CLASSES, (n, ), generator=gen).to(dev)
+    pos, ptr, labels = cloud_batch(dev)
+
+    def gin_loss(p):
+        out = _mlp(p['head'], gin_forward(p['gin'], x, rowptr, row))
+        return torch.nn.functional.cross_entropy(out, y)
+
+    def pn_loss(p):
+        logits, edges = pointnet2(p, pos, ptr)
+        pn_edges[:] = edges
+        return torch.nn.functional.cross_entropy(logits, labels)
+
+    knn_idx = ops.knn(pos, pos, DGCNN_K, ptr, ptr)
+
+    def dg_loss(p, pts=pos, idx=knn_idx, tgt=labels):
+        h = edgeconv_forward(p['conv'], pts, idx, DGCNN_K)
+        pooled = h.view(CLOUDS, CLOUD_POINTS, -1).amax(1)
+        return torch.nn.functional.cross_entropy(_mlp(p['head'], pooled),
+                                                 tgt)
+
+    pn_edges = []
+    models = {
+        'GIN': (_Module({'gin': init_gin(GIN_DIMS, 2, gen, dev),
+                         'head': _init_mlp([GIN_DIMS[-1], GIN_CLASSES], gen,
+                                           dev)}), gin_loss, ('K3', ),
+                GIN_LR),
+        'PointNet++': (_Module({
+            'sa': [init_pointnet_sa(fin, dims, gen, dev)
+                   for _, _, fin, dims in SA_LEVELS],
+            'glob': _init_mlp(GLOBAL_MLP, gen, dev),
+            'head': _init_mlp(PN_HEAD, gen, dev)}), pn_loss, ('F1', 'K4'),
+            POINT_LR),
+        'DGCNN': (_Module({'conv': init_edgeconv(DGCNN_DIMS, 1, gen, dev),
+                           'head': _init_mlp(DGCNN_HEAD, gen, dev)}),
+                  dg_loss, (), POINT_LR)}
+
+    def train(model, loss_fn, lr):
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        losses = []
+        for step in range(STEPS):
+            if step == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = loss_fn(model.params())
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
+        losses = [float(v) for v in losses]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f'losses {losses} are not finite')
+        return ms, losses
+
+    for name, (model0, loss_fn, need, lr) in models.items():
+        model = copy.deepcopy(model0)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = run_path(name, need,
+                              lambda: train(model, loss_fn, lr))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        extra = (f'; SA1 and SA2 groupings {pn_edges[0]} and {pn_edges[1]} '
+                 f'edges' if name == 'PointNet++' else '')
+        print(f'  {STEPS} {name} training steps (Adam): {ms:.3f} ms per '
+              f'step after the first, peak memory {peak:.2f} GiB '
+              f'({peak - base:.2f} above the {base:.2f} held before the '
+              f'path), losses {[round(v, 4) for v in losses]}{extra}',
+              flush=True)
+
+        def step():
+            model.zero_grad()
+            loss_fn(model.params()).backward()
+
+        profile(name, step, ms, top_n=10)
+        del model
+        torch.cuda.empty_cache()
+
+        leaves = list(model0.parameters())
+        names = [k for k, _ in model0.named_parameters()]
+        loss, signs = relu_signs(lambda: loss_fn(model0.params()))
+        grads = torch.autograd.grad(loss, leaves)
+        if name == 'DGCNN':
+            cpu = copy.deepcopy(model0).cpu()
+            leaves_ref = list(cpu.parameters())
+            ref, _ = relu_signs(lambda: dg_loss(
+                cpu.params(), pos.cpu(), knn_idx.cpu(), labels.cpu()),
+                                signs)
+        else:
+            leaves_ref = leaves
+            with plain_kernels():
+                ref, _ = relu_signs(lambda: loss_fn(model0.params()), signs)
+        refs = torch.autograd.grad(ref, leaves_ref)
+        del signs
+        against = 'the CPU' if name == 'DGCNN' else 'the plain path'
+        close(f'{name} loss against {against}', loss.detach().cpu(),
+              ref.detach().cpu())
+        for k, g, r in zip(names, grads, refs):
+            close(f'  {name} grad {k}', g.cpu(), r.cpu())
+        del grads, refs, loss, ref
+        torch.cuda.empty_cache()
+    del x, y, rowptr, row
+    torch.cuda.empty_cache()
+
+    print('device ops on the card against the CPU:', flush=True)
+    t0 = time.perf_counter()
+    err, big = device_ops(dev, rp, cl, pos, ptr)
+    print(f'  device-op phase: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # F1 on SA1's clouds, beside its plain version (one cloud after the
+    # other), the batched plain loop, and its latency floor: the same
+    # chain of block-wide argmaxes with no distance work (fps_floor).
+    rng = np.random.default_rng(0)
+    n_c = np.diff(ptr)
+    m_c = np.maximum(1, np.ceil(0.5 * n_c)).astype(np.int64)
+    clouds = np.stack([ptr[:-1], n_c, m_c, rng.integers(n_c)], 1)
+    ms = cuda_ms(lambda: ops.fps_kernel(pos, clouds))
+    plain_ms = cuda_ms(lambda: ops.fps_plain(pos, clouds), iters=1,
+                       warmup=1)
+    lib_ms = cuda_ms(lambda: fps_batched_loop(pos, clouds), iters=3)
+    if not torch_equal(fps_batched_loop(pos, clouds),
+                       ops.fps_kernel(pos, clouds)):
+        raise AssertionError('the batched plain loop differs from F1')
+    latency_ms = cuda_ms(lambda: fps_floor(clouds, dev))
+    big_clouds = np.array([[0, BIG_CLOUD,
+                            int(np.ceil(BIG_RATIO * BIG_CLOUD)), 0]])
+    big = big.to(dev)
+    big_ms = cuda_ms(lambda: ops.fps_kernel(big, big_clouds), iters=3,
+                     warmup=1)
+    d = pos.shape[1]
+    nbytes = pos.numel() * 4 + clouds.size * 8 + int(m_c.sum()) * 4
+    flops = int(((m_c - 1) * n_c).sum()) * (3 * d + 2)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    print(f'  F1 {CLOUDS} clouds of {CLOUD_POINTS} ratio 0.5 f32: '
+          f'{ms:.3f} ms, plain (cloud after cloud) {plain_ms:.3f} ms, '
+          f'batched plain loop {lib_ms:.3f} ms, bound {bound_ms:.5f} ms '
+          f'({nbytes / 1e9:.6f} GB, {flops / 1e9:.3f} GFLOP); latency '
+          f'floor {latency_ms:.3f} ms ({int(m_c.max()) - 1} block-wide '
+          f'argmaxes a cloud, no distance work); one cloud of {BIG_CLOUD} '
+          f'points ratio {BIG_RATIO}: {big_ms:.3f} ms', flush=True)
+    print(f'geometry paths: {time.perf_counter() - t_all:.1f} s', flush=True)
+    return {
+        'name': 'F1', 'route': 'cuda',
+        'source': f'pyg_lib_tpu_torch/csrc/{SOURCES["F1"][0]}',
+        'replaces': SOURCES['F1'][1], 'max_abs_err': float(err), 'ms': ms,
+        'plain_ms': plain_ms, 'bound_ms': bound_ms,
+        'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >=
+                     flops / F32_FLOPS else 'operations'),
+        'library_ms': lib_ms}
 
 
 def work(plan, f):

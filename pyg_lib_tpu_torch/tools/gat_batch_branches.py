@@ -12,7 +12,7 @@ of ``EDGE_BUDGET``-sized edge slots, ``GATBatch`` ``GAT_BATCH_DIMS`` with
 computes the weight gradients of ``sum(out * cot)`` through the model
 (K3) and through :func:`chip_smoke.plain_gat_batch`, once with its own
 leaky_relu and once with the branches the kernel path took
-(:func:`chip_smoke.leaky_relu_signs`). It prints, per trial and per
+(:func:`chip_smoke.relu_signs`). It prints, per trial and per
 parameter, ``max|kernel - plain|`` over ``chip_smoke.GCN_RTOL *
 max|plain|`` (above 1 fails ``chip_smoke.py``'s check), and for each
 plain run the count of edge logits whose branch differs from the
@@ -69,12 +69,12 @@ def main(trials):
                                               labels).backward()
             opt.step()
         leaves = list(model.parameters())
-        out, signs = chip_smoke.leaky_relu_signs(lambda: model(x, *batch))
+        out, signs = chip_smoke.relu_signs(lambda: model(x, *batch))
         grads = torch.autograd.grad((out * cot).sum(), leaves)
         real = (col < n)[:, None]
         parts = []
         for branches, given in (('own', None), ('kernel', signs)):
-            (ref, switched), taken = chip_smoke.leaky_relu_signs(
+            (ref, switched), taken = chip_smoke.relu_signs(
                 lambda: chip_smoke.plain_gat_batch(model.params(), x,
                                                    *batch, given))
             if given is None:

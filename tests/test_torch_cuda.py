@@ -1,8 +1,10 @@
 """The port's CUDA kernels K1 (and its ``msgs_padded`` entry), K2, K2h, K3,
-K4 (and its row-sum form K4s), K5, K6 and K7 against their plain versions,
-on the card, and the paths of the scatter family, ``fused_scatter_reduce``,
-the padded-batch GAT, ``segment_matmul``, rectangular dedup ``spmm`` and
-the R-GCN (padded batch and the three full-graph forms) against the CPU.
+K4 (and its row-sum form K4s), K5, K6, K7 and F1 against their plain
+versions, on the card, and the paths of the scatter family,
+``fused_scatter_reduce``, the padded-batch GAT, ``segment_matmul``,
+rectangular dedup ``spmm``, the R-GCN (padded batch and the three
+full-graph forms), ``knn``, ``radius``, ``nearest`` and the spline ops
+against the CPU.
 
 Every test here needs an NVIDIA card with ``nvcc`` (marker ``cuda``) and
 skips without one. The file imports nothing of JAX, so it also runs where
@@ -1368,3 +1370,100 @@ def test_spmm_sharded_matches_cpu(dev, kind):
         else:
             assert bool(((b - a).abs() <= RTOL * mag + ATOL).all())
         assert bool(((gb - ga).abs() <= RTOL * gmag + ATOL).all())
+
+
+# F1 (csrc/fps.cu) against its plain version: the same arithmetic in the
+# same order, so the same indices exactly, in one launch a call. Clouds of
+# 1 and 2 points, of 1,000 (distances in registers), 20,000 and 100,000
+# (in the global scratch), duplicate points (equal maxima, the lowest
+# index wins), all points equal (every distance 0), ratio 1 and a batch
+# with empty clouds.
+@pytest.mark.parametrize('case', ['1', '2', '1000', '20000', '100000',
+                                  'duplicates', 'all equal', 'ratio 1',
+                                  'batch', 'D=1'])
+def test_f1_matches_plain(dev, case):
+    rng = np.random.default_rng(21)
+    ratio, d = 0.5, 3
+    if case.isdigit():
+        n = int(case)
+        ptr, ratio = [0, n], (0.05 if n == 100000 else 0.5)
+    elif case == 'duplicates':
+        n, ptr = 3000, [0, 1000, 3000]
+    elif case == 'all equal':
+        n, ptr = 700, [0, 700]
+    elif case == 'ratio 1':
+        n, ptr, ratio = 1500, [0, 600, 1500], 1.0
+    elif case == 'batch':
+        n, ptr = 40 * 700, [0, 0] + [700 * (i + 1) for i in range(40)] + [
+            28000]
+    else:
+        n, ptr, d = 5000, [0, 2000, 5000], 1
+    pts = rng.normal(size=(n, d)).astype(np.float32)
+    if case == 'duplicates':
+        pts = np.repeat(pts[::3], 3, axis=0)[:n]
+    elif case == 'all equal':
+        pts[:] = 0.25
+    src = torch.tensor(pts, device=dev)
+    before = ops.fps_kernel.launches
+    got = ops.fps(src, ptr, ratio, seed=3)
+    torch.cuda.synchronize()
+    assert ops.fps_kernel.launches == before + 1
+    ref = ops.fps(src.cpu(), ptr, ratio, seed=3)
+    assert got.device == src.device and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_f1_refuses_what_it_does_not_take(dev):
+    pts = torch.zeros((10, 3), device=dev)
+    with pytest.raises(ValueError, match='float32'):
+        ops.fps_kernel(pts.double(), np.array([[0, 10, 5, 0]]))
+    with pytest.raises(ValueError, match='start < n'):
+        ops.fps_kernel(pts, np.array([[0, 10, 5, 10]]))
+    with pytest.raises(ValueError, match='inside pos'):
+        ops.fps_kernel(pts, np.array([[5, 10, 5, 0]]))
+    with pytest.raises(ValueError, match='contiguous'):
+        ops.fps_kernel(torch.zeros((3, 10), device=dev).t(),
+                       np.array([[0, 10, 5, 0]]))
+
+
+# knn, radius and nearest compute each distance with the same f32
+# operations in the same order on the card and on the CPU, so their pairs
+# are equal; spline_weighting's product and sums run in another order
+# (within 1e-5 of max |CPU value|).
+def test_geometry_ops_match_cpu(dev):
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(3000, 3)).astype(np.float32)
+    y = rng.normal(size=(500, 3)).astype(np.float32)
+    ptr_x, ptr_y = [0, 1000, 1000, 3000], [0, 200, 250, 500]
+    xs, ys = torch.tensor(x), torch.tensor(y)
+    xd, yd = xs.to(dev), ys.to(dev)
+    for cosine in (False, True):
+        got = ops.knn(xd, yd, 16, ptr_x, ptr_y, cosine=cosine)
+        assert got.device == xd.device
+        assert torch.equal(got.cpu(), ops.knn(xs, ys, 16, ptr_x, ptr_y,
+                                              cosine=cosine))
+    for ignore in (False, True):
+        got = ops.radius(xd, xd, 0.3, ptr_x, ptr_x, 32,
+                         ignore_same_index=ignore)
+        assert torch.equal(got.cpu(), ops.radius(xs, xs, 0.3, ptr_x, ptr_x,
+                                                 32, ignore_same_index=ignore))
+    assert torch.equal(ops.nearest(xd, yd, ptr_x, ptr_y).cpu(),
+                       ops.nearest(xs, ys, ptr_x, ptr_y))
+
+
+def test_spline_weighting_matches_cpu(dev):
+    rng = np.random.default_rng(23)
+    e, m_in, m_out = 5000, 32, 32
+    pseudo = torch.tensor(rng.random((e, 3)).astype(np.float32))
+    ks, iso = torch.tensor([5, 5, 5]), torch.tensor([1, 1, 1])
+    basis, wi = ops.spline_basis(pseudo, ks, iso, 1)
+    got = ops.spline_basis(pseudo.to(dev), ks.to(dev), iso.to(dev), 1)
+    assert torch.equal(got[1].cpu(), wi)
+    assert float((got[0].cpu() - basis).abs().max()) <= 1e-5 * float(
+        basis.abs().max())
+    x = torch.tensor(rng.normal(size=(e, m_in)).astype(np.float32))
+    w = torch.tensor(rng.normal(size=(125, m_in, m_out)).astype(np.float32))
+    ref = ops.spline_weighting(x, w, basis, wi)
+    got = ops.spline_weighting(x.to(dev), w.to(dev), basis.to(dev),
+                               wi.to(dev)).cpu()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

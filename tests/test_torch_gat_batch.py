@@ -128,7 +128,7 @@ def test_chip_smoke_reference_follows_the_model(kind):
     # and with those recorded on the model's forward (on one device the
     # same: none switches), gives the model's output and weight gradients.
     params, leaves, x, cot, batch = _smoke_inputs(kind)
-    out, signs = chip_smoke.leaky_relu_signs(
+    out, signs = chip_smoke.relu_signs(
         lambda: gat_forward(params, x, *batch))
     assert [tuple(s.shape) for s in signs] == [(len(batch[1]), HEADS)] * 2
     grads = torch.autograd.grad((out * cot).sum(), leaves)
@@ -146,13 +146,25 @@ def test_chip_smoke_reference_takes_the_given_branches():
     # counts as switched (pad edges' do not), and the output moves.
     params, _, x, _, batch = _smoke_inputs('random', DIMS[::2])
     with torch.no_grad():
-        out, signs = chip_smoke.leaky_relu_signs(
+        out, signs = chip_smoke.relu_signs(
             lambda: gat_forward(params, x, *batch))
         ref, switched = chip_smoke.plain_gat_batch(
             params, x, *batch, [~s for s in signs])
     real = int(batch[0][-1])
     assert switched == real * HEADS
     assert not torch.allclose(ref, out, rtol=RTOL, atol=ATOL)
+
+
+def test_chip_smoke_relu_signs_record_and_replay():
+    # chip_smoke.relu_signs records which inputs each torch.relu call kept
+    # and, given such a record, makes each call take the recorded branch:
+    # flipped, a call passes what relu would zero and zeros what it kept.
+    x = torch.tensor([-1.0, 0.0, 2.0])
+    _, signs = chip_smoke.relu_signs(lambda: torch.relu(x) + torch.relu(-x))
+    assert [s.tolist() for s in signs] == [[False, False, True],
+                                           [True, False, False]]
+    flipped, _ = chip_smoke.relu_signs(lambda: torch.relu(x), [~signs[0]])
+    assert flipped.tolist() == [-1.0, 0.0, 0.0]
 
 
 def test_params_from_jax():

@@ -22,15 +22,18 @@ import pyg_lib_tpu_torch
 from pyg_lib_tpu import ops as jops
 from pyg_lib_tpu.models import gnn as jgnn
 from pyg_lib_tpu_torch import ops
+from pyg_lib_tpu_torch.examples.train_pointcloud import \
+    main as train_pointcloud_example
 from pyg_lib_tpu_torch.examples.train_rgcn_fullgraph_spmm import \
     main as train_rgcn_example
-from pyg_lib_tpu_torch.models import (GAT, GCN, RGCN, SAGE, RGCNBatch,
-                                      build_rgcn_graphs, build_rgcn_planned,
-                                      gat_params_from_jax, gcn_forward_spmm,
-                                      gcn_params_from_jax, init_rgcn,
-                                      init_rgcn_spmm, rgcn_params_from_jax,
-                                      rgcn_spmm_params_from_jax,
-                                      sage_params_from_jax)
+from pyg_lib_tpu_torch.models import (
+    GAT, GCN, GIN, RGCN, SAGE, EdgeConv, PointNetSA, RGCNBatch,
+    build_rgcn_graphs, build_rgcn_planned, edgeconv_params_from_jax,
+    gat_params_from_jax, gcn_forward_spmm, gcn_params_from_jax,
+    gin_params_from_jax, init_edgeconv, init_gin, init_node2vec,
+    init_pointnet_sa, init_rgcn, init_rgcn_spmm, node2vec_params_from_jax,
+    pointnet_sa_params_from_jax, rgcn_params_from_jax,
+    rgcn_spmm_params_from_jax, sage_params_from_jax)
 from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
 from test_torch_spmm import (ATOL, RTOL, features, powerlaw_graph,
                              uniform_graph)
@@ -222,7 +225,18 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
                   lambda: init_rgcn_spmm([8, 4], 2),
                   lambda: rgcn_params_from_jax(rgcn_tree),
                   lambda: rgcn_spmm_params_from_jax(rgcn_spmm_tree),
-                  lambda: train_rgcn_example(epochs=1)):
+                  lambda: train_rgcn_example(epochs=1),
+                  lambda: GIN([8, 4]), lambda: EdgeConv([3, 4]),
+                  lambda: PointNetSA(0, [4]), lambda: init_gin([8, 4]),
+                  lambda: init_edgeconv([3, 4]),
+                  lambda: init_pointnet_sa(0, [4]),
+                  lambda: init_node2vec(5, 4),
+                  lambda: gin_params_from_jax({'layers': []}),
+                  lambda: edgeconv_params_from_jax({'layers': []}),
+                  lambda: pointnet_sa_params_from_jax({'mlp': []}),
+                  lambda: node2vec_params_from_jax(
+                      {'emb': np.zeros((2, 2))}),
+                  lambda: train_pointcloud_example(steps=1)):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             build()
     assert pyg_lib_tpu_torch.cuda_version() == ''
