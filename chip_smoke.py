@@ -67,7 +67,26 @@ ogbn-mag's full published shape:
   pieces on the chunked backward; K5 for max). It runs in a process of
   its own too (``python3 chip_smoke.py --sharded``); each variant's output
   and gradient are held against the plain versions and against ``spmm``
-  over the unsharded graph.
+  over the unsharded graph;
+* the host layer, its samples drawn by the C++ engine of
+  ``pyg_lib_tpu_torch/csrc/host`` (``sampler._cpp.calls`` must show it
+  in every phase): (A) GraphSAGE [602, 256, 41] with the mean aggregator
+  trains (Adam) at Reddit's full shape (232,965 nodes, 114.5M edges of
+  ``testing.uniform_graph``, 602 features) in batches of 1,024 seeds with
+  fanouts [25, 10] from the port's ``NeighborLoader`` (K3 at F=602 and
+  256), its loss and gradients held against the plain path on a batch;
+  (B) the R-GCN [128, 128, 349] trains in mini-batches of 1,024 papers
+  (``HeteroNeighborLoader``, 10 a hop and relation) on the ogbn-mag
+  graph, in the R-GCN process after its full-graph forms, one batch's
+  loss and gradients held against the CPU; (C)
+  ``build_spmm_graph(reorder='on'/'auto')`` on the power-law graph and
+  ``'on'`` on the uniform one, ``spmm`` sum, mean and max and their
+  gradients held against the same graphs' plain versions and against the
+  unreordered graphs (K1, K2/K2h, K4, K5);
+  (D) node2vec's walks (p = q = 1 and q = 0.5) and 3 Adam steps of its
+  loss on the uniform graph; (E) the port's ``entry()`` against the CPU.
+  A, C, D and E run in a third process (``python3 chip_smoke.py
+  --host``).
 
 The script:
 
@@ -117,12 +136,14 @@ It prints a ``{"kernels": [...]}`` line and ends with
 before that line. It imports nothing of JAX or of ``pyg_lib_tpu``.
 """
 
+import copy
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -225,6 +246,29 @@ PAIR_RTOL = 1e-6
 # per row) on this script's shapes, printed beside the current ones
 # (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 EARLIER_MS = {'K5': 5.251, 'K6': 0.342, 'K6 hub rows': 60.877}
+# Path A, Reddit's mini-batch GraphSAGE (PyG examples/reddit.py;
+# BASELINE.json config 2): the dataset's 232,965 nodes, 114,615,892 edges,
+# 602 features, 41 classes and 153,431 training nodes, here a uniform
+# graph of that size (testing.uniform_graph, seed 0) with random features;
+# GraphSAGE [602, 256, 41] with the mean aggregator, Adam at 0.01,
+# batches of 1,024 seeds with fanouts [25, 10] through NeighborLoader.
+REDDIT_NODES, REDDIT_EDGES, REDDIT_TRAIN = 232_965, 114_615_892, 153_431
+REDDIT_DIMS, REDDIT_LR = [602, 256, 41], 0.01
+REDDIT_BATCH, REDDIT_FANOUTS = 1024, [25, 10]
+REDDIT_WARMUP, REDDIT_STEPS = 2, 8
+REDDIT_PROFILED = 4  # then a profiled window of this many steps
+# Path B, ogbn-mag's R-GCN in mini-batches (PyG
+# examples/hetero/to_hetero_mag.py): 1,024 paper seeds, two hops of 10 per
+# relation, the padded batch through RGCNBatch [128, 128, 349] (MAG_DIMS).
+MAG_BATCH, MAG_FANOUTS, MAG_BATCH_STEPS = 1024, [10, 10], 3
+# Path D, node2vec (PyG examples/node2vec.py): walks of 20 steps, a
+# context of 10 nodes, 10 walks a start node, one negative, embedding 128,
+# 128 start nodes a batch; on the uniform bench graph, p = q = 1 and
+# p = 1, q = 0.5, 3 Adam steps each.
+WALK_LENGTH, CONTEXT, WALKS_PER_NODE, NEGATIVES = 20, 10, 10, 1
+N2V_DIM, N2V_BATCH, N2V_STEPS, N2V_LR = 128, 128, 3, 0.01
+# The host child's last line: this, then its results as JSON.
+HOST_RESULT = 'host launches: '
 # Launch counters of the kernel wrappers: id -> (wrapper in ops, counter).
 COUNTERS = {'K1': ('spmm_chunked', 'launches'),
             'K2': ('dedup_sum', 'launches'),
@@ -468,9 +512,13 @@ def main():
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build()
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
+        host_build = pool.submit(_build.build_host)
+        _build.build()
+        host_build.result()
     print(f'kernel build: {time.perf_counter() - t0:.1f} s '
-          f'({", ".join(_build.sources())})', flush=True)
+          f'({", ".join(_build.sources())}; and the host sampling engine '
+          f'{host_build.result().name} with g++)', flush=True)
     for name in _build.sources():
         log = (_build.BUILD_DIR / f'{name}.log').read_text()
         regs = [int(w) for w in re.findall(r'Used (\d+) registers', log)]
@@ -921,7 +969,10 @@ def main():
     # -- 3a. the huge-graph step over sharded plans, in a process of its
     # own too (its graphs and plans leave with it) ----------------------
     sharded = child('--sharded', SHARDED_RESULT)
-    for res in (rgcn, sharded):
+    # -- 3b. the host layer's paths A, C, D and E, in a process of their
+    # own too (Reddit's graph and features take some 2 GB of the host) ---
+    host = child('--host', HOST_RESULT)
+    for res in (rgcn, sharded, host):
         for k, n in res['launches'].items():
             launches[k] += n
         for kid, f, n in res['by_width']:
@@ -937,7 +988,7 @@ def main():
 
         profile(label, step, ms, top_n)
 
-    # -- 3b. the graphs at bench scale ----------------------------------
+    # -- 3c. the graphs at bench scale ----------------------------------
     t0 = time.perf_counter()
     rp_u, cl_u = uniform_graph(N_NODES, N_EDGES)
     g_u = ops.build_spmm_graph(rp_u, cl_u, with_edge_maps=True,
@@ -1571,9 +1622,10 @@ def main():
     torch.cuda.empty_cache()
 
     paths.restore()
-    print('K1, K1m and K7 launches on the main paths by width: ' + ', '.join(
-        f'{kid} F={f} {n}' for (kid, f), n in sorted(by_width.items())),
-        flush=True)
+    print('K1, K1m, K3 and K7 launches on the main paths by width: '
+          + ', '.join(f'{kid} F={f} {n}'
+                      for (kid, f), n in sorted(by_width.items())),
+          flush=True)
 
     # -- 6. timing ------------------------------------------------------
     csr = {}
@@ -1825,7 +1877,8 @@ def main():
 
     # K1, K7 and K1m at the main paths' other widths, on the same plans
     # (K1 and K7 at F=47 take the scalar branch).
-    for kid, f in sorted(k for k in by_width if k[1] != F_BENCH):
+    for kid, f in sorted(k for k in by_width
+                         if k[1] != F_BENCH and k[0] != 'K3'):
         if kid == 'K1m':
             src = msgs[:, :f].contiguous()
             ms = cuda_ms(lambda: ops.segment_sum_chunked(src, g_u.fwd))
@@ -1839,6 +1892,12 @@ def main():
     # graph's hub rows.
     rows.append(dict(sharded['row'], launches=launches['K1p']))
     rows.append(dict(f1_row, launches=launches['F1']))
+    # K3 on path A's batches (Reddit's shape), at each width it ran at;
+    # the host process runs no other K3 at those widths.
+    k3 = next(r for r in rows if r['name'] == 'K3')
+    k3_host = {f: n for kid, f, n in host['by_width'] if kid == 'K3'}
+    k3['path_a'] = {f: dict(r, launches=k3_host.get(int(f), 0))
+                    for f, r in host['k3'].items()}
     return smi, errs, rows
 
 
@@ -1860,12 +1919,13 @@ def child(flag, result):
 class Paths:
     """Runs the main paths, each with every launch count set to 0 just
     before it and read just after; sums the launches (``launches``) and
-    K1's, K1m's and K7's launches by width (``by_width``), read off their
-    C entry points while it is installed (the wrappers' counters are the
-    launch counts)."""
+    K1's, K1m's, K3's and K7's launches by width (``by_width``), read off
+    their C entry points while it is installed (the wrappers' counters
+    are the launch counts)."""
 
     def __init__(self):
         from pyg_lib_tpu_torch import _build
+        from pyg_lib_tpu_torch.ops.kernels import segment_csr as k3_mod
         from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
         from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
 
@@ -1873,31 +1933,45 @@ class Paths:
         self.by_width = {}
         self.tallies = [ByWidth(k1_mod._k1_lib(), 8,
                                 lambda a: 'K1' if a[2] else 'K1m'),
-                        ByWidth(k7_mod._k7_lib(), 12, lambda a: 'K7')]
-        _build.load('spmm_chunked').pygt_spmm_chunked = self.tallies[0]
-        _build.load('spmm_range_fused').pygt_spmm_range_fused = \
-            self.tallies[1]
+                        ByWidth(k7_mod._k7_lib(), 12, lambda a: 'K7'),
+                        ByWidth(k3_mod._k3_lib(), 6, lambda a: 'K3')]
+        self.entries = [('spmm_chunked', 'pygt_spmm_chunked'),
+                        ('spmm_range_fused', 'pygt_spmm_range_fused'),
+                        ('segment_csr', 'pygt_segment_sum_csr')]
+        for (lib, fn), tally in zip(self.entries, self.tallies):
+            setattr(_build.load(lib), fn, tally)
 
-    def run(self, name, need, fn):
+    def run(self, name, need, fn, engine=()):
         """``fn()`` as the main path ``name``; each kernel of ``need``
-        must launch in it."""
+        must launch in it, and each entry point of the C++ sampling
+        engine in ``engine`` (``sampler._cpp.calls``) must be called."""
         import torch
 
         from pyg_lib_tpu_torch import ops
+        from pyg_lib_tpu_torch.sampler import _cpp
 
         for wrapper, attr in COUNTERS.values():
             setattr(getattr(ops, wrapper), attr, 0)
         for t in self.tallies:
             t.counts.clear()
+        calls = dict(_cpp.calls)
         result = fn()
         torch.cuda.synchronize()
         got = {k: getattr(getattr(ops, w), a)
                for k, (w, a) in COUNTERS.items()}
-        print(f'main path {name}: launches {got}', flush=True)
+        drawn = {k: n - calls[k] for k, n in _cpp.calls.items()
+                 if n > calls[k]}
+        print(f'main path {name}: launches {got}'
+              + (f'; C++ engine calls {drawn}' if engine else ''),
+              flush=True)
         for k in need:
             if got[k] <= 0:
                 raise AssertionError(f'{k} never launched on the main path '
                                      f'{name}')
+        for k in engine:
+            if drawn.get(k, 0) <= 0:
+                raise AssertionError(f'the C++ engine\'s {k} was never '
+                                     f'called on the main path {name}')
         for k, n in got.items():
             self.launches[k] += n
         for t in self.tallies:
@@ -1909,9 +1983,8 @@ class Paths:
         """Put the C entry points back."""
         from pyg_lib_tpu_torch import _build
 
-        _build.load('spmm_chunked').pygt_spmm_chunked = self.tallies[0].fn
-        _build.load('spmm_range_fused').pygt_spmm_range_fused = \
-            self.tallies[1].fn
+        for (lib, fn), tally in zip(self.entries, self.tallies):
+            setattr(_build.load(lib), fn, tally.fn)
 
 
 def close(label, out, ref, rtol=GCN_RTOL):
@@ -2133,7 +2206,7 @@ def rgcn_paths(dev, run_path):
     the paths' plans (K2/K2h on every per-relation side, K7 on the
     range-sliced plan into paper and its transpose, K1m on the stacked
     paper plan's 5.1G-element messages), within the sum tolerance, and
-    timed. Returns those kernels' largest errors.
+    timed. Returns those kernels' largest errors, and the graph.
     """
     import copy
 
@@ -2242,7 +2315,7 @@ def rgcn_paths(dev, run_path):
                         for i, k in into_paper]),
         np.concatenate([np.repeat(1.0 / np.maximum(deg[k], 1), deg[k])
                         for _, k in into_paper]).astype(np.float32))
-    del rowptr_d, col_d, deg
+    del deg  # rowptr_d and col_d stay for the mini-batch path (rgcn_main)
     print(f'R-GCN graph (ogbn-mag shape, Zipf(1.2) sources, seed 0): nodes '
           f'{num_nodes}, edges {edges}, longest row and column '
           f'{longest} ({t_gen:.1f} s); plan builds (s) {builds}',
@@ -2487,7 +2560,118 @@ def rgcn_paths(dev, run_path):
               f'{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms', flush=True)
         del msgs
     torch.cuda.empty_cache()
-    return errs
+    return errs, (num_nodes, rowptr_d, col_d)
+
+
+def mag_minibatch(dev, run_path, num_nodes, rowptr_d, col_d):
+    """Path B: the R-GCN in mini-batches on the same graph. Its CSRs run
+    over each relation's destination type, so the port's
+    ``HeteroNeighborLoader`` samples with ``csc=True``: ``MAG_BATCH``
+    paper seeds, ``MAG_FANOUTS`` a hop and relation, node budgets the
+    worst case of those fanouts; ``pad_hetero_sample_output``'s batch goes
+    through ``RGCNBatch`` ``MAG_DIMS`` (``segment_matmul`` per relation),
+    Adam at ``RGCN_LR``, one warm-up step, ``MAG_BATCH_STEPS`` timed and
+    one profiled. The losses must be finite, and one more batch's loss
+    and weight gradients equal the same model's on the CPU within
+    ``GCN_RTOL`` of their largest magnitude."""
+    import torch
+
+    from pyg_lib_tpu_torch.loader import HeteroNeighborLoader
+    from pyg_lib_tpu_torch.models import RGCNBatch
+
+    rels = sorted(rowptr_d)
+    # The worst case: every sampled node new. A frontier node of type t
+    # samples each relation into t (its CSR runs over t).
+    frontier, total, max_edges = {'paper': MAG_BATCH}, {'paper': MAG_BATCH}, 0
+    for f in MAG_FANOUTS:
+        nxt = {}
+        for t, n in frontier.items():
+            for k in rels:
+                if k[2] == t:
+                    nxt[k[0]] = nxt.get(k[0], 0) + n * f
+                    max_edges += n * f
+        for t, n in nxt.items():
+            total[t] = total.get(t, 0) + n
+        frontier = nxt
+    budgets = {t: max(total.get(t, 0), 8) for t in num_nodes}
+    rng = np.random.default_rng(14)
+    x_dict = {t: rng.standard_normal((n, MAG_DIMS[0]), dtype=np.float32)
+              for t, n in num_nodes.items()}
+    y_dict = {'paper': rng.integers(0, MAG_DIMS[-1], num_nodes['paper'])}
+    seeds = rng.choice(num_nodes['paper'], MAG_BATCH * (MAG_BATCH_STEPS + 2),
+                       replace=False)
+    loader = HeteroNeighborLoader(
+        {k: rowptr_d[k] for k in rels}, {k: col_d[k] for k in rels}, x_dict,
+        y_dict, 'paper', seeds, MAG_BATCH, {k: MAG_FANOUTS for k in rels},
+        budgets, max_edges, rng=15, device=dev, csc=True)
+    model = RGCNBatch(MAG_DIMS, len(rels),
+                      generator=torch.Generator().manual_seed(16), device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=RGCN_LR)
+
+    def loss_of(m, batch):
+        out = m(batch['x'], batch['row'], batch['col'], batch['rel_ptr'])
+        lo, n = batch['seed_offset'], batch['num_seeds']
+        return torch.nn.functional.cross_entropy(out[lo:lo + n],
+                                                 batch['y'][:n])
+
+    def step(batch):
+        opt.zero_grad()
+        loss = loss_of(model, batch)
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    def path():
+        it = iter(loader)
+        losses = [step(next(it))]  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(MAG_BATCH_STEPS):
+            batch = next(it)
+            t0 = time.perf_counter()
+            losses.append(step(batch))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = device_time_by_kernel(lambda: losses.append(step(next(it))))
+        return ms, losses, peak, prof
+
+    ms, losses, peak, (busy, wall, top) = run_path(
+        'R-GCN mini-batch (ogbn-mag)', (), path,
+        engine=('hetero_neighbor_sample', ))
+    t = loader.timings
+    mean = lambda v: sum(v) / len(v)
+    print(f'  R-GCN mini-batch: budgets {budgets}, max_edges {max_edges}; '
+          f'step ms (after a warm-up; from the batch in hand) '
+          f'{[round(v, 3) for v in ms]}; host per batch: sample '
+          f'{mean([v["sample_ms"] for v in t]):.3f} ms, pad '
+          f'{mean([v["pad_ms"] for v in t]):.3f} ms, gather '
+          f'{mean([v["gather_ms"] for v in t]):.3f} ms; nodes '
+          f'{[v["num_nodes"] for v in t]}, edges '
+          f'{[v["num_edges"] for v in t]}; peak memory {peak:.2f} GiB; '
+          f'losses {[round(v, 4) for v in losses]}', flush=True)
+    print(f'profile R-GCN mini-batch step (the next batch fetched): device '
+          f'busy {busy:.3f} ms of {wall:.3f} ms, idle share '
+          f'{1 - busy / wall:.3f}; by kernel (ms): '
+          + '; '.join(f'{n} {v:.3f}' for n, v in top[:8]), flush=True)
+    if len(losses) != MAG_BATCH_STEPS + 2 or not all(np.isfinite(losses)):
+        raise AssertionError('the R-GCN mini-batch path did not train')
+
+    # One more batch: its loss and weight gradients on the card against
+    # the same model and batch on the CPU.
+    it = iter(loader)
+    batch = next(it)
+    it.close()
+    loss = loss_of(model, batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    cpu = copy.deepcopy(model).cpu()
+    ref = loss_of(cpu, {k: v.cpu() if torch.is_tensor(v) else v
+                        for k, v in batch.items()})
+    refs = torch.autograd.grad(ref, list(cpu.parameters()))
+    close('R-GCN mini-batch loss against the CPU',
+          loss.detach().cpu()[None], ref.detach()[None])
+    for (name, _), g, r in zip(model.named_parameters(), grads, refs):
+        close(f'  R-GCN mini-batch grad {name}', g.cpu(), r)
 
 
 def rgcn_main():
@@ -2508,7 +2692,13 @@ def rgcn_main():
     _build.build()  # built by the calling process: loaded
     paths = Paths()
     t0 = time.perf_counter()
-    errs = rgcn_paths(torch.device('cuda', 0), paths.run)
+    dev = torch.device('cuda', 0)
+    errs, graph = rgcn_paths(dev, paths.run)
+    torch.cuda.empty_cache()  # the full-graph plans are gone
+    t1 = time.perf_counter()
+    mag_minibatch(dev, paths.run, *graph)
+    print(f'R-GCN mini-batch path: {time.perf_counter() - t1:.1f} s',
+          flush=True)
     paths.restore()
     print(f'R-GCN paths: {time.perf_counter() - t0:.1f} s', flush=True)
     print(RGCN_RESULT + json.dumps({
@@ -3018,27 +3208,45 @@ def sharded_main():
 
 
 def plain_kernels():
-    """A context in which the port's ops run F1, K3 and K4 through their
-    plain versions on the card (K3's and K4's ``BLOCK`` columns at a
-    time): the models' plain computation."""
+    """A context in which the port's ops run F1, K3, K4 and, under
+    ``spmm``, K1, K2/K2h and K5 through their plain versions on the card
+    (all but F1 ``BLOCK`` columns at a time): the models' and ``spmm``'s
+    plain computation, permutations and autograd as they are."""
     import contextlib
     from unittest import mock
 
     from pyg_lib_tpu_torch import ops
 
-    # The module, not the op of its name that the package exports.
-    geo_mod = sys.modules['pyg_lib_tpu_torch.ops.geometry']
-    seg_mod = sys.modules['pyg_lib_tpu_torch.ops.segment_csr']
+    def plain_sum_of(plain):
+        def run(x, plan, scale=None):
+            if scale is not None:
+                raise ValueError('plain_kernels takes no int8 scale')
+            return by_columns(plain, x, plan)
+        return run
+
+    def plain_max(src, plan, idx, negate=False):
+        return by_columns(ops.segment_max_plain, src, plan, idx, negate)
+
+    # The modules, not the ops of their names that the package exports.
+    mods = {m: sys.modules[f'pyg_lib_tpu_torch.ops.{m}'] for m in (
+        'geometry', 'segment_csr', 'spmm', 'kernels.spmm_chunked',
+        'kernels.spmm_dedup')}
     stack = contextlib.ExitStack()
-    stack.enter_context(mock.patch.object(geo_mod, 'fps_kernel',
-                                          ops.fps_plain))
-    stack.enter_context(mock.patch.object(
-        seg_mod, 'segment_sum_csr_kernel',
-        lambda src, ptr: by_columns(ops.segment_sum_csr_plain, src, ptr)))
-    stack.enter_context(mock.patch.object(
-        seg_mod, 'segment_max_kernel',
-        lambda src, plan, idx, negate=False: by_columns(
-            ops.segment_max_plain, src, plan, idx, negate)))
+    for mod, name, plain in (
+            ('geometry', 'fps_kernel', ops.fps_plain),
+            ('segment_csr', 'segment_sum_csr_kernel',
+             lambda src, ptr: by_columns(ops.segment_sum_csr_plain, src,
+                                         ptr)),
+            ('segment_csr', 'segment_max_kernel', plain_max),
+            ('spmm', 'segment_max_kernel', plain_max),
+            ('spmm', 'dedup_minmax',
+             lambda x, plan, negate=False: by_columns(
+                 ops.dedup_minmax_plain, x, plan, negate)),
+            ('kernels.spmm_chunked', 'spmm_chunked',
+             plain_sum_of(ops.spmm_chunked_plain)),
+            ('kernels.spmm_dedup', 'dedup_sum',
+             plain_sum_of(ops.dedup_sum_plain))):
+        stack.enter_context(mock.patch.object(mods[mod], name, plain))
     return stack
 
 
@@ -3473,6 +3681,496 @@ def geometry_paths(dev, run_path, rp, cl):
         'library_ms': lib_ms}
 
 
+def reddit_data():
+    """Path A's graph and data: ``testing.uniform_graph`` at Reddit's node
+    and edge counts (seed 0; ``col`` as int64 for the sampler), features
+    ``[N, 602]`` f32 and 41-class labels (seed 1), ``REDDIT_TRAIN`` random
+    training nodes and the seeds of the path's batches."""
+    from pyg_lib_tpu_torch.testing import uniform_graph
+
+    rowptr, col = uniform_graph(REDDIT_NODES, REDDIT_EDGES)
+    col = col.astype(np.int64)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((REDDIT_NODES, REDDIT_DIMS[0]), dtype=np.float32)
+    y = rng.integers(0, REDDIT_DIMS[-1], REDDIT_NODES)
+    train = rng.permutation(REDDIT_NODES)[:REDDIT_TRAIN]
+    seeds = train[:REDDIT_BATCH * (REDDIT_WARMUP + REDDIT_STEPS +
+                                   REDDIT_PROFILED)]
+    return rowptr, col, x, y, seeds
+
+
+def k3_row(label, msgs, ptr, f):
+    """K3 at width ``f`` on a padded batch's messages ``[E_pad, f]`` and
+    its ``rowptr`` (pad edges past ``rowptr[-1]``): checked against its
+    plain version within the sum bound, and timed beside it,
+    ``torch.segment_reduce`` over the real messages and its bound. Returns
+    the timings and the error."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    got = ops.segment_sum_csr_kernel(msgs, ptr)
+    torch.cuda.synchronize()
+    ref = ops.segment_sum_csr_plain(msgs, ptr)
+    mag = ops.segment_sum_csr_plain(msgs.abs(), ptr)
+    err = (got - ref).abs()
+    e = float(err.max())
+    print(f'  K3 {label} F={f}: max_abs_err {e:.3g} (tolerance '
+          f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
+    if not torch.isfinite(got).all() or bool(
+            (err > SUM_RTOL * mag + SUM_ATOL).any()):
+        raise AssertionError(f'K3 {label} F={f} disagrees with its plain '
+                             f'version')
+    rows, e_real = ptr.shape[0] - 1, int(ptr[-1])
+    real, ptr64 = msgs[:e_real], ptr.long()
+    nbytes = e_real * f * 4 + (rows + 1) * ptr.element_size() + rows * f * 4
+    flops = e_real * f
+    r = {'max_abs_err': e,
+         'ms': cuda_ms(lambda: ops.segment_sum_csr_kernel(msgs, ptr)),
+         'plain_ms': cuda_ms(lambda: ops.segment_sum_csr_plain(msgs, ptr),
+                             iters=3),
+         'bound_ms': max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+         'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+                      else 'operations'),
+         'library_ms': cuda_ms(lambda: torch.segment_reduce(
+             real, 'sum', offsets=ptr64, axis=0))}
+    print(f'  K3 {label} F={f} f32: {r["ms"]:.3f} ms, plain '
+          f'{r["plain_ms"]:.3f} ms, torch.segment_reduce sum '
+          f'{r["library_ms"]:.3f} ms, bound {r["bound_ms"]:.3f} ms '
+          f'({r["bound_by"]}: {nbytes / 1e9:.3f} GB; {e_real} edges, '
+          f'{rows} rows)', flush=True)
+    return r
+
+
+def reddit_path(dev, run_path):
+    """Path A: GraphSAGE [602, 256, 41] (mean) trains with Adam on Reddit's
+    shape in batches of 1,024 seeds, fanouts [25, 10], from the port's
+    ``NeighborLoader`` (the C++ engine, buckets probed; pinned batches
+    copied on a side stream one batch ahead): ``REDDIT_WARMUP`` steps,
+    ``REDDIT_STEPS`` timed ones and a profiled window of
+    ``REDDIT_PROFILED`` (its idle share: the loader's pace, once the
+    look-ahead's first batches are spent). Then, on one more batch,
+    a step's loss and weight gradients against the plain path (K3's plain
+    version, with the kernel path's ReLU branches) within ``GCN_RTOL``,
+    and K3 at F=602 and F=256 on that batch against its plain version,
+    timed. Returns K3's rows by width."""
+    import torch
+
+    from pyg_lib_tpu_torch.loader import NeighborLoader
+    from pyg_lib_tpu_torch.models import SAGE, sage_forward
+
+    t0 = time.perf_counter()
+    rowptr, col, x, y, seeds = reddit_data()
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader = NeighborLoader(rowptr, col, x, y, seeds, REDDIT_BATCH,
+                            REDDIT_FANOUTS, device=dev)
+    t_probe = time.perf_counter() - t0
+    print(f'Reddit shape: {REDDIT_NODES} nodes, {int(rowptr[-1])} edges '
+          f'(col int64 {col.nbytes / 1e9:.2f} GB, x {tuple(x.shape)} f32 '
+          f'{x.nbytes / 1e9:.2f} GB) in {t_data:.1f} s; NeighborLoader '
+          f'buckets {loader.buckets} probed in {t_probe:.2f} s', flush=True)
+    model = SAGE(REDDIT_DIMS, generator=torch.Generator().manual_seed(5),
+                 device=dev)
+    params = model.params()
+    opt = torch.optim.Adam(model.parameters(), lr=REDDIT_LR)
+
+    def loss_of(batch):
+        out = sage_forward(params, batch['x'], batch['rowptr'], batch['row'])
+        n = batch['num_seeds']
+        return torch.nn.functional.cross_entropy(out[:n], batch['y'][:n])
+
+    def step(batch):
+        opt.zero_grad()
+        loss = loss_of(batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def path():
+        it = iter(loader)
+        ms, losses = [], []
+        for i in range(REDDIT_WARMUP + REDDIT_STEPS):
+            if i == REDDIT_WARMUP:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses.append(step(next(it)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, wall, top = device_time_by_kernel(
+            lambda: [step(next(it)) for _ in range(REDDIT_PROFILED)])
+        for _ in it:  # the epoch's end: the loader closes its pool
+            pass
+        return ms, [float(v) for v in losses], peak, busy, wall, top
+
+    ms, losses, peak, busy, wall, top = run_path(
+        'Reddit GraphSAGE mini-batch', ('K3', ), path,
+        engine=('neighbor_sample', ))
+    timed = ms[REDDIT_WARMUP:]
+    t = loader.timings
+    h2d = []
+    for tm in t:
+        start, done = tm['h2d']
+        done.synchronize()
+        h2d.append(start.elapsed_time(done))
+    mean = lambda v: sum(v) / len(v)
+
+    def spread(key):
+        v = sorted(tm[key] for tm in t)
+        return (f'{mean(v):.3f} (median {v[len(v) // 2]:.3f}, first '
+                f'{t[0][key]:.3f}, max {v[-1]:.3f})')
+
+    print(f'  Reddit step (mean of {len(timed)} after {REDDIT_WARMUP}): '
+          f'{mean(timed):.3f} ms (each: '
+          f'{", ".join(f"{v:.1f}" for v in timed)}); losses '
+          f'{[round(v, 4) for v in losses]}', flush=True)
+    print(f'  Reddit host, ms a batch (mean of {len(t)}, in the loader\'s '
+          f'threads): sample {spread("sample_ms")}, pad {spread("pad_ms")}, '
+          f'feature gather into pinned memory {spread("gather_ms")}; H2D '
+          f'{mean(h2d):.3f} (side stream; median '
+          f'{sorted(h2d)[len(h2d) // 2]:.3f}); nodes a batch '
+          f'{min(v["num_nodes"] for v in t)}-'
+          f'{max(v["num_nodes"] for v in t)}, edges '
+          f'{min(v["num_edges"] for v in t)}-'
+          f'{max(v["num_edges"] for v in t)}; bucket counts '
+          f'{loader.bucket_counts} of {loader.buckets}', flush=True)
+    print(f'profile Reddit GraphSAGE mini-batch, {REDDIT_PROFILED} steps: '
+          f'device busy {busy:.3f} ms of {wall:.3f} ms '
+          f'({wall / REDDIT_PROFILED:.3f} ms a step), idle share '
+          f'{1 - busy / wall:.3f}; peak memory '
+          f'{peak:.2f} GiB; by kernel (ms, the window): '
+          + '; '.join(f'{n} {v:.3f}' for n, v in top[:8]), flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError('the Reddit losses are not finite')
+
+    # One more batch: the step against the plain path, and K3's rows.
+    it = iter(loader)
+    batch = next(it)
+    it.close()
+    leaves = list(model.parameters())
+    loss, signs = relu_signs(lambda: loss_of(batch))
+    grads = torch.autograd.grad(loss, leaves)
+    with plain_kernels():
+        ref, _ = relu_signs(lambda: loss_of(batch), replay=signs)
+    refs = torch.autograd.grad(ref, leaves)
+    close('Reddit GraphSAGE loss', loss.detach()[None], ref.detach()[None])
+    for p, g, r in zip(('w_self', 'w_nbr', 'b') * 2, grads, refs):
+        close(f'  Reddit GraphSAGE grad {p}', g, r)
+    ptr, row = batch['rowptr'], batch['row']
+    rows = {}
+    for f in REDDIT_DIMS[:2]:
+        src = batch['x'] if f == REDDIT_DIMS[0] else torch.randn(
+            (batch['x'].shape[0], f), device=dev)
+        msgs = src[row.clamp(max=src.shape[0] - 1)]
+        rows[f] = k3_row('Reddit batch', msgs, ptr, f)
+        del msgs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reorder_path(dev, run_path, rp_u, cl_u):
+    """Path C: ``build_spmm_graph(reorder=...)`` on the bench graphs: the
+    power-law graph built ``dedup='auto', minmax='auto'`` with ``reorder=
+    'on'`` and ``'auto'``, the uniform one (chunked) with ``'on'``. Each
+    reordered graph's ``spmm`` sum, mean and max at F=512, and their
+    gradients, against the same graph's under :func:`plain_kernels`
+    within the sum bound, then against the unreordered graph's within
+    twice it (each side within one of the exact sum); max values bit for
+    bit. Then the sum kernels timed on the reordered plans beside the
+    unreordered ones, and ``spmm`` sum and max with the permutations.
+    Returns the build seconds."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops, partition
+    from pyg_lib_tpu_torch.testing import powerlaw_graph
+
+    rp_p, cl_p = powerlaw_graph(N_NODES, N_EDGES)
+    t0 = time.perf_counter()
+    part = partition.metis(rp_p, cl_p, 256)
+    t_metis = time.perf_counter() - t0
+    cut = partition.edge_cut(rp_p, cl_p, part)
+    builds = {}
+
+    def build(name, rp, cl, **kw):
+        t0 = time.perf_counter()
+        g = ops.build_spmm_graph(rp, cl, device=dev, **kw)
+        builds[name] = time.perf_counter() - t0
+        return g
+
+    graphs = {
+        'powerlaw': build('powerlaw off', rp_p, cl_p, dedup='auto',
+                          minmax='auto'),
+        'uniform': build('uniform off', rp_u, cl_u),
+    }
+
+    def build_reordered():
+        # metis runs on the C++ engine inside each build.
+        graphs['powerlaw on'] = build('powerlaw on', rp_p, cl_p,
+                                      dedup='auto', minmax='auto',
+                                      reorder='on')
+        graphs['powerlaw auto'] = build('powerlaw auto', rp_p, cl_p,
+                                        dedup='auto', minmax='auto',
+                                        reorder='auto')
+        graphs['uniform on'] = build('uniform on', rp_u, cl_u, reorder='on')
+
+    run_path('reordered plans: builds', (), build_reordered,
+             engine=('part_grow', 'part_refine'))
+    chose = graphs['powerlaw auto'].perm is not None
+    print(f'reordered plans: metis (256 parts) on the power-law graph '
+          f'{t_metis:.1f} s, edge cut {cut:.0f} of {N_EDGES}; build s '
+          f'(metis, relabelling and plans) {builds}; reorder=\'auto\' on '
+          f'the power-law graph {"adopted" if chose else "declined"} the '
+          f'relabelling', flush=True)
+    for name, g in graphs.items():
+        mm = g.mm
+        if isinstance(mm, ops.DedupMinmaxPlan):
+            mm = f'K5 dedup min/max chunks={mm.num_chunks} ec={mm.ec}'
+        elif mm is not None:
+            mm = describe(mm)
+        print(f'  {name}: fwd {describe(g.fwd)}; bwd {describe(g.bwd)}; mm '
+              f'{mm}', flush=True)
+    if graphs['powerlaw on'].perm is None or graphs['uniform on'].perm is None:
+        raise AssertionError("reorder='on' did not relabel")
+    pairs = [('powerlaw on', 'powerlaw'), ('uniform on', 'uniform')]
+    if chose:
+        pairs.append(('powerlaw auto', 'powerlaw'))
+    need = set()
+    for name, _ in pairs:
+        g = graphs[name]
+        plan_mm = g.mm if g.mm is not None else g.fwd
+        need |= {rgcn_kid(g.fwd), rgcn_kid(g.bwd),
+                 'K5' if isinstance(plan_mm, ops.DedupMinmaxPlan) else 'K4'}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev,
+                    requires_grad=True)
+    cot = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
+
+    def path():
+        res = {}
+        for name, _ in pairs:
+            for reduce in ('sum', 'mean', 'max'):
+                out = ops.spmm(x, graphs[name], reduce)
+                (grad, ) = torch.autograd.grad((out * cot).sum(), x)
+                res[name, reduce] = (out.detach(), grad)
+        return res
+
+    res = run_path('reordered plans', sorted(need), path)
+
+    def hold(label, reduce, got, ref, mags, times):
+        """``got``'s (value, gradient) against ``ref``'s within ``times``
+        the sum bound of ``mags``, each Σ|terms| (max's values bit for bit
+        too)."""
+        (out, grad), (r, r_grad), (mag, mag_grad) = got, ref, mags
+        same = torch.equal(bits(out), bits(r))
+        e = float((out - r).abs().max())
+        eg = float((grad - r_grad).abs().max())
+        print(f'  spmm {reduce} {label}: max_abs_err {e:.3g}'
+              + (f' (values {"equal bit for bit" if same else "DIFFER"})'
+                 if reduce == 'max' else '')
+              + f', grad {eg:.3g} (tolerance {times} * ({SUM_RTOL:g} * '
+              f'sum|terms| + {SUM_ATOL:g}))', flush=True)
+        bad = bool(((out - r).abs() > times * (SUM_RTOL * mag + SUM_ATOL))
+                   .any()) or bool(((grad - r_grad).abs() > times * (
+                       SUM_RTOL * mag_grad + SUM_ATOL)).any())
+        if bad or (reduce == 'max' and not same) or not torch.isfinite(
+                out).all():
+            raise AssertionError(f'spmm {reduce} {label} disagrees')
+
+    def spmm_and_sizes(g, reduce):
+        """``spmm``'s value and gradient over ``g``, and their Σ|terms|."""
+        out = ops.spmm(x, g, reduce)
+        (grad, ) = torch.autograd.grad((out * cot).sum(), x)
+        mag = ops.spmm(x.detach().abs(), g,
+                       'sum' if reduce == 'max' else reduce)
+        (mag_grad, ) = torch.autograd.grad(
+            (ops.spmm(x, g, reduce) * cot.abs()).sum(), x)
+        return (out.detach(), grad), (mag, mag_grad)
+
+    base_of = dict(pairs)
+    for (name, reduce), got in res.items():
+        # The kernels against their plain versions on the inputs this path
+        # gave them (the relabelled plans, x permuted), through the same
+        # permutations and autograd, within the sum bound.
+        with plain_kernels():
+            ref, mags = spmm_and_sizes(graphs[name], reduce)
+        hold(f'{name} against its plain version', reduce, got, ref, mags, 1)
+        # Then against the unreordered graph's kernels, which checks the
+        # permutations: each side is within one sum bound of the exact sum.
+        ref, mags = spmm_and_sizes(graphs[base_of[name]], reduce)
+        hold(f'{name} against the unreordered graph', reduce, got, ref,
+             mags, 2)
+    del res
+    xb = x.detach()
+
+    def run(plan):
+        if isinstance(plan, ops.DedupSpmmPlan):
+            return lambda: ops.dedup_sum(xb, plan)
+        return lambda: ops.spmm_chunked(xb, plan)
+
+    for name, base in pairs:
+        for side in ('fwd', 'bwd'):
+            a = getattr(graphs[name], side)
+            b = getattr(graphs[base], side)
+            print(f'  {rgcn_kid(a)} {name} {side} F={F_BENCH} f32: '
+                  f'{cuda_ms(run(a)):.3f} ms reordered, {cuda_ms(run(b)):.3f}'
+                  f' ms ({rgcn_kid(b)}) unreordered', flush=True)
+        g_r, g_b = graphs[name], graphs[base]
+        print(f'  spmm {name} F={F_BENCH} f32 forward (the two permutations '
+              f'included): sum {cuda_ms(lambda: ops.spmm(xb, g_r)):.3f} ms '
+              f'reordered, {cuda_ms(lambda: ops.spmm(xb, g_b)):.3f} ms '
+              f'unreordered; max '
+              f'{cuda_ms(lambda: ops.spmm(xb, g_r, "max")):.3f} against '
+              f'{cuda_ms(lambda: ops.spmm(xb, g_b, "max")):.3f} ms',
+              flush=True)
+    del graphs, x, cot, xb
+    torch.cuda.empty_cache()
+    return dict(builds, metis=t_metis)
+
+
+def node2vec_path(dev, run_path, rp_u, cl_u):
+    """Path D: node2vec on the uniform bench graph: ``random_walk`` (the
+    C++ engine) with p = q = 1 and with p = 1, q = 0.5, ``WALKS_PER_NODE``
+    walks of ``WALK_LENGTH`` steps from each of ``N2V_BATCH`` start nodes,
+    one uniform negative a walk, and ``N2V_STEPS`` Adam steps of
+    ``node2vec_loss`` (a context of ``CONTEXT`` nodes) on a ``[N, 128]``
+    table each. Every step of every walk must follow an edge (or stay on
+    a node with none); the losses must be finite."""
+    import torch
+
+    from pyg_lib_tpu_torch.models import init_node2vec, node2vec_loss
+    from pyg_lib_tpu_torch.sampler import random_walk
+
+    n = rp_u.shape[0] - 1
+    key = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp_u)) * n + cl_u
+    key.sort()
+    rng = np.random.default_rng(12)
+
+    def path():
+        res = {}
+        for p, q in ((1.0, 1.0), (1.0, 0.5)):
+            params = init_node2vec(n, N2V_DIM, torch.Generator().manual_seed(
+                13), device=dev)
+            params['emb'].requires_grad_()
+            opt = torch.optim.Adam([params['emb']], lr=N2V_LR)
+            walk_ms, step_ms, losses = [], [], []
+            for step in range(N2V_STEPS):
+                start = np.repeat(rng.integers(0, n, N2V_BATCH),
+                                  WALKS_PER_NODE)
+                t0 = time.perf_counter()
+                walks = random_walk(rp_u, cl_u, start, WALK_LENGTH, p=p, q=q,
+                                    rng=step)
+                walk_ms.append((time.perf_counter() - t0) * 1e3)
+                u, v = walks[:, :-1].reshape(-1), walks[:, 1:].reshape(-1)
+                at = np.searchsorted(key, u * n + v).clip(max=len(key) - 1)
+                dead = rp_u[u + 1] == rp_u[u]
+                if not ((key[at] == u * n + v) | (dead & (u == v))).all():
+                    raise AssertionError(f'a node2vec walk (p={p}, q={q}) '
+                                         f'left the graph')
+                neg = rng.integers(0, n, (len(start), NEGATIVES))
+                t0 = time.perf_counter()
+                opt.zero_grad()
+                loss = node2vec_loss(params,
+                                     torch.from_numpy(walks).to(dev),
+                                     torch.from_numpy(neg).to(dev),
+                                     window=CONTEXT - 1)
+                loss.backward()
+                opt.step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss.detach()))
+            res[p, q] = (walk_ms, step_ms, losses)
+        return res
+
+    res = run_path('node2vec', (), path,
+                   engine=('random_walk', 'random_walk_pq'))
+    for (p, q), (walk_ms, step_ms, losses) in res.items():
+        print(f'  node2vec p={p:g} q={q:g}: {N2V_BATCH * WALKS_PER_NODE} '
+              f'walks of {WALK_LENGTH} steps, ms each step '
+              f'{[round(v, 3) for v in walk_ms]} (the first p/q call sorts '
+              f'the rows once); Adam step ms '
+              f'{[round(v, 3) for v in step_ms]}; losses '
+              f'{[round(v, 4) for v in losses]}', flush=True)
+        if not all(np.isfinite(losses)):
+            raise AssertionError('the node2vec losses are not finite')
+
+
+def entry_path(dev, run_path):
+    """Path E: the port's ``entry()`` on the card (``sage_forward``
+    [32, 64, 7] over one padded batch from the port's sampler; K3)
+    against the same function on the CPU, within ``GCN_RTOL``."""
+    import torch
+
+    from pyg_lib_tpu_torch.entry import entry
+
+    def path():
+        fn, args = entry(device=dev)  # samples its batch
+        return args, fn(*args)
+
+    args, out = run_path('entry()', ('K3', ), path,
+                         engine=('neighbor_sample', ))
+    fn_c, args_c = entry(device='cpu')
+    for a, b in zip(args[1:], args_c[1:]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError('entry()\'s batch differs between the card '
+                                 'and the CPU')
+    close('entry() on the card against the CPU', out.cpu(), fn_c(*args_c))
+
+
+def host_paths(dev, run_path):
+    """Paths A, C, D and E (the host layer on the card); returns K3's rows
+    at path A's widths and path C's build seconds."""
+    from pyg_lib_tpu_torch.testing import uniform_graph
+
+    t0 = time.perf_counter()
+    k3_rows = reddit_path(dev, run_path)
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rp_u, cl_u = uniform_graph(N_NODES, N_EDGES)
+    cl_u = cl_u.astype(np.int64)
+    builds = reorder_path(dev, run_path, rp_u, cl_u)
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    node2vec_path(dev, run_path, rp_u, cl_u)
+    t_d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entry_path(dev, run_path)
+    print(f'host paths (s): A {t_a:.1f}, C {t_c:.1f}, D {t_d:.1f}, E '
+          f'{time.perf_counter() - t0:.1f}', flush=True)
+    return k3_rows, builds
+
+
+def host_main():
+    """``python3 chip_smoke.py --host``: paths A, C, D and E
+    (:func:`host_paths`) in a process of their own, as :func:`main` runs
+    them; its last line is :data:`HOST_RESULT` and, as JSON, the paths'
+    launch counts (K3's by width too), K3's rows at path A's widths and
+    path C's build seconds."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device is available')
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pyg_lib_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()  # built by the calling process: loaded
+    t0 = time.perf_counter()
+    _build.build_host()
+    print(f'host engine build: {time.perf_counter() - t0:.1f} s', flush=True)
+    paths = Paths()
+    t0 = time.perf_counter()
+    k3_rows, builds = host_paths(torch.device('cuda', 0), paths.run)
+    paths.restore()
+    print(f'host paths: {time.perf_counter() - t0:.1f} s', flush=True)
+    print(HOST_RESULT + json.dumps({
+        'launches': paths.launches, 'k3': k3_rows, 'builds': builds,
+        'by_width': [[kid, f, n] for (kid, f), n in
+                     sorted(paths.by_width.items())]}), flush=True)
+
+
 def work(plan, f):
     """Bytes (each input read once, the output written once) and f32
     operations that one K1/K2 call on ``plan`` at width ``f`` needs. K2
@@ -3502,8 +4200,9 @@ def work(plan, f):
 
 def device_time_by_kernel(fn):
     """Run ``fn`` once under ``torch.profiler``; return the device's busy
-    ms, the run's wall ms (host clock to a synchronize) and ``[(kernel
-    name, ms)]`` summed by name, largest first."""
+    ms (the union of its events' intervals: a copy on a side stream may
+    overlap a kernel), the run's wall ms (host clock to a synchronize) and
+    ``[(kernel name, ms)]`` summed by name, largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3527,13 +4226,21 @@ def device_time_by_kernel(fn):
     if spin:
         events = events[spin[0] + 1:]
     by_name = {}
+    busy_ns, end_ns = 0, None
     for ev in events:
         name = re.sub(r'^void |\(anonymous namespace\)::', '', ev.name())
         name = name.split('(')[0][:60]
         by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e3
+        start, end = ev.start_ns(), ev.start_ns() + ev.duration_ns()
+        if end_ns is None or start >= end_ns:
+            busy_ns += end - start
+            end_ns = end
+        elif end > end_ns:
+            busy_ns += end - end_ns
+            end_ns = end
     top = sorted(((k, v / 1e3) for k, v in by_name.items()),
                  key=lambda kv: -kv[1])
-    return sum(ms for _, ms in top), wall_ms, top
+    return busy_ns / 1e6, wall_ms, top
 
 
 def cuda_ms(fn, iters=10, warmup=2, warm_s=0.1):
@@ -3571,6 +4278,9 @@ if __name__ == '__main__':
         sys.exit(0)
     if sys.argv[1:] == ['--sharded']:
         sharded_main()
+        sys.exit(0)
+    if sys.argv[1:] == ['--host']:
+        host_main()
         sys.exit(0)
     import torch
 

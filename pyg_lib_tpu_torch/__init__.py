@@ -20,14 +20,25 @@ PyTorch version; on CUDA tensors it launches the kernel or raises.
   ``scatter_logsumexp``) and ``fused_scatter_reduce``.
 * ``pyg_lib_tpu_torch.models`` — GCN, GraphSAGE (mean, max and
   full-graph max-pool), the full-graph GAT and the padded-batch GAT.
+* The host layer: ``sampler`` (neighbour, hetero, subgraph and random
+  walk sampling on the C++ engine of ``csrc/host``, built with ``g++`` at
+  first use, and the padding of samples into fixed-shape batches),
+  ``partition`` (``metis``, ``cluster_reorder``, the mesh partitions),
+  ``classes`` (``HashMap``, ``DeviceHashMap``, the stateful samplers),
+  ``loader`` (``NeighborLoader``, ``HeteroNeighborLoader``: sampling
+  threads, pinned host batches copied to the card one batch ahead),
+  ``metrics``, ``datasets``, and ``entry`` (a GraphSAGE forward over one
+  sampled batch).
 
 This package never imports ``jax`` or ``pyg_lib_tpu``.
 """
 
 import torch
 
-from pyg_lib_tpu_torch import models, ops, utils
+from pyg_lib_tpu_torch import (classes, datasets, loader, metrics, models,
+                               ops, partition, sampler, utils)
 from pyg_lib_tpu_torch._version import __version__
+from pyg_lib_tpu_torch.home import get_home_dir, set_home_dir
 
 
 def cuda_version() -> str:
@@ -41,4 +52,6 @@ def cuda_version() -> str:
     return torch.cuda.get_device_name(0)
 
 
-__all__ = ['__version__', 'cuda_version', 'models', 'ops', 'utils']
+__all__ = ['__version__', 'classes', 'cuda_version', 'datasets',
+           'get_home_dir', 'loader', 'metrics', 'models', 'ops', 'partition',
+           'sampler', 'set_home_dir', 'utils']

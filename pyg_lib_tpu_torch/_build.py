@@ -1,4 +1,5 @@
-"""Build the CUDA kernels under ``csrc/`` with ``nvcc`` and load them.
+"""Build the CUDA kernels under ``csrc/`` with ``nvcc``, and the host
+sampling engine under ``csrc/host/`` with ``g++``, and load them.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``_build/<name>-<digest>.so``, where the digest covers the
@@ -7,9 +8,16 @@ anew and an unchanged one is reused. Several sources build in parallel,
 one ``nvcc`` each. The library is loaded with ``ctypes``; the kernel
 modules declare the argument types of the functions they call.
 
+The C++ engine of ``csrc/host/`` (the sampler, the hetero sampler,
+subgraph, random walks and the partitioner) becomes one library,
+``_build/host-<digest>.so``, built with the JAX package's Makefile flags;
+its digest also covers what ``-march=native`` means on this machine, so
+a library built for another CPU is not loaded.
+
 Nothing is built when this module is imported: the first call of a
 kernel wrapper on a CUDA tensor builds what it needs (or
-:func:`build` does it up front). A failed build raises.
+:func:`build` does it up front), and the first call of the engine builds
+it (:func:`load_host`). A failed build raises.
 """
 
 import ctypes
@@ -21,13 +29,19 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ['build', 'build_variants', 'load', 'sources', 'BUILD_DIR']
+__all__ = ['build', 'build_host', 'build_variants', 'load', 'load_host',
+           'sources', 'BUILD_DIR']
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / 'csrc'
 BUILD_DIR = _HERE / '_build'
+HOST = CSRC / 'host'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+# pyg_lib_tpu/csrc/Makefile's flags.
+HOST_FLAGS = ('-O3', '-march=native', '-std=c++17', '-fPIC', '-fopenmp',
+              '-shared')
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,6 +61,14 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    path = shutil.which('g++')
+    if path is None:
+        raise RuntimeError('g++ was not found on PATH; the host sampling '
+                           'engine cannot be built')
+    return path
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     for p in [CSRC / f'{name}.cu'] + sorted(CSRC.glob('*.cuh')):
@@ -55,17 +77,22 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
-def _run(jobs):
-    """Start one ``nvcc`` per job ``(source, library, log)``,
-    all at once, and wait for all of them; each library is written under a
-    temporary name and moved into place once built, and ``nvcc``'s output
-    (with ``ptxas``'s register, shared memory and spill report) goes to
-    the log. Raises if any build failed."""
+def _run(jobs, compiler=None):
+    """Start one compiler per job ``(source, library, log)``, all at once,
+    and wait for all of them; each library is written under a temporary
+    name and moved into place once built, and the compiler's output (with
+    ``ptxas``'s register, shared memory and spill report for ``nvcc``)
+    goes to the log. ``compiler(out)`` gives a job's command without its
+    sources (default: ``nvcc`` with ``-I csrc``); a job's source may be a
+    list of sources. Raises if any build failed."""
+    if compiler is None:
+        compiler = lambda out: [_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o',
+                                out]
     procs = []
     for src, so, log in jobs:
         tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
-               str(src)]
+        srcs = src if isinstance(src, list) else [src]
+        cmd = compiler(str(tmp)) + [str(p) for p in srcs]
         procs.append((src, so, log, tmp,
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)))
@@ -74,11 +101,12 @@ def _run(jobs):
         out, _ = proc.communicate()
         log.write_text(out)
         if proc.returncode != 0:
-            failed.append(f'{src}:\n{out}')
+            failed.append(f'{Path(proc.args[0]).name} failed for {src}:\n'
+                          f'{out}')
             continue
         os.replace(tmp, so)
     if failed:
-        raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
+        raise RuntimeError('\n'.join(failed))
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
@@ -129,3 +157,37 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(build([name])[name]))
         return _loaded[name]
+
+
+def _host_target() -> Path:
+    """``_build/host-<digest>.so``: the digest covers the flags, what
+    ``-march=native`` resolves to here and every source of ``csrc/host``."""
+    march = subprocess.run([_gxx(), '-march=native', '-Q', '--help=target'],
+                           capture_output=True, text=True).stdout
+    h = hashlib.sha256(' '.join(HOST_FLAGS).encode())
+    h.update(march.encode())
+    for p in sorted(HOST.glob('*.cpp')) + sorted(HOST.glob('*.h')):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f'host-{h.hexdigest()[:16]}.so'
+
+
+def build_host() -> Path:
+    """Build the host sampling engine (``csrc/host/*.cpp``) with ``g++``
+    into one library, unless it is built already; ``g++``'s output goes to
+    ``_build/host.log``. Raises if the build fails. Returns its path."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    so = _host_target()
+    if not so.exists():
+        gxx = _gxx()
+        _run([(sorted(HOST.glob('*.cpp')), so, BUILD_DIR / 'host.log')],
+             compiler=lambda out: [gxx, *HOST_FLAGS, '-o', out])
+    return so
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded host sampling engine, built first if needed."""
+    with _lock:
+        if 'host' not in _loaded:
+            _loaded['host'] = ctypes.CDLL(str(build_host()))
+        return _loaded['host']

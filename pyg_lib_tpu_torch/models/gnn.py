@@ -41,7 +41,7 @@ from pyg_lib_tpu_torch.ops import (FusedRangePlan, build_spmm_graph,
                                    segment_mean_csr, segment_softmax_padded,
                                    segment_sum_csr, segment_sum_padded, spmm)
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _build_padded_layout
-from pyg_lib_tpu_torch.ops.spmm import _gathered_max_padded
+from pyg_lib_tpu_torch.ops.spmm import _forward_plan, _gathered_max_padded
 from pyg_lib_tpu_torch.utils import _resolve_device
 
 __all__ = ['GAT', 'GATBatch', 'GCN', 'RGCN', 'RGCNBatch', 'SAGE',
@@ -182,8 +182,8 @@ def sage_maxpool_forward_spmm(params: Dict, x: torch.Tensor,
     reads the pooled rows through the plan's ``col_padded``, so the padded
     message slab the JAX package gathers first is never written; the
     values and the gradient (winner-only, then the gather's transpose) are
-    the same."""
-    plan = graph.fwd
+    the same. A cluster-reordered graph raises ``ValueError``."""
+    plan = _forward_plan(graph, 'sage_maxpool_forward_spmm')
     layers = params['layers']
     for i, layer in enumerate(layers):
         h_pool = torch.relu(x @ layer['w_nbr'])
@@ -247,8 +247,9 @@ def gat_forward_spmm(params: Dict, x: torch.Tensor, graph) -> torch.Tensor:
     attention, and the sum into the rows (kernel K1 without the gather).
     Heads are read per layer from ``a_src``'s shape, so the last layer may
     have its own count; heads are concatenated, with ELU between layers.
+    A cluster-reordered graph raises ``ValueError``.
     """
-    plan = graph.fwd
+    plan = _forward_plan(graph, 'gat_forward_spmm')
     layers = params['layers']
     for i, layer in enumerate(layers):
         heads, out_h = layer['a_src'].shape

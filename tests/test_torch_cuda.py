@@ -1467,3 +1467,124 @@ def test_spline_weighting_matches_cpu(dev):
     got = ops.spline_weighting(x.to(dev), w.to(dev), basis.to(dev),
                                wi.to(dev)).cpu()
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# -- the host layer on the card -----------------------------------------------
+
+
+def test_device_hash_map_on_the_card_equals_the_cpu(dev):
+    from pyg_lib_tpu_torch.classes import DeviceHashMap
+
+    keys = np.random.default_rng(0).choice(10**9, 5000, replace=False)
+    queries = np.concatenate([keys[::3], np.arange(-5, 2000)])
+    got = DeviceHashMap(keys, device=dev).get(torch.tensor(queries,
+                                                            device=dev))
+    ref = DeviceHashMap(keys, device='cpu').get(torch.tensor(queries))
+    assert got.device.type == 'cuda' and torch.equal(got.cpu(), ref)
+    empty = DeviceHashMap(np.zeros(0, np.int64), device=dev).get([1, 2])
+    assert empty.tolist() == [-1, -1]
+
+
+@pytest.mark.parametrize('kind', ['homogeneous', 'hetero'])
+def test_loader_batches_on_the_card_equal_the_host_batches(dev, kind):
+    from pyg_lib_tpu_torch.loader import HeteroNeighborLoader, NeighborLoader
+
+    rng = np.random.default_rng(1)
+    if kind == 'homogeneous':
+        rowptr, col = GRAPHS['ragged']()
+        x = rng.normal(size=(1000, 24)).astype(np.float32)
+        y = rng.integers(0, 7, 1000)
+        make = lambda device: NeighborLoader(
+            rowptr, col, x, y, np.arange(0, 1000, 2), 64, [6, 4], rng=3,
+            device=device, lookahead=3)
+    else:
+        sizes = {'a': 700, 'b': 400}
+        rels = [('a', 'r', 'a'), ('b', 's', 'a'), ('a', 't', 'b')]
+        rowptr_d, col_d = {}, {}
+        for s, r, d in rels:
+            rp = np.zeros(sizes[s] + 1, np.int64)
+            rp[1:] = np.cumsum(rng.integers(0, 9, sizes[s]))
+            rowptr_d[s, r, d] = rp
+            col_d[s, r, d] = rng.integers(0, sizes[d], int(rp[-1]))
+        x_d = {t: rng.normal(size=(n, 16)).astype(np.float32)
+               for t, n in sizes.items()}
+        y_d = {'a': rng.integers(0, 5, 700)}
+        make = lambda device: HeteroNeighborLoader(
+            rowptr_d, col_d, x_d, y_d, 'a',
+            np.arange(0, 700, 3), 32, {k: [4, 3] for k in rels},
+            {'a': 2048, 'b': 1024}, 6000, rng=2, device=device)
+    card, host = make(dev), make('cpu')
+    got = [b for _ in range(2) for b in card]
+    ref = [b for _ in range(2) for b in host]
+    assert len(got) == len(ref) > 2
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k, v in r.items():
+            if isinstance(v, torch.Tensor):
+                assert g[k].device.type == 'cuda'
+                assert torch.equal(g[k].cpu(), v), k
+            else:
+                assert g[k] == v, k
+    start, done = card.timings[0]['h2d']
+    done.synchronize()
+    assert start.elapsed_time(done) >= 0.0
+
+
+@pytest.mark.parametrize('f', [47, 602])
+def test_k3_on_a_padded_batch_with_trailing_pad_edges(dev, f):
+    from pyg_lib_tpu_torch import sampler
+
+    rowptr, col = GRAPHS['ragged']()
+    out = sampler.neighbor_sample(rowptr, col, np.arange(0, 1000, 9),
+                                  [10, 5], rng=4)
+    b = sampler.padding.pad_sample_output(out, 4096, 8192, num_seeds=112)
+    assert b.num_edges < 8192  # trailing pad edges past rowptr[-1]
+    ptr = torch.tensor(b.rowptr, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(f)
+    src = torch.randn((8192, f), generator=gen, device=dev,
+                      requires_grad=True)
+    got = ops.segment_mean_csr(src, ptr)
+    torch.cuda.synchronize()
+    ref = ops.segment_sum_csr_plain(src.detach(), ptr) / (
+        ptr[1:] - ptr[:-1]).clamp(min=1)[:, None]
+    mag = ops.segment_sum_csr_plain(src.detach().abs(), ptr) / (
+        ptr[1:] - ptr[:-1]).clamp(min=1)[:, None]
+    assert bool(((got.detach() - ref).abs() <= RTOL * mag + ATOL).all())
+    # The backward (gather_csr of the cotangent) gives the pad rows zero.
+    got.backward(torch.ones_like(got))
+    assert bool((src.grad[b.num_edges:] == 0).all())
+    assert bool((src.grad[:b.num_edges] > 0).all())
+
+
+@pytest.mark.parametrize('reorder', ['on', 'auto'])
+@pytest.mark.parametrize('reduce', ['sum', 'mean', 'max'])
+def test_reordered_spmm_on_the_card_equals_the_cpu(dev, reorder, reduce):
+    # Values and gradients within the sum bound of the module docstring,
+    # Σ|terms| from the CPU: |x| through the graph for the values, the
+    # gradient of the output against |cot| for the gradients. Max values
+    # are exact.
+    rowptr, col = _powerlaw(5, 3000, 40000)
+    x = np.random.default_rng(6).normal(size=(3000, 47)).astype(np.float32)
+    cot = np.random.default_rng(7).normal(size=(3000, 47)).astype(
+        np.float32)
+    outs = []
+    for device in (dev, 'cpu'):
+        g = ops.build_spmm_graph(rowptr, col, reorder=reorder,
+                                 dedup='auto' if reduce != 'max' else 'off',
+                                 device=device)
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        out = ops.spmm(xt, g, reduce=reduce)
+        (out * torch.tensor(cot, device=device)).sum().backward()
+        outs.append((out.detach().cpu(), xt.grad.cpu(), g.perm is None))
+    (o1, g1, p1), (o2, g2, p2) = outs
+    assert p1 == p2
+    xc = torch.tensor(x, requires_grad=True)
+    out = ops.spmm(xc, g, reduce=reduce)
+    (out * torch.tensor(cot).abs()).sum().backward()
+    mag_grad = xc.grad
+    if reduce == 'max':
+        assert torch.equal(o1, o2)
+    else:
+        mag = ops.spmm(torch.tensor(x).abs(), g, reduce=reduce)
+        assert bool(((o1 - o2).abs() <= RTOL * mag + ATOL).all())
+    assert bool(((g1 - g2).abs() <= RTOL * mag_grad + ATOL).all())

@@ -154,7 +154,16 @@ def test_package_imports_neither_jax_nor_reference():
             'pyg_lib_tpu_torch.ops.composite, '
             'pyg_lib_tpu_torch.ops.scatter_reduce, '
             'pyg_lib_tpu_torch.ops.matmul, '
-            'pyg_lib_tpu_torch.examples.train_rgcn_fullgraph_spmm; '
+            'pyg_lib_tpu_torch.examples.train_rgcn_fullgraph_spmm, '
+            'pyg_lib_tpu_torch.sampler, pyg_lib_tpu_torch.sampler._cpp, '
+            'pyg_lib_tpu_torch.sampler.padding, '
+            'pyg_lib_tpu_torch.partition, pyg_lib_tpu_torch.classes, '
+            'pyg_lib_tpu_torch.loader, pyg_lib_tpu_torch.entry, '
+            'pyg_lib_tpu_torch.metrics, pyg_lib_tpu_torch.datasets, '
+            'pyg_lib_tpu_torch.home, '
+            'pyg_lib_tpu_torch.examples.train_sage_minibatch, '
+            'pyg_lib_tpu_torch.examples.train_rgcn_hetero, '
+            'pyg_lib_tpu_torch.examples.train_node2vec; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyg_lib_tpu')); "
             'assert not bad, bad')
@@ -181,8 +190,13 @@ def test_sources_import_neither_jax_nor_reference():
             'plan_cache.py', 'gnn.py', 'softmax.py', 'segment_softmax.py',
             'spmm_range_fused.py', 'scatter.py', 'segment_coo.py',
             'composite.py', 'scatter_reduce.py', 'matmul.py',
-            'train_rgcn_fullgraph_spmm.py', 'headline.py'} <= names \
-        and len(files) > 24
+            'train_rgcn_fullgraph_spmm.py', 'headline.py', '_cpp.py',
+            '_numpy_impl.py', '_hetero_impl.py', 'padding.py', 'loader.py',
+            'entry.py', 'metrics.py', 'datasets.py', 'home.py',
+            'train_sage_minibatch.py', 'train_rgcn_hetero.py',
+            'train_node2vec.py'} <= names and len(files) > 40
+    assert {'partition', 'classes', 'sampler'} <= {
+        p.parent.name for p in files if p.name == '__init__.py'}
     for path in files:
         bad = _imported_roots(path) & {'jax', 'jaxlib', 'pyg_lib_tpu'}
         assert not bad, f'{path.relative_to(REPO)} imports {bad}'
@@ -253,9 +267,10 @@ def test_spmm_refuses_mixed_devices_and_unported_options():
     with pytest.raises(ValueError, match='reduce must be'):
         ops.spmm(torch.zeros((50, 4)), graph, reduce='prod')
     # range_split, range_fused and the plans' pad_to_chunks are ported
-    # (tests/test_torch_range.py, tests/test_torch_sharded.py); reorder
-    # still names its ROADMAP item.
-    with pytest.raises(NotImplementedError, match='ROADMAP.*12'):
+    # (tests/test_torch_range.py, tests/test_torch_sharded.py), and reorder
+    # (tests/test_torch_partition.py), which refuses an unknown value as
+    # the JAX package does.
+    with pytest.raises(ValueError, match='reorder must be'):
         ops.build_spmm_graph(rowptr, col, device='cpu', reorder='rcm')
     plan = ops.build_dedup_plan(rowptr, col, pad_to_chunks=4, device='cpu')
     assert plan.num_chunks >= 4
