@@ -86,7 +86,24 @@ ogbn-mag's full published shape:
   (D) node2vec's walks (p = q = 1 and q = 0.5) and 3 Adam steps of its
   loss on the uniform graph; (E) the port's ``entry()`` against the CPU.
   A, C, D and E run in a third process (``python3 chip_smoke.py
-  --host``).
+  --host``);
+* distribution, in a fourth process (``python3 chip_smoke.py --dist``)
+  that starts the ranks of the one card (``parallel.spawn``). NCCL's
+  answer to four ranks on one card is printed first; then on gloo, with
+  CUDA tensors staged through pinned host memory: (H) the GCN of
+  ``train_dist_fullgraph.py`` at [128, 256, 172] (ogbn-papers100M's
+  features and classes) trains over four ranks of the huge graph's 2M
+  nodes and 30,009,772 edges, three Adam steps with
+  ``halo_exchange_aggregate`` and three with ``ring_halo_aggregate`` (K3
+  in every rank and layer), step 1's output and gradients held against
+  one process on the whole graph; (T) GraphSAGE [602, 256, 41] at path
+  A's Reddit shape trains data-parallel, each rank's batches from a
+  ``DistNeighborLoader`` over its quarter of the seeds (K3 at 602 and
+  256), step 1's all-reduced gradient held against the mean of the four
+  local ones; (E) ``entry.dryrun_multichip(4)`` on a 2 x 2 mesh; (N) one
+  rank over NCCL runs E's steps and H's all-gather aggregation against
+  one process. Each rank's K3 launches, step ms, collectives' ms, peak
+  memory and rank 0's profiled step are printed.
 
 The script:
 
@@ -269,6 +286,21 @@ WALK_LENGTH, CONTEXT, WALKS_PER_NODE, NEGATIVES = 20, 10, 10, 1
 N2V_DIM, N2V_BATCH, N2V_STEPS, N2V_LR = 128, 128, 3, 0.01
 # The host child's last line: this, then its results as JSON.
 HOST_RESULT = 'host launches: '
+# The distribution child (python3 chip_smoke.py --dist): four ranks on the
+# one card, joined by gloo (NCCL refuses two ranks on one GPU; its answer
+# is printed), CUDA tensors staged through pinned host memory by
+# parallel._collectives. H: examples/train_dist_fullgraph.py's GCN at
+# ogbn-papers100M's 128 features and 172 classes (BASELINE.json config 5),
+# hidden 256, on the huge graph (testing.huge_graph, 2M nodes, 30,009,772
+# edges) edge-partitioned over the four ranks; DIST_STEPS Adam steps with
+# each halo aggregation. T: PyG examples/multi_gpu/distributed_sampling.py
+# at path A's Reddit shape: SAGE [602, 256, 41] mean, 1,024 seeds a rank,
+# fanouts [25, 10], DistNeighborLoader over 4 partitions, gradients
+# averaged; DIST_T_WARMUP + DIST_T_STEPS steps.
+DIST_RANKS, DIST_DIMS, DIST_LR, DIST_STEPS = 4, [128, 256, 172], 1e-2, 3
+DIST_TRAIN_SHARE = 0.5  # H's training mask: about half the nodes
+DIST_T_WARMUP, DIST_T_STEPS = 2, 4
+DIST_RESULT = 'dist launches: '
 # Launch counters of the kernel wrappers: id -> (wrapper in ops, counter).
 COUNTERS = {'K1': ('spmm_chunked', 'launches'),
             'K2': ('dedup_sum', 'launches'),
@@ -972,7 +1004,10 @@ def main():
     # -- 3b. the host layer's paths A, C, D and E, in a process of their
     # own too (Reddit's graph and features take some 2 GB of the host) ---
     host = child('--host', HOST_RESULT)
-    for res in (rgcn, sharded, host):
+    # -- 3c. distribution: four ranks of the card (paths H, T, E, N), in
+    # a process of its own too ----------------------------------------
+    dist = child('--dist', DIST_RESULT)
+    for res in (rgcn, sharded, host, dist):
         for k, n in res['launches'].items():
             launches[k] += n
         for kid, f, n in res['by_width']:
@@ -988,7 +1023,7 @@ def main():
 
         profile(label, step, ms, top_n)
 
-    # -- 3c. the graphs at bench scale ----------------------------------
+    # -- 3d. the graphs at bench scale ----------------------------------
     t0 = time.perf_counter()
     rp_u, cl_u = uniform_graph(N_NODES, N_EDGES)
     g_u = ops.build_spmm_graph(rp_u, cl_u, with_edge_maps=True,
@@ -1898,6 +1933,13 @@ def main():
     k3_host = {f: n for kid, f, n in host['by_width'] if kid == 'K3'}
     k3['path_a'] = {f: dict(r, launches=k3_host.get(int(f), 0))
                     for f, r in host['k3'].items()}
+    # K3 on the distribution paths H and T, at each width they ran at,
+    # with its launches in each rank (all widths).
+    for key, label in (('path_h', 'H'), ('path_t', 'T')):
+        p = dist['paths'][label]
+        k3[key] = {f: dict(r, launches=p['widths'].get(f, 0),
+                           launches_per_rank=p['per_rank'])
+                   for f, r in dist['k3_' + label.lower()].items()}
     return smi, errs, rows
 
 
@@ -3684,8 +3726,8 @@ def geometry_paths(dev, run_path, rp, cl):
 def reddit_data():
     """Path A's graph and data: ``testing.uniform_graph`` at Reddit's node
     and edge counts (seed 0; ``col`` as int64 for the sampler), features
-    ``[N, 602]`` f32 and 41-class labels (seed 1), ``REDDIT_TRAIN`` random
-    training nodes and the seeds of the path's batches."""
+    ``[N, 602]`` f32 and 41-class labels (seed 1) and ``REDDIT_TRAIN``
+    random training nodes."""
     from pyg_lib_tpu_torch.testing import uniform_graph
 
     rowptr, col = uniform_graph(REDDIT_NODES, REDDIT_EDGES)
@@ -3694,9 +3736,7 @@ def reddit_data():
     x = rng.standard_normal((REDDIT_NODES, REDDIT_DIMS[0]), dtype=np.float32)
     y = rng.integers(0, REDDIT_DIMS[-1], REDDIT_NODES)
     train = rng.permutation(REDDIT_NODES)[:REDDIT_TRAIN]
-    seeds = train[:REDDIT_BATCH * (REDDIT_WARMUP + REDDIT_STEPS +
-                                   REDDIT_PROFILED)]
-    return rowptr, col, x, y, seeds
+    return rowptr, col, x, y, train
 
 
 def k3_row(label, msgs, ptr, f):
@@ -3760,7 +3800,9 @@ def reddit_path(dev, run_path):
     from pyg_lib_tpu_torch.models import SAGE, sage_forward
 
     t0 = time.perf_counter()
-    rowptr, col, x, y, seeds = reddit_data()
+    rowptr, col, x, y, train = reddit_data()
+    seeds = train[:REDDIT_BATCH * (REDDIT_WARMUP + REDDIT_STEPS +
+                                   REDDIT_PROFILED)]
     t_data = time.perf_counter() - t0
     t0 = time.perf_counter()
     loader = NeighborLoader(rowptr, col, x, y, seeds, REDDIT_BATCH,
@@ -4171,6 +4213,736 @@ def host_main():
                      sorted(paths.by_width.items())]}), flush=True)
 
 
+# -- the distribution child (python3 chip_smoke.py --dist) -------------------
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def rank_setup(cfg):
+    """A rank's start: TF32 off, and on the card K3's C entry point
+    replaced by a :class:`ByWidth` tally (its calls by width). Returns the
+    rank's device and the tally (``None`` on the CPU)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(cfg['device'])
+    tally = None
+    if dev.type == 'cuda':
+        from pyg_lib_tpu_torch import _build
+        from pyg_lib_tpu_torch.ops.kernels import segment_csr as k3_mod
+
+        tally = ByWidth(k3_mod._k3_lib(), 6, lambda a: 'K3')
+        setattr(_build.load('segment_csr'), 'pygt_segment_sum_csr', tally)
+    return dev, tally
+
+
+def k3_start(dev, tally):
+    """Set the rank's K3 counts and its peak memory to 0 (just before a
+    main path)."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.segment_sum_csr_kernel.launches = 0
+    if tally is not None:
+        tally.counts.clear()
+
+
+def k3_read(dev, tally):
+    """The rank's K3 launches since :func:`k3_start`, by width too, and
+    its peak memory in GiB."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    widths = [] if tally is None else [
+        [f, n] for (_, f), n in sorted(tally.counts.items())]
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == 'cuda' else 0.0)
+    return {'k3': ops.segment_sum_csr_kernel.launches, 'widths': widths,
+            'peak': peak}
+
+
+def digest(params):
+    """SHA-1 of the parameters' bytes: equal across ranks, bit for bit."""
+    import hashlib
+
+    from torch.utils import _pytree
+
+    h = hashlib.sha1()
+    for t in _pytree.tree_leaves(params):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_steps(rank, dev, step, params, n, next_batch, on_step=None):
+    """``n`` steps of ``step`` in a rank, each timed by the host clock to a
+    synchronise. The last one also times each collective (synchronised,
+    ``parallel._collectives.stats``) and, in rank 0 on the card, runs
+    under the profiler (device time by kernel, idle share). ``on_step(i)``
+    runs after step ``i``. Returns the parameters and the record."""
+    from pyg_lib_tpu_torch.parallel import _collectives as C
+
+    opt, ms, losses, digests, prof = None, [], [], [], None
+    for i in range(n):
+        batch = next_batch()
+        last = i == n - 1
+        if last:
+            C.reset_stats()
+            C.set_timing(True)
+        sync(dev)
+        t0 = time.perf_counter()
+        if last and rank == 0 and dev.type == 'cuda':
+            out = []
+            busy, wall, top = device_time_by_kernel(
+                lambda: out.append(step(params, opt, batch)))
+            (params, opt, loss), = out
+            prof = {'busy': busy, 'wall': wall,
+                    'k3_ms': sum(t for name, t in top if 'k3_' in name),
+                    'top': [[name, t] for name, t in top[:6]]}
+        else:
+            params, opt, loss = step(params, opt, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        digests.append(digest(params))
+        if on_step is not None:
+            on_step(i)
+    C.set_timing(False)
+    return params, {'ms': ms, 'losses': losses, 'digests': digests,
+                    'profile': prof,
+                    'coll_ms': {k: v[0] for k, v in C.stats.items()},
+                    'coll_calls': {k: v[1] for k, v in C.stats.items()}}
+
+
+def dist_load(cfg, name):
+    """An array the child wrote for the ranks, memory-mapped (copy on
+    write: writable for ``torch.from_numpy``, shared until written)."""
+    return np.load(os.path.join(cfg['tmp'], name + '.npy'), mmap_mode='c')
+
+
+def dist_gcn(rank, world, cfg, dev, tally, form):
+    """Path H in one rank: ``cfg['h_steps']`` Adam steps of the GCN over
+    this rank's node range with ``form``'s aggregation ('halo' or
+    'ring'); step 1's output rows and all-reduced weight gradients are
+    held against the one-process reference (errors returned)."""
+    import functools
+
+    import torch
+
+    from pyg_lib_tpu_torch import parallel
+    from pyg_lib_tpu_torch.examples.train_dist_fullgraph import gcn_forward
+
+    mesh = parallel.make_mesh((world, ), ('data', ), device=dev.type)
+    npd = cfg['npd']
+    mine = slice(rank * npd, (rank + 1) * npd)
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    k3_start(dev, tally)
+    x = card(dist_load(cfg, 'h_x')[mine])
+    y = card(dist_load(cfg, 'h_y')[mine])
+    train = card(dist_load(cfg, 'h_train')[mine])
+    inv_sqrt = card(dist_load(cfg, 'h_inv_sqrt')[mine])[:, None]
+    if form == 'halo':
+        tables = [card(dist_load(cfg, 'h_src')[rank]),
+                  card(dist_load(cfg, 'h_ptr')[rank])]
+        agg_fn = parallel.halo_exchange_aggregate
+    else:
+        tables = [card(dist_load(cfg, 'h_rb')[rank]),
+                  card(dist_load(cfg, 'h_sb')[rank])]
+        agg_fn = parallel.ring_halo_aggregate
+    saved = np.load(os.path.join(cfg['tmp'], 'h_params.npz'))
+    names = ('w1', 'b1', 'w2', 'b2')
+    seen, check = {}, {}
+
+    def loss_fn(p, _):
+        logits = gcn_forward(p, x, inv_sqrt,
+                             lambda h: agg_fn(mesh, h, *tables))
+        seen['out'] = logits.detach()
+        nll = torch.nn.functional.cross_entropy(logits, y, reduction='none')
+        return torch.where(train, nll, 0.0).sum(), train.sum()
+
+    step = parallel.make_train_step(
+        loss_fn, functools.partial(torch.optim.Adam, lr=DIST_LR), mesh)
+
+    def on_step(i):
+        if i == 0:
+            ref = card(dist_load(cfg, 'h_ref_out')[mine])
+            check['out'] = float((seen['out'] - ref).abs().max())
+            check['grads'] = [float((g - card(saved['g_' + k])).abs().max())
+                              for g, k in zip(step.grads, names)]
+        seen.clear()
+
+    _, rec = run_steps(rank, dev, step, {k: card(saved[k]) for k in names},
+                       cfg['h_steps'], lambda: None, on_step)
+    return dict(rec, check=check, **k3_read(dev, tally))
+
+
+def dist_sage(rank, world, cfg, dev, tally):
+    """Path T in one rank: GraphSAGE over this rank's quarter of the
+    training seeds, batches from a ``DistNeighborLoader`` over the
+    partitioned graph (opened from ``.npy`` files, memory-mapped), the
+    gradient averaged over the ranks by ``make_train_step``; returns step
+    1's all-reduced gradient for the check."""
+    import functools
+
+    import torch
+
+    from pyg_lib_tpu_torch import parallel
+    from pyg_lib_tpu_torch.loader import DistNeighborLoader
+    from pyg_lib_tpu_torch.models import SAGE, sage_forward
+    from pyg_lib_tpu_torch.sampler.dist_service import partition_graph
+
+    mesh = parallel.make_mesh((world, ), ('data', ), device=dev.type)
+    graph = partition_graph(dist_load(cfg, 't_rowptr'),
+                            dist_load(cfg, 't_col'), world)
+    seeds = np.array_split(np.asarray(dist_load(cfg, 't_train')),
+                           world)[rank]
+    loader = DistNeighborLoader(graph, dist_load(cfg, 't_x'),
+                                dist_load(cfg, 't_y'), seeds,
+                                cfg['t_batch'], cfg['t_fanouts'],
+                                device=dev, rng=rank)
+    model = SAGE(cfg['t_dims'], generator=torch.Generator().manual_seed(5),
+                 device=dev)
+    params = {'layers': [{k: v.detach() for k, v in layer.items()}
+                         for layer in model.params()['layers']]}
+
+    def loss_fn(p, batch):
+        out = sage_forward(p, batch['x'], batch['rowptr'], batch['row'])
+        n = batch['num_seeds']
+        return torch.nn.functional.cross_entropy(out[:n], batch['y'][:n])
+
+    step = parallel.make_train_step(
+        loss_fn, functools.partial(torch.optim.Adam, lr=cfg['t_lr']), mesh)
+    grads0 = []
+
+    def on_step(i):
+        if i == 0:
+            grads0.extend(g.cpu().numpy() for g in step.grads)
+
+    it = iter(loader)
+    k3_start(dev, tally)
+    _, rec = run_steps(rank, dev, step, params,
+                       cfg['t_warmup'] + cfg['t_steps'] + 1,
+                       lambda: next(it), on_step)
+    rec.update(k3_read(dev, tally))
+    it.close()
+    t = loader.timings
+    h2d = []
+    for tm in t:
+        if 'h2d' in tm:
+            tm['h2d'][1].synchronize()
+            h2d.append(tm['h2d'][0].elapsed_time(tm['h2d'][1]))
+    med = lambda v: sorted(v)[len(v) // 2] if v else 0.0
+    host = {k: med([tm[k] for tm in t])
+            for k in ('sample_ms', 'pad_ms', 'gather_ms')}
+    host['h2d_ms'] = med(h2d)
+    host['nodes'] = [min(tm['num_nodes'] for tm in t),
+                     max(tm['num_nodes'] for tm in t)]
+    return dict(rec, grads0=grads0, host=host)
+
+
+def dist_rank(rank, world, cfg):
+    """One rank of the child's four: paths H (the halo form, then the
+    ring form), T and E in turn, each with the rank's K3 counts set to 0
+    just before it and read just after (E then runs again under the plain
+    versions, :func:`dryrun_against_plain`)."""
+    dev, tally = rank_setup(cfg)
+    out = {f'H {form}': dist_gcn(rank, world, cfg, dev, tally, form)
+           for form in ('halo', 'ring')}
+    out['T'] = dist_sage(rank, world, cfg, dev, tally)
+    out['E'] = dryrun_against_plain(world, dev, tally)
+    return out
+
+
+def report_ranks(label, ranks):
+    """The ranks' step ms, peaks, K3 launches, the collectives of the last
+    step and rank 0's profile of it, printed; checks that the ranks'
+    losses and parameters agree after every step."""
+    for i, r in enumerate(ranks):
+        c = r['coll_ms']
+        print(f'  {label} rank {i}: step ms '
+              f'{[round(v, 1) for v in r["ms"]]} (the last with the '
+              f'collectives timed{", profiled" if i == 0 else ""}); peak '
+              f'{r["peak"]:.2f} GiB; K3 launches {r["k3"]} (by width '
+              f'{r["widths"]}); last step\'s collectives ms: all-gather '
+              f'{c["all_gather"]:.1f}, reduce-scatter '
+              f'{c["reduce_scatter"]:.1f}, ring send/recv {c["ring"]:.1f}, '
+              f'gradient all-reduce {c["all_reduce"]:.1f}, host staging '
+              f'{c["staging"]:.1f} (calls {r["coll_calls"]})', flush=True)
+    prof = ranks[0]['profile']
+    if prof is not None:
+        print(f'profile {label}, rank 0, its last step: device busy '
+              f'{prof["busy"]:.3f} ms of {prof["wall"]:.3f} ms, idle share '
+              f'{1 - prof["busy"] / prof["wall"]:.3f}; K3 '
+              f'{prof["k3_ms"]:.3f} ms; by kernel (ms): '
+              + '; '.join(f'{n} {t:.3f}' for n, t in prof['top']),
+              flush=True)
+    for i, r in enumerate(ranks):
+        if r['digests'] != ranks[0]['digests']:
+            raise AssertionError(f'{label}: rank {i}\'s parameters differ '
+                                 f'from rank 0\'s after a step')
+        if not np.isfinite(r['losses']).all():
+            raise AssertionError(f'{label}: rank {i} loss is not finite')
+        if r['losses'] != ranks[0]['losses']:
+            raise AssertionError(f'{label}: the ranks\' losses differ')
+
+
+def need_k3(label, ranks, cfg):
+    if cfg['device'] == 'cuda' and any(r['k3'] <= 0 for r in ranks):
+        raise AssertionError(f'K3 never launched in a rank of {label}')
+
+
+def gcn_dist_data(dev, cfg):
+    """Path H's graph, features, partitions and weights, written for the
+    ranks, and the one-process reference on the card: the same GCN over
+    the global CSR (``segment_sum_csr`` under :func:`plain_kernels`, so
+    no K3), its loss the masked mean over every training node. Returns the tolerances of step 1's output and
+    weight gradients (``GCN_RTOL`` of the reference's largest) and the
+    partition (for K3's rows)."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops, partition
+    from pyg_lib_tpu_torch.examples.train_dist_fullgraph import gcn_forward
+    from pyg_lib_tpu_torch.models.gnn import _glorot
+    from pyg_lib_tpu_torch.testing import huge_graph
+
+    d = DIST_RANKS
+    t0 = time.perf_counter()
+    rowptr, col = huge_graph('uniform', *cfg.get('huge', ()))
+    n, e = len(rowptr) - 1, int(rowptr[-1])
+    if n % d:
+        raise ValueError(f'{n} nodes do not split over {d} ranks')
+    cfg['npd'] = n // d
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((n, DIST_DIMS[0]), dtype=np.float32)
+    y = rng.integers(0, DIST_DIMS[-1], n)
+    train = rng.random(n) < DIST_TRAIN_SHARE
+    inv_sqrt = (1.0 / np.sqrt(np.maximum(np.diff(rowptr), 1))).astype(
+        np.float32)
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part = partition.mesh_edge_partition(rowptr, col, d)
+    bpart = partition.mesh_edge_partition_blocked(rowptr, col, d)
+    t_part = time.perf_counter() - t0
+    for name, a in (('h_x', x), ('h_y', y), ('h_train', train),
+                    ('h_inv_sqrt', inv_sqrt), ('h_rowptr', rowptr),
+                    ('h_col', col), ('h_src', part.src_ids),
+                    ('h_ptr', part.rowptr), ('h_rb', bpart.rowptr_blk),
+                    ('h_sb', bpart.src_blk)):
+        np.save(os.path.join(cfg['tmp'], name + '.npy'), a)
+    gen = torch.Generator().manual_seed(7)
+    f0, f1, f2 = DIST_DIMS
+    params = {'w1': _glorot(f0, f1, gen, 'cpu'), 'b1': torch.zeros(f1),
+              'w2': _glorot(f1, f2, gen, 'cpu'), 'b2': torch.zeros(f2)}
+    print(f'H: huge graph {n} nodes, {e} edges, x [{n}, {f0}] in '
+          f'{t_data:.1f} s; partitions for {d} ranks in {t_part:.1f} s '
+          f'(E_max {part.src_ids.shape[1]} a rank, ring blocks '
+          f'{bpart.src_blk.shape[2]})', flush=True)
+
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    ptr_t = torch.from_numpy(rowptr).to(dev)
+    col_t = torch.from_numpy(col).to(dev)
+    p = {k: v.to(dev, copy=True).requires_grad_() for k, v in params.items()}
+    with plain_kernels():
+        logits = gcn_forward(p, torch.from_numpy(x).to(dev),
+                             torch.from_numpy(inv_sqrt).to(dev)[:, None],
+                             lambda h: ops.segment_sum_csr(
+                                 h.index_select(0, col_t), ptr_t))
+    tr = torch.from_numpy(train).to(dev)
+    nll = torch.nn.functional.cross_entropy(
+        logits, torch.from_numpy(y).to(dev), reduction='none')
+    loss = torch.where(tr, nll, 0.0).sum() / tr.sum()
+    grads = torch.autograd.grad(loss, list(p.values()))
+    sync(dev)
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    ref_out = logits.detach().cpu().numpy()
+    np.save(os.path.join(cfg['tmp'], 'h_ref_out.npy'), ref_out)
+    tol = {'out': GCN_RTOL * float(np.abs(ref_out).max()),
+           'grads': [GCN_RTOL * float(g.abs().max()) for g in grads]}
+    np.savez(os.path.join(cfg['tmp'], 'h_params.npz'),
+             **{k: v.numpy() for k, v in params.items()},
+             **{'g_' + k: g.cpu().numpy() for k, g in zip(p, grads)})
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == 'cuda' else 0.0)
+    print(f'H reference (one process, whole graph, plain versions, value '
+          f'and gradient): '
+          f'{ref_ms:.1f} ms, loss {loss.item():.6f}, peak {peak:.2f} GiB',
+          flush=True)
+    return tol, part
+
+
+def sage_dist_data(cfg):
+    """Path T's data (path A's Reddit shape), written for the ranks."""
+    t0 = time.perf_counter()
+    rowptr, col, x, y, train = reddit_data()
+    for name, a in (('t_rowptr', rowptr), ('t_col', col), ('t_x', x),
+                    ('t_y', y), ('t_train', train)):
+        np.save(os.path.join(cfg['tmp'], name + '.npy'), a)
+    print(f'T: Reddit shape {REDDIT_NODES} nodes, {int(rowptr[-1])} edges, '
+          f'x {tuple(x.shape)}, written for the ranks in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+
+def check_gcn_dist(form, ranks, tol):
+    """Path H's step 1 in every rank against the reference."""
+    for i, r in enumerate(ranks):
+        c = r['check']
+        print(f'  H {form} rank {i} step 1 against the reference: output '
+              f'max_abs_err {c["out"]:.3g} (tolerance {tol["out"]:.3g}); '
+              f'weight gradients {[float(f"{v:.3g}") for v in c["grads"]]} '
+              f'(tolerances {[float(f"{v:.3g}") for v in tol["grads"]]})',
+              flush=True)
+        if c['out'] > tol['out'] or any(
+                g > t for g, t in zip(c['grads'], tol['grads'])):
+            raise AssertionError(f'H {form}: rank {i} disagrees with the '
+                                 f'one-process GCN')
+
+
+def check_sage_dist(dev, cfg, ranks):
+    """Path T's step 1: the all-reduced gradient (equal in every rank, bit
+    for bit) against the mean of the four ranks' local gradients,
+    recomputed here from the same four first batches (each rank's loader
+    rebuilt with its seeds and rng) and the same weights, within 1e-5 of
+    its largest. Returns rank 0's first batch."""
+    import torch
+
+    from pyg_lib_tpu_torch.loader import DistNeighborLoader
+    from pyg_lib_tpu_torch.models import SAGE, sage_forward
+    from pyg_lib_tpu_torch.sampler.dist_service import partition_graph
+
+    d = len(ranks)
+    for r in ranks:
+        if not all(np.array_equal(a, b) for a, b in zip(
+                r['grads0'], ranks[0]['grads0'])):
+            raise AssertionError('T: the ranks\' all-reduced gradients '
+                                 'differ')
+    graph = partition_graph(dist_load(cfg, 't_rowptr'),
+                            dist_load(cfg, 't_col'), d)
+    model = SAGE(cfg['t_dims'], generator=torch.Generator().manual_seed(5),
+                 device=dev)
+    params = model.params()
+    leaves = [v for layer in params['layers'] for v in layer.values()]
+    local, first = [], None
+    for r in range(d):
+        seeds = np.array_split(np.asarray(dist_load(cfg, 't_train')), d)[r]
+        loader = DistNeighborLoader(graph, dist_load(cfg, 't_x'),
+                                    dist_load(cfg, 't_y'), seeds,
+                                    cfg['t_batch'], cfg['t_fanouts'],
+                                    device=dev, rng=r, num_workers=1,
+                                    lookahead=1)
+        it = iter(loader)
+        batch = next(it)
+        it.close()
+        out = sage_forward(params, batch['x'], batch['rowptr'], batch['row'])
+        n = batch['num_seeds']
+        loss = torch.nn.functional.cross_entropy(out[:n], batch['y'][:n])
+        local.append([g.detach() for g in torch.autograd.grad(loss, leaves)])
+        first = batch if r == 0 else first
+    mean = [sum(gs) / d for gs in zip(*local)]
+    errs, tols = [], []
+    for g, ref in zip(ranks[0]['grads0'], mean):
+        errs.append(float((torch.from_numpy(g).to(dev) - ref).abs().max()))
+        tols.append(1e-5 * float(ref.abs().max()))
+    print(f'  T step 1: the all-reduced gradients against the mean of the '
+          f'ranks\' local ones, max_abs_err {[f"{v:.3g}" for v in errs]} '
+          f'(tolerances {[f"{v:.3g}" for v in tols]})', flush=True)
+    if any(e > t for e, t in zip(errs, tols)):
+        raise AssertionError('T: the all-reduced gradient is not the mean '
+                             'of the local gradients')
+    return first
+
+
+def dryrun_against_plain(world, dev, tally):
+    """``dryrun_multichip(world)`` in this rank with its K3 counts set to
+    0 just before it and read just after, then again under
+    :func:`plain_kernels`: the errors of its train step's loss, its
+    protocol batch's loss and the step's gradients against the plain
+    run's, with their tolerances (``GCN_RTOL`` of the plain run's
+    largest). The plain run must launch no K3."""
+    from pyg_lib_tpu_torch.entry import dryrun_multichip
+
+    k3_start(dev, tally)
+    got = dryrun_multichip(world, device=dev)
+    out = dict(k3_read(dev, tally), line=got['line'])
+    k3_start(dev, tally)
+    with plain_kernels():
+        ref = dryrun_multichip(world, device=dev)
+    if k3_read(dev, tally)['k3']:
+        raise AssertionError('K3 launched under plain_kernels')
+    keys = ('loss', 'dist_loss')
+    out['loss_err'] = max(abs(got[k] - ref[k]) for k in keys)
+    out['loss_tol'] = GCN_RTOL * max(abs(ref[k]) for k in keys)
+    out['grad_err'] = [float(np.abs(a - b).max())
+                       for a, b in zip(got['grads'], ref['grads'])]
+    out['grad_tol'] = [GCN_RTOL * float(np.abs(b).max())
+                       for b in ref['grads']]
+    return out
+
+
+def check_dryrun(label, ranks):
+    """Every rank's dry run against its run under the plain versions."""
+    for i, r in enumerate(ranks):
+        print(f'  {label} rank {i} dry run against the plain versions: '
+              f'losses max_abs_err {r["loss_err"]:.3g} (tolerance '
+              f'{r["loss_tol"]:.3g}); gradients '
+              f'{[float(f"{v:.3g}") for v in r["grad_err"]]} (tolerances '
+              f'{[float(f"{v:.3g}") for v in r["grad_tol"]]})', flush=True)
+        if r['loss_err'] > r['loss_tol'] or any(
+                e > t for e, t in zip(r['grad_err'], r['grad_tol'])):
+            raise AssertionError(f'{label}: rank {i}\'s dry run disagrees '
+                                 f'with the plain versions')
+
+
+def dist_nccl_rank(rank, world, cfg):
+    """Path N, one rank over NCCL: ``dryrun_multichip(1)`` (against its
+    run under the plain versions), then one forward and backward of
+    ``halo_exchange_aggregate`` on H's graph at F=128 against the same
+    sums and gradient in one process, under :func:`plain_kernels`."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops, parallel, partition
+    from pyg_lib_tpu_torch.parallel import _collectives as C
+
+    dev, tally = rank_setup(cfg)
+    C.reset_stats()
+    C.set_timing(True)  # counts each kind's calls
+    dry = dryrun_against_plain(1, dev, tally)
+    k3_start(dev, tally)
+    rowptr, col = dist_load(cfg, 'h_rowptr'), dist_load(cfg, 'h_col')
+    part = partition.mesh_edge_partition(rowptr, col, 1)
+    mesh = parallel.make_mesh((1, ), ('data', ), device=dev.type)
+    x = torch.from_numpy(dist_load(cfg, 'h_x')).to(dev).requires_grad_()
+    cot = torch.randn(x.shape, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    staged = C.staged(x, mesh.get_group('data'))
+    sync(dev)
+    t0 = time.perf_counter()
+    agg = parallel.halo_exchange_aggregate(
+        mesh, x, torch.from_numpy(part.src_ids[0]).to(dev),
+        torch.from_numpy(part.rowptr[0]).to(dev))
+    (agg * cot).sum().backward()
+    sync(dev)
+    halo_ms = (time.perf_counter() - t0) * 1e3
+    counts = k3_read(dev, tally)
+    C.set_timing(False)
+    agg, grad = agg.detach(), x.grad
+    del part
+    x2 = x.detach().requires_grad_()
+    with plain_kernels():
+        ref = ops.segment_sum_csr(x2.index_select(
+            0, torch.from_numpy(col).to(dev)), torch.from_numpy(rowptr).to(
+                dev))
+    (ref * cot).sum().backward()
+    ref = ref.detach()
+    counts['k3'] += dry['k3']
+    widths = dict(dry['widths'])
+    for f, n in counts['widths']:
+        widths[f] = widths.get(f, 0) + n
+    counts['widths'] = [[f, n] for f, n in sorted(widths.items())]
+    return dict(counts, dry=dry, line=dry['line'], staged=staged,
+                halo_ms=halo_ms,
+                calls={k: v[1] for k, v in C.stats.items()},
+                coll_ms={k: v[0] for k, v in C.stats.items()},
+                out_err=float((agg - ref).abs().max()),
+                out_tol=GCN_RTOL * float(ref.abs().max()),
+                grad_err=float((grad - x2.grad).abs().max()),
+                grad_tol=GCN_RTOL * float(x2.grad.abs().max()))
+
+
+def nccl_probe_rank(rank, world, cfg):
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(1, device='cuda')
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return float(t)
+
+
+def nccl_four_ranks():
+    """NCCL's answer to ``DIST_RANKS`` ranks on the one card: the probe is
+    expected to fail (NCCL refuses two ranks on one GPU), and its message
+    is what this returns."""
+    from pyg_lib_tpu_torch.parallel import spawn
+    from pyg_lib_tpu_torch.parallel.launch import RankError
+
+    try:
+        out = spawn(nccl_probe_rank, DIST_RANKS, 'nccl', {}, timeout=180)
+    except RankError as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        return 'refused: ' + ' | '.join(lines[-4:])
+    return f'ran {DIST_RANKS} ranks (all_reduce of ones gave {out})'
+
+
+def dist_paths(dev, cfg):
+    """NCCL's answer to four ranks, then paths H, T and E in four gloo
+    ranks of the card (one start of the ranks), then N in one NCCL rank;
+    returns the child's result: K3's launches (in total and by width,
+    per path and rank) and K3's rows at H's and T's widths."""
+    import torch
+
+    from pyg_lib_tpu_torch import parallel
+
+    if dev.type == 'cuda':
+        t0 = time.perf_counter()
+        print(f'N: NCCL with {DIST_RANKS} ranks on one card: '
+              f'{nccl_four_ranks()} ({time.perf_counter() - t0:.1f} s)',
+              flush=True)
+    tol, part = gcn_dist_data(dev, cfg)
+    sage_dist_data(cfg)
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(dist_rank, DIST_RANKS, 'gloo', cfg, timeout=900)
+    print(f'H, T and E in {DIST_RANKS} ranks on one card (gloo): '
+          f'{time.perf_counter() - t0:.1f} s with the ranks\' start',
+          flush=True)
+    for form in ('halo', 'ring'):
+        label = f'H {form}'
+        rs = [r[label] for r in ranks]
+        print(f'{label}: losses {[round(v, 5) for v in rs[0]["losses"]]}',
+              flush=True)
+        check_gcn_dist(form, rs, tol)
+        report_ranks(label, rs)
+        need_k3(label, rs, cfg)
+    rs = [r['T'] for r in ranks]
+    print(f'T: losses {[round(v, 5) for v in rs[0]["losses"]]}', flush=True)
+    for i, r in enumerate(rs):
+        h = r['host']
+        print(f'  T rank {i} loader, medians a batch (ms): distributed '
+              f'sampling {h["sample_ms"]:.1f}, pad {h["pad_ms"]:.1f}, '
+              f'pinned gather {h["gather_ms"]:.1f}, H2D {h["h2d_ms"]:.2f}; '
+              f'nodes {h["nodes"]}', flush=True)
+    report_ranks('T', rs)
+    need_k3('T', rs, cfg)
+    first = check_sage_dist(dev, cfg, rs)
+    rs = [r['E'] for r in ranks]
+    print(f'E: {rs[0]["line"]} ({DIST_RANKS} ranks, 2 x 2 mesh, gloo; K3 '
+          f'launches per rank {[r["k3"] for r in rs]})', flush=True)
+    need_k3('E', rs, cfg)
+    check_dryrun('E', rs)
+
+    paths = {}
+    for label, keys in (('H', ('H halo', 'H ring')), ('T', ('T', )),
+                        ('E', ('E', ))):
+        p = paths[label] = {'per_rank': [], 'widths': {}}
+        for r in ranks:
+            p['per_rank'].append(sum(r[k]['k3'] for k in keys))
+            for k in keys:
+                for f, n in r[k]['widths']:
+                    p['widths'][f] = p['widths'].get(f, 0) + n
+    if dev.type == 'cuda':
+        t0 = time.perf_counter()
+        (r, ) = parallel.spawn(dist_nccl_rank, 1, 'nccl', cfg, timeout=600)
+        print(f'N: {r["line"]} (one rank, NCCL); halo_exchange_aggregate on '
+              f'H\'s graph at F={DIST_DIMS[0]}, forward and backward '
+              f'{r["halo_ms"]:.1f} ms, against one process\'s plain sums: '
+              f'output max_abs_err {r["out_err"]:.3g} '
+              f'(tolerance {r["out_tol"]:.3g}), gradient {r["grad_err"]:.3g} '
+              f'({r["grad_tol"]:.3g}); staged through the host: '
+              f'{r["staged"]}; NCCL calls {r["calls"]}, ms '
+              f'{ {k: round(v, 1) for k, v in r["coll_ms"].items()} }; '
+              f'K3 launches {r["k3"]} ({time.perf_counter() - t0:.1f} s)',
+              flush=True)
+        if (r['out_err'] > r['out_tol'] or r['grad_err'] > r['grad_tol']
+                or r['staged']):
+            raise AssertionError('N: the NCCL rank disagrees with the '
+                                 'one-process sums')
+        for kind in ('all_gather', 'reduce_scatter', 'all_reduce'):
+            if r['calls'][kind] <= 0:
+                raise AssertionError(f'N: NCCL never ran {kind}')
+        need_k3('N', [r], cfg)
+        check_dryrun('N', [r['dry']])
+        paths['N'] = {'per_rank': [r['k3']], 'widths': dict(r['widths'])}
+
+    # K3 at H's widths on rank 0's halo messages and at T's on rank 0's
+    # first batch, each against its plain version and timed.
+    rows_h, rows_t = {}, {}
+    if dev.type == 'cuda':
+        src = torch.from_numpy(part.src_ids[0]).to(dev).long()
+        ptr = torch.from_numpy(part.rowptr[0]).to(dev)
+        n = part.num_nodes_padded
+        for f in DIST_DIMS[1:]:
+            h = torch.randn((n, f), device=dev)
+            msgs = h.index_select(0, src.clamp(max=n - 1))
+            del h
+            rows_h[f] = k3_row('H rank 0 halo messages', msgs, ptr, f)
+            del msgs
+            torch.cuda.empty_cache()
+        ptr, row = first['rowptr'], first['row']
+        for f in cfg['t_dims'][:2]:
+            src = first['x'] if f == cfg['t_dims'][0] else torch.randn(
+                (first['x'].shape[0], f), device=dev)
+            msgs = src[row.clamp(max=src.shape[0] - 1)]
+            rows_t[f] = k3_row('T batch', msgs, ptr, f)
+            del msgs
+    totals = {}
+    for p in paths.values():
+        for f, n in p['widths'].items():
+            totals[f] = totals.get(f, 0) + n
+    print(f'dist K3 launches per path and rank: '
+          f'{ {k: p["per_rank"] for k, p in paths.items()} }', flush=True)
+    return {'by_width': [['K3', f, n] for f, n in sorted(totals.items())],
+            'paths': paths, 'k3_h': rows_h, 'k3_t': rows_t}
+
+
+def dist_cfg(tmp, device='cuda'):
+    """What the ranks need of this script's settings (a spawned rank
+    re-imports the script, so a rehearsal's changes reach it only here)."""
+    return {'tmp': tmp, 'device': device, 'h_steps': DIST_STEPS,
+            't_batch': REDDIT_BATCH,
+            't_fanouts': REDDIT_FANOUTS, 't_dims': REDDIT_DIMS,
+            't_lr': REDDIT_LR, 't_warmup': DIST_T_WARMUP,
+            't_steps': DIST_T_STEPS}
+
+
+def dist_main():
+    """``python3 chip_smoke.py --dist``: paths H, T, E and N
+    (:func:`dist_paths`) in a process of their own; its last line is
+    :data:`DIST_RESULT` and, as JSON, K3's launches and rows."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device is available')
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pyg_lib_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.init()
+    _build.build()  # built by the calling process: loaded
+    _build.build_host()
+    tmp = tempfile.mkdtemp(prefix='pygt_dist_')
+    t0 = time.perf_counter()
+    try:
+        res = dist_paths(torch.device('cuda', 0), dist_cfg(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f'dist paths: {time.perf_counter() - t0:.1f} s', flush=True)
+    total = sum(n for _, _, n in res['by_width'])
+    print(DIST_RESULT + json.dumps(dict(
+        res, launches={k: total if k == 'K3' else 0 for k in COUNTERS})),
+        flush=True)
+
+
 def work(plan, f):
     """Bytes (each input read once, the output written once) and f32
     operations that one K1/K2 call on ``plan`` at width ``f`` needs. K2
@@ -4198,11 +4970,36 @@ def work(plan, f):
     return x_bytes + tables + out_bytes, flops
 
 
+# The trace's categories of work on the device.
+DEVICE_WORK = ('kernel', 'gpu_memcpy', 'gpu_memset')
+
+
+def device_events(prof):
+    """``[(category, name, start us, duration us)]`` of the profile's
+    device work (:data:`DEVICE_WORK`), by start, read from its exported
+    trace: the trace names each event's category in every PyTorch
+    version."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix='pygt_trace_') as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    return sorted(((ev['cat'], ev['name'], float(ev['ts']), float(ev['dur']))
+                   for ev in trace['traceEvents']
+                   if ev.get('ph') == 'X' and ev.get('cat') in DEVICE_WORK),
+                  key=lambda ev: ev[2])
+
+
 def device_time_by_kernel(fn):
     """Run ``fn`` once under ``torch.profiler``; return the device's busy
-    ms (the union of its events' intervals: a copy on a side stream may
-    overlap a kernel), the run's wall ms (host clock to a synchronize) and
-    ``[(kernel name, ms)]`` summed by name, largest first."""
+    ms (the union of its kernels', copies' and memsets' intervals: a copy
+    on a side stream may overlap a kernel), the run's wall ms (host clock
+    to a synchronize) and ``[(kernel name, ms)]`` summed by name, largest
+    first. Ranges the trace puts on the device (``record_function``'s,
+    such as ``Optimizer.step`` or ``gloo:recv``) are no device work, and
+    are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4219,28 +5016,26 @@ def device_time_by_kernel(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = sorted((ev for ev in prof.profiler.kineto_results.events()
-                     if ev.device_type() == torch.autograd.DeviceType.CUDA),
-                    key=lambda ev: ev.start_ns())
-    spin = [i for i, ev in enumerate(events) if 'spin_kernel' in ev.name()]
+    events = device_events(prof)
+    spin = [i for i, ev in enumerate(events) if 'spin_kernel' in ev[1]]
     if spin:
         events = events[spin[0] + 1:]
     by_name = {}
-    busy_ns, end_ns = 0, None
-    for ev in events:
-        name = re.sub(r'^void |\(anonymous namespace\)::', '', ev.name())
+    busy_us, end_us = 0.0, None
+    for _, name, start, dur in events:
+        name = re.sub(r'^void |\(anonymous namespace\)::', '', name)
         name = name.split('(')[0][:60]
-        by_name[name] = by_name.get(name, 0.0) + ev.duration_ns() / 1e3
-        start, end = ev.start_ns(), ev.start_ns() + ev.duration_ns()
-        if end_ns is None or start >= end_ns:
-            busy_ns += end - start
-            end_ns = end
-        elif end > end_ns:
-            busy_ns += end - end_ns
-            end_ns = end
+        by_name[name] = by_name.get(name, 0.0) + dur
+        end = start + dur
+        if end_us is None or start >= end_us:
+            busy_us += dur
+            end_us = end
+        elif end > end_us:
+            busy_us += end - end_us
+            end_us = end
     top = sorted(((k, v / 1e3) for k, v in by_name.items()),
                  key=lambda kv: -kv[1])
-    return busy_ns / 1e6, wall_ms, top
+    return busy_us / 1e3, wall_ms, top
 
 
 def cuda_ms(fn, iters=10, warmup=2, warm_s=0.1):
@@ -4281,6 +5076,9 @@ if __name__ == '__main__':
         sys.exit(0)
     if sys.argv[1:] == ['--host']:
         host_main()
+        sys.exit(0)
+    if sys.argv[1:] == ['--dist']:
+        dist_main()
         sys.exit(0)
     import torch
 

@@ -23,8 +23,10 @@ Batch ``i`` of epoch ``e`` samples with the stream ``rng + e * nb + i``
 ``rng + 7919 * e``, as in the JAX package, so the same ``rng`` gives the
 JAX loader's batches bit for bit.
 
-The distributed loader (``DistNeighborLoader``) is not ported yet
-(ROADMAP Queue 1 item 13).
+``DistNeighborLoader`` feeds the same pipeline from a partitioned graph:
+each batch runs the distributed protocol (``sampler.dist_service``), and
+the same ``rng`` gives the JAX ``DistNeighborLoader``'s batches bit for
+bit.
 """
 
 import threading
@@ -42,7 +44,7 @@ from pyg_lib_tpu_torch.sampler.padding import (BudgetExceeded, bucket_ladder,
                                                pad_sample_output)
 from pyg_lib_tpu_torch.utils import _resolve_device
 
-__all__ = ['HeteroNeighborLoader', 'NeighborLoader']
+__all__ = ['DistNeighborLoader', 'HeteroNeighborLoader', 'NeighborLoader']
 
 
 class _Pipeline:
@@ -261,11 +263,15 @@ class NeighborLoader(_Pipeline):
         raise BudgetExceeded(
             f'sample exceeds even the worst-case bucket {self.buckets[-1]}')
 
+    def _sample(self, seed_ids: np.ndarray, stream: int):
+        """The batch's sample, as ``sampler.neighbor_sample`` returns it."""
+        return sampler.neighbor_sample(self.rowptr, self.col, seed_ids,
+                                       self.num_neighbors, rng=stream,
+                                       **self.sample_kwargs)
+
     def _make_batch(self, seed_ids: np.ndarray, stream: int):
         t0 = time.perf_counter()
-        out = sampler.neighbor_sample(self.rowptr, self.col, seed_ids,
-                                      self.num_neighbors, rng=stream,
-                                      **self.sample_kwargs)
+        out = self._sample(seed_ids, stream)
         t1 = time.perf_counter()
         b, bi = self._pad_to_bucket(out, len(seed_ids),
                                     self.sample_kwargs.get('disjoint', False))
@@ -378,3 +384,53 @@ class HeteroNeighborLoader(_Pipeline):
                        'num_nodes': int(sum(b.node_mask[t].sum()
                                             for t in b.type_offset)),
                        'num_edges': b.num_edges}
+
+
+class DistNeighborLoader(NeighborLoader):
+    """:class:`NeighborLoader` over a partitioned graph: every batch runs
+    the distributed protocol (sample -> merge -> relabel through
+    :class:`~pyg_lib_tpu_torch.sampler.dist_service.DistNeighborSampler`)
+    in place of the local sampler, with the same padded batches, the same
+    pipeline and the same ``timings`` (``sample_ms`` is the protocol's).
+
+    Batch ``i`` of epoch ``e`` is sampled by a coordinator seeded with its
+    stream id, so batches do not depend on the threads' order, and the
+    same ``rng`` gives the JAX package's batches bit for bit. Without
+    ``max_nodes``, ``max_edges`` or ``buckets`` the batches take the
+    worst-case single bucket (the probe of :class:`NeighborLoader` would
+    sample a local graph, which there is not).
+
+    Args:
+        graph: a :class:`~pyg_lib_tpu_torch.sampler.dist_service.DistGraph`
+            (``partition_graph``).
+        x, y, seeds, batch_size, num_neighbors: as :class:`NeighborLoader`.
+        replace, impl: the protocol's sampling options.
+        **kw: the other :class:`NeighborLoader` arguments (``device``,
+            ``num_workers``, ``rng``, budgets, ...).
+    """
+
+    def __init__(self, graph, x, y, seeds, batch_size: int,
+                 num_neighbors: List[int], replace: bool = False,
+                 impl: str = 'auto', **kw):
+        from pyg_lib_tpu_torch.sampler.dist_service import DistGraph
+
+        if not isinstance(graph, DistGraph):
+            raise TypeError('DistNeighborLoader needs a DistGraph '
+                            '(see sampler.dist_service.partition_graph)')
+        if ('max_nodes' not in kw and 'max_edges' not in kw
+                and 'buckets' not in kw):
+            kw['max_nodes'], kw['max_edges'] = budget_for(
+                batch_size, list(num_neighbors), slack=1.0)
+        super().__init__(np.zeros(1, np.int64), np.zeros(0, np.int64), x,
+                         y, seeds, batch_size, num_neighbors, **kw)
+        self._graph = graph
+        self._replace = replace
+        self._impl = impl
+
+    def _sample(self, seed_ids: np.ndarray, stream: int):
+        from pyg_lib_tpu_torch.sampler.dist_service import DistNeighborSampler
+
+        ds = DistNeighborSampler(self._graph, rng=stream,
+                                 replace=self._replace, impl=self._impl)
+        row, col, node_id, nph = ds.sample(seed_ids, self.num_neighbors)
+        return row, col, node_id, None, nph, []

@@ -391,8 +391,9 @@ def gather_csr_impl(src: torch.Tensor, indptr: torch.Tensor,
     if src.shape[0] == 0:
         return torch.zeros((out_size, ) + tuple(src.shape[1:]),
                            dtype=src.dtype, device=src.device)
-    result = src[ids.clamp(0, src.shape[0] - 1)]
-    return torch.where(pad, torch.zeros_like(result), result)
+    # In place: the gathered slab is the only one of its size (the
+    # backward of the segment sum gathers [E, F] cotangents with it).
+    return src[ids.clamp(0, src.shape[0] - 1)].masked_fill_(pad, 0)
 
 
 def gather_csr(src: torch.Tensor, indptr, out: Optional[torch.Tensor] = None,

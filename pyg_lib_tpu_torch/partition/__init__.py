@@ -342,9 +342,9 @@ def metis(rowptr, col, num_partitions: int, node_weight=None,
 
 
 class EdgePartition(NamedTuple):
-    """Per-device edge partition for a halo-exchange aggregation (the JAX
-    package's ``parallel.halo_exchange_aggregate``; the port's waits for
-    ROADMAP Queue 1 item 13).
+    """Per-device edge partition for a halo-exchange aggregation
+    (``parallel.halo_exchange_aggregate``: rank ``i`` takes row ``i`` of
+    ``rowptr`` and ``src_ids``).
 
     ``num_nodes_padded`` is ``D * nodes_per_device``; node ``v`` lives on
     device ``v // nodes_per_device``.
@@ -402,7 +402,8 @@ def mesh_edge_partition(rowptr, col, num_devices: int) -> EdgePartition:
 
 class BlockedEdgePartition(NamedTuple):
     """Per-(device, source-block) sub-CSRs for the ring halo exchange
-    (the JAX package's ``parallel.ring_halo_aggregate``).
+    (``parallel.ring_halo_aggregate``: rank ``i`` takes row ``i`` of
+    ``rowptr_blk`` and ``src_blk``).
 
     Device ``i`` owns destinations ``[i*npd, (i+1)*npd)``; its edges are
     split by source block ``b = src // npd`` into ``D`` sub-CSRs so that

@@ -17,8 +17,12 @@ same seed gives the same samples in both packages bit for bit.
 it, as ``'cpp'`` does there. Code ported from the JAX package that wants
 its numpy samples passes ``impl='numpy'``.
 
-The distributed sampling exports (``dist_neighbor_sample`` and the
-relabelling helpers) are not ported yet (ROADMAP Queue 1 item 13).
+The distributed sampling protocol (``sampler.dist``:
+``dist_neighbor_sample``, ``merge_sampler_outputs``,
+``relabel_neighborhood``, ``hetero_relabel_neighborhood``) is exported
+here as in the JAX package; ``sampler.dist_service`` has the partition
+books, the coordinators and ``collective_feature_fetch``, and
+``sampler.transport`` / ``sampler.serve`` the partition servers.
 """
 
 from typing import Dict, List, Optional, Tuple, Union
@@ -28,13 +32,19 @@ import numpy as np
 from pyg_lib_tpu_torch.sampler import _cpp, padding
 from pyg_lib_tpu_torch.sampler._hetero_impl import hetero_neighbor_sample_np
 from pyg_lib_tpu_torch.sampler._numpy_impl import neighbor_sample_np
+from pyg_lib_tpu_torch.sampler.dist import (dist_neighbor_sample,
+                                            hetero_relabel_neighborhood,
+                                            merge_sampler_outputs,
+                                            relabel_neighborhood)
 
 NodeType = str
 EdgeType = Tuple[str, str, str]
 Rng = Union[None, int, np.random.Generator]
 
-__all__ = ['hetero_neighbor_sample', 'neighbor_sample', 'padding',
-           'random_walk', 'subgraph']
+__all__ = ['dist_neighbor_sample', 'hetero_neighbor_sample',
+           'hetero_relabel_neighborhood', 'merge_sampler_outputs',
+           'neighbor_sample', 'padding', 'random_walk',
+           'relabel_neighborhood', 'subgraph']
 
 
 def _np(x):
@@ -312,3 +322,4 @@ def random_walk(rowptr, col, seed, walk_length: int, p: float = 1.0,
         out[:, step] = nxt
         cur = nxt
     return out
+

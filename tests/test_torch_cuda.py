@@ -4,7 +4,9 @@ versions, on the card, and the paths of the scatter family,
 ``fused_scatter_reduce``, the padded-batch GAT, ``segment_matmul``,
 rectangular dedup ``spmm``, the R-GCN (padded batch and the three
 full-graph forms), ``knn``, ``radius``, ``nearest`` and the spline ops
-against the CPU.
+against the CPU; and the distribution layer's halo aggregations and
+``collective_feature_fetch`` on the card, in one rank over NCCL and in two
+ranks over gloo.
 
 Every test here needs an NVIDIA card with ``nvcc`` (marker ``cuda``) and
 skips without one. The file imports nothing of JAX, so it also runs where
@@ -1588,3 +1590,73 @@ def test_reordered_spmm_on_the_card_equals_the_cpu(dev, reorder, reduce):
         mag = ops.spmm(torch.tensor(x).abs(), g, reduce=reduce)
         assert bool(((o1 - o2).abs() <= RTOL * mag + ATOL).all())
     assert bool(((g1 - g2).abs() <= RTOL * mag_grad + ATOL).all())
+
+
+def _dist_rank(rank, world, rowptr, col, x, cot, ids):
+    """Both halo aggregations (values and gradients with respect to this
+    rank's rows) and ``collective_feature_fetch`` on the card, in one rank
+    of ``world``; with K3's launches in this rank."""
+    from pyg_lib_tpu_torch import parallel, partition
+    from pyg_lib_tpu_torch.sampler.dist_service import \
+        collective_feature_fetch
+
+    dev = torch.device('cuda')
+    mesh = parallel.make_mesh((world, ), ('data', ), device='cuda')
+    part = partition.mesh_edge_partition(rowptr, col, world)
+    bpart = partition.mesh_edge_partition_blocked(rowptr, col, world)
+    npd = part.nodes_per_device
+    mine = slice(rank * npd, (rank + 1) * npd)
+    ops.segment_sum_csr_kernel.launches = 0
+    out = {}
+    for name, fn, tables in (
+            ('halo', parallel.halo_exchange_aggregate,
+             (part.src_ids[rank], part.rowptr[rank])),
+            ('ring', parallel.ring_halo_aggregate,
+             (bpart.rowptr_blk[rank], bpart.src_blk[rank]))):
+        xr = torch.from_numpy(x[mine]).to(dev).requires_grad_()
+        agg = fn(mesh, xr, *(torch.from_numpy(t).to(dev) for t in tables))
+        (agg * torch.from_numpy(cot[mine]).to(dev)).sum().backward()
+        out[name] = agg.detach().cpu().numpy()
+        out[name + '_grad'] = xr.grad.cpu().numpy()
+    out['k3'] = ops.segment_sum_csr_kernel.launches
+    out['fetch'] = collective_feature_fetch(
+        mesh, torch.from_numpy(x[mine]).to(dev),
+        torch.from_numpy(ids).to(dev)).cpu().numpy()
+    return out
+
+
+@pytest.mark.parametrize('world,backend', [(1, 'nccl'), (2, 'gloo')])
+def test_halo_ring_and_fetch_on_the_card(dev, world, backend):
+    """World size 1 over NCCL (the collectives on the card) and 2 ranks
+    over gloo (through pinned host memory), against the one-process
+    plain sums in f64, within the sum bound."""
+    from pyg_lib_tpu_torch import parallel
+
+    n, e, f = 3001, 40000, 128  # 3,001 nodes: pad rows on the last rank
+    rowptr, col = _csr(
+        np.random.default_rng(3).integers(0, n, e),
+        np.random.default_rng(4).integers(0, n, e), n)
+    n_pad = -(-n // world) * world
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n_pad, f)).astype(np.float32)
+    cot = rng.normal(size=(n_pad, f)).astype(np.float32)
+    ids = rng.integers(0, n, 500)
+    ranks = parallel.spawn(_dist_rank, world, backend, rowptr, col, x, cot,
+                           ids)
+    dst = np.repeat(np.arange(n), np.diff(rowptr))
+    ref = np.zeros((n_pad, f))
+    mag = np.zeros((n_pad, f))
+    np.add.at(ref, dst, x[col].astype(np.float64))
+    np.add.at(mag, dst, np.abs(x[col]).astype(np.float64))
+    gref = np.zeros((n_pad, f))
+    gmag = np.zeros((n_pad, f))
+    np.add.at(gref, col, cot[dst].astype(np.float64))
+    np.add.at(gmag, col, np.abs(cot[dst]).astype(np.float64))
+    for name in ('halo', 'ring'):
+        got = np.concatenate([r[name] for r in ranks])
+        grad = np.concatenate([r[name + '_grad'] for r in ranks])
+        assert (np.abs(got - ref) <= RTOL * mag + ATOL).all(), name
+        assert (np.abs(grad - gref) <= RTOL * gmag + ATOL).all(), name
+    for r in ranks:
+        assert r['k3'] >= 2  # the halo sum and each ring block's
+        np.testing.assert_array_equal(r['fetch'], x[ids])

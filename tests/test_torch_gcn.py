@@ -163,7 +163,18 @@ def test_package_imports_neither_jax_nor_reference():
             'pyg_lib_tpu_torch.home, '
             'pyg_lib_tpu_torch.examples.train_sage_minibatch, '
             'pyg_lib_tpu_torch.examples.train_rgcn_hetero, '
-            'pyg_lib_tpu_torch.examples.train_node2vec; '
+            'pyg_lib_tpu_torch.examples.train_node2vec, '
+            'pyg_lib_tpu_torch.parallel, pyg_lib_tpu_torch.parallel.halo, '
+            'pyg_lib_tpu_torch.parallel.mesh, '
+            'pyg_lib_tpu_torch.parallel.train, '
+            'pyg_lib_tpu_torch.parallel.launch, '
+            'pyg_lib_tpu_torch.parallel._collectives, '
+            'pyg_lib_tpu_torch.sampler.dist, '
+            'pyg_lib_tpu_torch.sampler.dist_service, '
+            'pyg_lib_tpu_torch.sampler.transport, '
+            'pyg_lib_tpu_torch.sampler.serve, '
+            'pyg_lib_tpu_torch.examples.train_dist_fullgraph, '
+            'pyg_lib_tpu_torch.examples.train_dist_sampled; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyg_lib_tpu')); "
             'assert not bad, bad')
@@ -194,8 +205,11 @@ def test_sources_import_neither_jax_nor_reference():
             '_numpy_impl.py', '_hetero_impl.py', 'padding.py', 'loader.py',
             'entry.py', 'metrics.py', 'datasets.py', 'home.py',
             'train_sage_minibatch.py', 'train_rgcn_hetero.py',
-            'train_node2vec.py'} <= names and len(files) > 40
-    assert {'partition', 'classes', 'sampler'} <= {
+            'train_node2vec.py', 'halo.py', 'mesh.py', 'train.py',
+            'launch.py', '_collectives.py', 'dist.py', 'dist_service.py',
+            'transport.py', 'serve.py', 'train_dist_fullgraph.py',
+            'train_dist_sampled.py'} <= names and len(files) > 40
+    assert {'partition', 'classes', 'sampler', 'parallel'} <= {
         p.parent.name for p in files if p.name == '__init__.py'}
     for path in files:
         bad = _imported_roots(path) & {'jax', 'jaxlib', 'pyg_lib_tpu'}
@@ -286,3 +300,24 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              text=True, timeout=120)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
+
+
+def test_chip_smoke_device_events_keep_only_the_given_categories(
+        monkeypatch):
+    # The smoke's profiles count as busy only the trace's categories of
+    # device work; a record_function range is none of them. On the CPU
+    # the trace has no device work, so the operators' category stands in.
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function('a_range'):
+            torch.ones(64).sum()
+    monkeypatch.setattr(chip_smoke, 'DEVICE_WORK', ('cpu_op', ))
+    events = chip_smoke.device_events(prof)
+    names = [name for _, name, _, _ in events]
+    assert 'aten::sum' in names and 'a_range' not in names
+    assert {cat for cat, _, _, _ in events} == {'cpu_op'}
+    starts = [start for _, _, start, _ in events]
+    assert starts == sorted(starts)
+    assert all(dur >= 0 for _, _, _, dur in events)
