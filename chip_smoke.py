@@ -84,9 +84,19 @@ ogbn-mag's full published shape:
   gradients held against the same graphs' plain versions and against the
   unreordered graphs (K1, K2/K2h, K4, K5);
   (D) node2vec's walks (p = q = 1 and q = 0.5) and 3 Adam steps of its
-  loss on the uniform graph; (E) the port's ``entry()`` against the CPU.
-  A, C, D and E run in a third process (``python3 chip_smoke.py
-  --host``);
+  loss on the uniform graph; (E) the port's ``entry()`` against the CPU;
+  (P) SAGE [100, 256, 256, 47] (mean) trains (Adam) at ogbn-products'
+  full shape (2,449,029 nodes, 123.7M edges of ``testing.uniform_graph``,
+  100 features) in disjoint batches of 1,024 seeds with fanouts
+  [15, 10, 5] biased by edge weights (K3 at F=100 and 256), is saved with
+  ``save_checkpoint`` (model, Adam, loader) and resumed from it to the
+  same parameters bit for bit, and its loss and gradients are held against
+  the plain path on a batch; (Q) the same with node times and
+  ``temporal_strategy='last'`` over time-sorted neighbourhoods; and the
+  examples ``train_gcn`` (K3), ``train_gcn_fullgraph_spmm`` (K1),
+  ``train_sage_weighted_disjoint`` and ``train_temporal_sage`` (K3) run
+  a few steps each, their losses falling. A, C, D, E, P, Q and the
+  examples run in a third process (``python3 chip_smoke.py --host``);
 * distribution, in a fourth process (``python3 chip_smoke.py --dist``)
   that starts the ranks of the one card (``parallel.spawn``). NCCL's
   answer to four ranks on one card is printed first; then on gloo, with
@@ -284,6 +294,30 @@ MAG_BATCH, MAG_FANOUTS, MAG_BATCH_STEPS = 1024, [10, 10], 3
 # p = 1, q = 0.5, 3 Adam steps each.
 WALK_LENGTH, CONTEXT, WALKS_PER_NODE, NEGATIVES = 20, 10, 10, 1
 N2V_DIM, N2V_BATCH, N2V_STEPS, N2V_LR = 128, 128, 3, 0.01
+# Path P, ogbn-products' GraphSAGE with weighted, disjoint sampling (PyG
+# examples/ogbn_products_sage.py; BASELINE.json config 3;
+# examples/train_sage_weighted_disjoint.py): the dataset's 2,449,029 nodes,
+# 123,718,280 directed edges (OGB's 61,859,140 undirected ones, both ways),
+# 100 features, 47 classes and 196,615 training nodes, here a uniform graph
+# of that size (testing.uniform_graph, seed 0) with random features and
+# edge weights uniform in [0.05, 1); SAGE [100, 256, 256, 47] with the
+# mean aggregator, Adam at 0.003, batches of 1,024 seeds, fanouts
+# [15, 10, 5], disjoint, biased by the weights. The epoch is cut to the
+# warm-up, timed and profiled steps; a checkpoint at its end, then
+# PRODUCTS_RESUME steps run twice: on, and from the restored checkpoint.
+PRODUCTS_NODES, PRODUCTS_EDGES = 2_449_029, 123_718_280
+PRODUCTS_TRAIN = 196_615
+PRODUCTS_DIMS, PRODUCTS_LR = [100, 256, 256, 47], 0.003
+PRODUCTS_BATCH, PRODUCTS_FANOUTS = 1024, [15, 10, 5]
+PRODUCTS_WARMUP, PRODUCTS_STEPS, PRODUCTS_PROFILED = 2, 5, 3
+PRODUCTS_RESUME = 2
+# Path Q, its temporal variant (examples/train_temporal_sage.py): the same
+# graph and model, node times uniform in [0, 100) (seed 3), each
+# neighbourhood time-sorted once, temporal_strategy='last'; one epoch of
+# TEMPORAL_BATCHES batches, the last TEMPORAL_PROFILED of them profiled.
+TEMPORAL_SPAN, TEMPORAL_BATCHES, TEMPORAL_PROFILED = 100, 4, 2
+# The last four examples' main() on the card: this many epochs or steps.
+EXAMPLE_STEPS = 20
 # The host child's last line: this, then its results as JSON.
 HOST_RESULT = 'host launches: '
 # The distribution child (python3 chip_smoke.py --dist): four ranks on the
@@ -1927,12 +1961,18 @@ def main():
     # graph's hub rows.
     rows.append(dict(sharded['row'], launches=launches['K1p']))
     rows.append(dict(f1_row, launches=launches['F1']))
-    # K3 on path A's batches (Reddit's shape), at each width it ran at;
-    # the host process runs no other K3 at those widths.
+    # K3 on path A's batches (Reddit's shape) and on path P's
+    # (ogbn-products'), at each width it ran at there, with its launches
+    # in that path.
     k3 = next(r for r in rows if r['name'] == 'K3')
-    k3_host = {f: n for kid, f, n in host['by_width'] if kid == 'K3'}
-    k3['path_a'] = {f: dict(r, launches=k3_host.get(int(f), 0))
-                    for f, r in host['k3'].items()}
+    for key, name, got in (
+            ('path_a', 'Reddit GraphSAGE mini-batch', host['k3']),
+            ('path_p', 'ogbn-products GraphSAGE (weighted, disjoint)',
+             host['k3_p'])):
+        k3_path = {f: n for kid, f, n in host['by_path'][name]
+                   if kid == 'K3'}
+        k3[key] = {f: dict(r, launches=k3_path.get(int(f), 0))
+                   for f, r in got.items()}
     # K3 on the distribution paths H and T, at each width they ran at,
     # with its launches in each rank (all widths).
     for key, label in (('path_h', 'H'), ('path_t', 'T')):
@@ -1961,9 +2001,9 @@ def child(flag, result):
 class Paths:
     """Runs the main paths, each with every launch count set to 0 just
     before it and read just after; sums the launches (``launches``) and
-    K1's, K1m's, K3's and K7's launches by width (``by_width``), read off
-    their C entry points while it is installed (the wrappers' counters
-    are the launch counts)."""
+    K1's, K1m's, K3's and K7's launches by width (``by_width``; and path
+    by path, ``by_path``), read off their C entry points while it is
+    installed (the wrappers' counters are the launch counts)."""
 
     def __init__(self):
         from pyg_lib_tpu_torch import _build
@@ -1973,6 +2013,7 @@ class Paths:
 
         self.launches = {k: 0 for k in COUNTERS}
         self.by_width = {}
+        self.by_path = {}
         self.tallies = [ByWidth(k1_mod._k1_lib(), 8,
                                 lambda a: 'K1' if a[2] else 'K1m'),
                         ByWidth(k7_mod._k7_lib(), 12, lambda a: 'K7'),
@@ -2016,9 +2057,11 @@ class Paths:
                                      f'called on the main path {name}')
         for k, n in got.items():
             self.launches[k] += n
+        widths = self.by_path.setdefault(name, {})
         for t in self.tallies:
             for key, n in t.counts.items():
                 self.by_width[key] = self.by_width.get(key, 0) + n
+                widths[key] = widths.get(key, 0) + n
         return result
 
     def restore(self):
@@ -3796,8 +3839,9 @@ def reddit_path(dev, run_path):
     timed. Returns K3's rows by width."""
     import torch
 
+    from pyg_lib_tpu_torch.examples.train_sage_weighted_disjoint import \
+        seed_loss
     from pyg_lib_tpu_torch.loader import NeighborLoader
-    from pyg_lib_tpu_torch.models import SAGE, sage_forward
 
     t0 = time.perf_counter()
     rowptr, col, x, y, train = reddit_data()
@@ -3812,22 +3856,7 @@ def reddit_path(dev, run_path):
           f'(col int64 {col.nbytes / 1e9:.2f} GB, x {tuple(x.shape)} f32 '
           f'{x.nbytes / 1e9:.2f} GB) in {t_data:.1f} s; NeighborLoader '
           f'buckets {loader.buckets} probed in {t_probe:.2f} s', flush=True)
-    model = SAGE(REDDIT_DIMS, generator=torch.Generator().manual_seed(5),
-                 device=dev)
-    params = model.params()
-    opt = torch.optim.Adam(model.parameters(), lr=REDDIT_LR)
-
-    def loss_of(batch):
-        out = sage_forward(params, batch['x'], batch['rowptr'], batch['row'])
-        n = batch['num_seeds']
-        return torch.nn.functional.cross_entropy(out[:n], batch['y'][:n])
-
-    def step(batch):
-        opt.zero_grad()
-        loss = loss_of(batch)
-        loss.backward()
-        opt.step()
-        return loss.detach()
+    model, _, step = sage_trainer(REDDIT_DIMS, REDDIT_LR, 5, dev)
 
     def path():
         it = iter(loader)
@@ -3851,33 +3880,11 @@ def reddit_path(dev, run_path):
         'Reddit GraphSAGE mini-batch', ('K3', ), path,
         engine=('neighbor_sample', ))
     timed = ms[REDDIT_WARMUP:]
-    t = loader.timings
-    h2d = []
-    for tm in t:
-        start, done = tm['h2d']
-        done.synchronize()
-        h2d.append(start.elapsed_time(done))
-    mean = lambda v: sum(v) / len(v)
-
-    def spread(key):
-        v = sorted(tm[key] for tm in t)
-        return (f'{mean(v):.3f} (median {v[len(v) // 2]:.3f}, first '
-                f'{t[0][key]:.3f}, max {v[-1]:.3f})')
-
     print(f'  Reddit step (mean of {len(timed)} after {REDDIT_WARMUP}): '
-          f'{mean(timed):.3f} ms (each: '
+          f'{sum(timed) / len(timed):.3f} ms (each: '
           f'{", ".join(f"{v:.1f}" for v in timed)}); losses '
           f'{[round(v, 4) for v in losses]}', flush=True)
-    print(f'  Reddit host, ms a batch (mean of {len(t)}, in the loader\'s '
-          f'threads): sample {spread("sample_ms")}, pad {spread("pad_ms")}, '
-          f'feature gather into pinned memory {spread("gather_ms")}; H2D '
-          f'{mean(h2d):.3f} (side stream; median '
-          f'{sorted(h2d)[len(h2d) // 2]:.3f}); nodes a batch '
-          f'{min(v["num_nodes"] for v in t)}-'
-          f'{max(v["num_nodes"] for v in t)}, edges '
-          f'{min(v["num_edges"] for v in t)}-'
-          f'{max(v["num_edges"] for v in t)}; bucket counts '
-          f'{loader.bucket_counts} of {loader.buckets}', flush=True)
+    loader_report('Reddit', loader)
     print(f'profile Reddit GraphSAGE mini-batch, {REDDIT_PROFILED} steps: '
           f'device busy {busy:.3f} ms of {wall:.3f} ms '
           f'({wall / REDDIT_PROFILED:.3f} ms a step), idle share '
@@ -3891,15 +3898,15 @@ def reddit_path(dev, run_path):
     it = iter(loader)
     batch = next(it)
     it.close()
-    leaves = list(model.parameters())
-    loss, signs = relu_signs(lambda: loss_of(batch))
+    params, leaves = model.params(), list(model.parameters())
+    loss, signs = relu_signs(lambda: seed_loss(params, batch))
     grads = torch.autograd.grad(loss, leaves)
     with plain_kernels():
-        ref, _ = relu_signs(lambda: loss_of(batch), replay=signs)
+        ref, _ = relu_signs(lambda: seed_loss(params, batch), replay=signs)
     refs = torch.autograd.grad(ref, leaves)
     close('Reddit GraphSAGE loss', loss.detach()[None], ref.detach()[None])
-    for p, g, r in zip(('w_self', 'w_nbr', 'b') * 2, grads, refs):
-        close(f'  Reddit GraphSAGE grad {p}', g, r)
+    for (name, _), g, r in zip(model.named_parameters(), grads, refs):
+        close(f'  Reddit GraphSAGE grad {name}', g, r)
     ptr, row = batch['rowptr'], batch['row']
     rows = {}
     for f in REDDIT_DIMS[:2]:
@@ -4160,9 +4167,366 @@ def entry_path(dev, run_path):
     close('entry() on the card against the CPU', out.cpu(), fn_c(*args_c))
 
 
+def products_data():
+    """Path P's graph and data: ``testing.uniform_graph`` at
+    ogbn-products' node and edge counts (seed 0; ``col`` as int64 for the
+    sampler), features ``[N, 100]`` f32, 47-class labels,
+    ``PRODUCTS_TRAIN`` random training nodes and edge weights uniform in
+    [0.05, 1) (seed 2)."""
+    from pyg_lib_tpu_torch.testing import uniform_graph
+
+    rowptr, col = uniform_graph(PRODUCTS_NODES, PRODUCTS_EDGES)
+    col = col.astype(np.int64)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((PRODUCTS_NODES, PRODUCTS_DIMS[0]),
+                            dtype=np.float32)
+    y = rng.integers(0, PRODUCTS_DIMS[-1], PRODUCTS_NODES)
+    train = rng.permutation(PRODUCTS_NODES)[:PRODUCTS_TRAIN]
+    weight = rng.uniform(0.05, 1.0, len(col))
+    return rowptr, col, x, y, train, weight
+
+
+def sage_trainer(dims, lr, seed, dev):
+    """A ``SAGE`` (weights from ``seed``), its Adam, and a step over a
+    batch that returns the loss over the batch's seeds."""
+    import torch
+
+    from pyg_lib_tpu_torch.examples.train_sage_weighted_disjoint import \
+        seed_loss
+    from pyg_lib_tpu_torch.models import SAGE
+
+    model = SAGE(dims, generator=torch.Generator().manual_seed(seed),
+                 device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    params = model.params()
+
+    def step(batch):
+        opt.zero_grad()
+        loss = seed_loss(params, batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return model, opt, step
+
+
+def loader_report(label, loader):
+    """Print the loader's host timings of its last epoch (ms a batch, in
+    its threads), its copies' times and its batches' sizes and buckets."""
+    t = loader.timings
+    h2d = []
+    for tm in t:
+        start, done = tm['h2d']
+        done.synchronize()
+        h2d.append(start.elapsed_time(done))
+    mean = lambda v: sum(v) / len(v)
+
+    def spread(key):
+        v = sorted(tm[key] for tm in t)
+        return (f'{mean(v):.3f} (median {v[len(v) // 2]:.3f}, first '
+                f'{t[0][key]:.3f}, max {v[-1]:.3f})')
+
+    print(f'  {label} host, ms a batch (mean of {len(t)}, in the loader\'s '
+          f'threads): sample {spread("sample_ms")}, pad {spread("pad_ms")}, '
+          f'feature gather into pinned memory {spread("gather_ms")}; H2D '
+          f'{mean(h2d):.3f} (side stream; median '
+          f'{sorted(h2d)[len(h2d) // 2]:.3f}); nodes a batch '
+          f'{min(v["num_nodes"] for v in t)}-'
+          f'{max(v["num_nodes"] for v in t)}, edges '
+          f'{min(v["num_edges"] for v in t)}-'
+          f'{max(v["num_edges"] for v in t)}; bucket counts '
+          f'{loader.bucket_counts} of {loader.buckets}', flush=True)
+
+
+def state_bits(state):
+    """A nested state's tensors as one flat list of their bytes (on the
+    host), to compare two states bit for bit."""
+    import torch
+
+    out = []
+    if isinstance(state, torch.Tensor):
+        out.append(state.detach().reshape(-1).view(torch.uint8).cpu())
+    elif isinstance(state, dict):
+        for k in sorted(state, key=str):
+            out += state_bits(state[k])
+    elif isinstance(state, (list, tuple)):
+        for v in state:
+            out += state_bits(v)
+    return out
+
+
+def products_path(dev, run_path):
+    """Path P: SAGE [100, 256, 256, 47] (mean) trains with Adam on
+    ogbn-products' shape, in disjoint batches of 1,024 seeds with fanouts
+    [15, 10, 5] biased by the edge weights, from the port's
+    ``NeighborLoader``: ``PRODUCTS_WARMUP`` steps, ``PRODUCTS_STEPS`` timed
+    ones and a profiled window of ``PRODUCTS_PROFILED``, the epoch's end.
+    Then the model, Adam and the loader go into a ``save_checkpoint``, the
+    run goes on for ``PRODUCTS_RESUME`` steps, and a fresh model,
+    optimizer and loader restored from the checkpoint take the same steps:
+    their losses, parameters and Adam state must equal the first run's bit
+    for bit. On one more batch, the step against the plain path within
+    ``GCN_RTOL``, and K3 at F=100 and F=256 against its plain version,
+    timed. Returns the data (for path Q) and K3's rows by width."""
+    import tempfile
+
+    import torch
+
+    from pyg_lib_tpu_torch.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from pyg_lib_tpu_torch.examples.train_sage_weighted_disjoint import \
+        seed_loss
+    from pyg_lib_tpu_torch.loader import NeighborLoader
+
+    t0 = time.perf_counter()
+    data = products_data()
+    rowptr, col, x, y, train, weight = data
+    t_data = time.perf_counter() - t0
+    epoch = PRODUCTS_WARMUP + PRODUCTS_STEPS + PRODUCTS_PROFILED
+    seeds = train[:PRODUCTS_BATCH * epoch]
+
+    def make_loader():
+        return NeighborLoader(rowptr, col, x, y, seeds, PRODUCTS_BATCH,
+                              PRODUCTS_FANOUTS, device=dev, disjoint=True,
+                              edge_weight=weight)
+
+    t0 = time.perf_counter()
+    loader = make_loader()
+    t_probe = time.perf_counter() - t0
+    print(f'ogbn-products shape: {PRODUCTS_NODES} nodes, '
+          f'{PRODUCTS_EDGES} edges asked, {int(rowptr[-1])} made (col '
+          f'int64 {col.nbytes / 1e9:.2f} GB, weights f64 '
+          f'{weight.nbytes / 1e9:.2f} GB, x {tuple(x.shape)} f32 '
+          f'{x.nbytes / 1e9:.2f} GB) in {t_data:.1f} s; NeighborLoader '
+          f'(disjoint, weighted) buckets {loader.buckets} probed in '
+          f'{t_probe:.2f} s', flush=True)
+    model, opt, step = sage_trainer(PRODUCTS_DIMS, PRODUCTS_LR, 7, dev)
+
+    def path():
+        it = iter(loader)
+        ms, losses = [], []
+        for i in range(PRODUCTS_WARMUP + PRODUCTS_STEPS):
+            if i == PRODUCTS_WARMUP:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses.append(step(next(it)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, wall, top = device_time_by_kernel(
+            lambda: [step(next(it)) for _ in range(PRODUCTS_PROFILED)])
+        for _ in it:  # the epoch's end: the loader closes its pool
+            pass
+        loader_report('ogbn-products', loader)
+        # The checkpoint at the epoch's end, then PRODUCTS_RESUME steps
+        # twice: on, and from the restored checkpoint.
+        with tempfile.TemporaryDirectory(prefix='pygt_ckpt_') as tmp:
+            t0 = time.perf_counter()
+            save_checkpoint(tmp, {'model': model.state_dict(),
+                                  'opt': opt.state_dict()}, step=epoch,
+                            loader=loader)
+            t_save = time.perf_counter() - t0
+            it = iter(loader)
+            on = [step(next(it)) for _ in range(PRODUCTS_RESUME)]
+            it.close()
+            model2, opt2, step2 = sage_trainer(PRODUCTS_DIMS, PRODUCTS_LR,
+                                               11, dev)
+            loader2 = make_loader()
+            t0 = time.perf_counter()
+            state, meta = restore_checkpoint(
+                tmp, {'model': model2.state_dict(),
+                      'opt': opt2.state_dict()}, loader=loader2)
+            model2.load_state_dict(state['model'])
+            opt2.load_state_dict(state['opt'])
+            t_restore = time.perf_counter() - t0
+            it = iter(loader2)
+            again = [step2(next(it)) for _ in range(PRODUCTS_RESUME)]
+            it.close()
+        resumed = {'save_s': t_save, 'restore_s': t_restore, 'meta': meta,
+                   'on': [float(v) for v in on],
+                   'again': [float(v) for v in again], 'equal': {}}
+        for label, a, b in (
+                ('losses', on, again),
+                ('parameters', model.state_dict(), model2.state_dict()),
+                ('Adam state', opt.state_dict(), opt2.state_dict())):
+            pairs = list(zip(state_bits(a), state_bits(b)))
+            resumed['equal'][label] = (len(pairs), all(
+                torch.equal(u, v) for u, v in pairs))
+        return ms, [float(v) for v in losses], peak, busy, wall, top, resumed
+
+    ms, losses, peak, busy, wall, top, resumed = run_path(
+        'ogbn-products GraphSAGE (weighted, disjoint)', ('K3', ), path,
+        engine=('neighbor_sample', ))
+    timed = ms[PRODUCTS_WARMUP:]
+    mean = sum(timed) / len(timed)
+    print(f'  ogbn-products step (mean of {len(timed)} after '
+          f'{PRODUCTS_WARMUP}): {mean:.3f} ms (each: '
+          f'{", ".join(f"{v:.1f}" for v in timed)}); losses '
+          f'{[round(v, 4) for v in losses]}', flush=True)
+    print(f'profile ogbn-products GraphSAGE, {PRODUCTS_PROFILED} steps: '
+          f'device busy {busy:.3f} ms of {wall:.3f} ms '
+          f'({wall / PRODUCTS_PROFILED:.3f} ms a step), idle share '
+          f'{1 - busy / wall:.3f}; peak memory {peak:.2f} GiB; by kernel '
+          f'(ms, the window): '
+          + '; '.join(f'{n} {v:.3f}' for n, v in top[:8]), flush=True)
+    print(f'  ogbn-products checkpoint at step {resumed["meta"]["step"]} '
+          f'(loader {resumed["meta"]["loader_state"]}): saved in '
+          f'{resumed["save_s"]:.3f} s, restored in '
+          f'{resumed["restore_s"]:.3f} s; {PRODUCTS_RESUME} steps on '
+          f'{resumed["on"]} and from the checkpoint {resumed["again"]}; '
+          f'equal bit for bit: '
+          + ', '.join(f'{k} {ok} ({n} tensors)'
+                      for k, (n, ok) in resumed['equal'].items()),
+          flush=True)
+    if not all(np.isfinite(losses + resumed['on'])):
+        raise AssertionError('the ogbn-products losses are not finite')
+    if resumed['meta']['loader_state'] != {'epoch': 1, 'rng': 0}:
+        raise AssertionError('the checkpoint holds the wrong loader state')
+    for k, (_, ok) in resumed['equal'].items():
+        if not ok:
+            raise AssertionError(f'the run resumed from the checkpoint '
+                                 f'differs from the run that went on: {k}')
+
+    # One more batch: the step against the plain path, and K3's rows.
+    it = iter(loader)
+    batch = next(it)
+    it.close()
+    params, leaves = model.params(), list(model.parameters())
+    loss, signs = relu_signs(lambda: seed_loss(params, batch))
+    grads = torch.autograd.grad(loss, leaves)
+    with plain_kernels():
+        ref, _ = relu_signs(lambda: seed_loss(params, batch), replay=signs)
+    refs = torch.autograd.grad(ref, leaves)
+    close('ogbn-products GraphSAGE loss', loss.detach()[None],
+          ref.detach()[None])
+    for (name, _), g, r in zip(model.named_parameters(), grads, refs):
+        close(f'  ogbn-products GraphSAGE grad {name}', g, r)
+    ptr, row = batch['rowptr'], batch['row']
+    rows = {}
+    for f in PRODUCTS_DIMS[:2]:
+        src = batch['x'] if f == PRODUCTS_DIMS[0] else torch.randn(
+            (batch['x'].shape[0], f), device=dev)
+        msgs = src[row.clamp(max=src.shape[0] - 1)]
+        rows[f] = k3_row('ogbn-products batch', msgs, ptr, f)
+        del msgs
+    del batch, loader
+    torch.cuda.empty_cache()
+    return data, rows
+
+
+def temporal_path(dev, run_path, data):
+    """Path Q: path P's graph and model with node times uniform in
+    [0, ``TEMPORAL_SPAN``) (seed 3), each neighbourhood time-sorted once
+    on the card (``time_sort_neighborhoods``), and ``NeighborLoader`` with
+    ``node_time`` and ``temporal_strategy='last'`` (disjoint): one epoch of
+    ``TEMPORAL_BATCHES`` Adam steps, the last ``TEMPORAL_PROFILED`` of them
+    profiled. A sample of the same seeds holds no node later than its
+    seed."""
+    import torch
+
+    from pyg_lib_tpu_torch import sampler
+    from pyg_lib_tpu_torch.examples.train_temporal_sage import \
+        time_sort_neighborhoods
+    from pyg_lib_tpu_torch.loader import NeighborLoader
+
+    rowptr, col, x, y, train, _ = data
+    node_time = np.random.default_rng(3).integers(0, TEMPORAL_SPAN,
+                                                  PRODUCTS_NODES)
+    t0 = time.perf_counter()
+    col_t = time_sort_neighborhoods(rowptr, col, node_time, dev)
+    t_sort = time.perf_counter() - t0
+    seeds = train[:PRODUCTS_BATCH * TEMPORAL_BATCHES]
+    kw = dict(disjoint=True, node_time=node_time, temporal_strategy='last')
+    t0 = time.perf_counter()
+    loader = NeighborLoader(rowptr, col_t, x, y, seeds, PRODUCTS_BATCH,
+                            PRODUCTS_FANOUTS, device=dev, **kw)
+    t_probe = time.perf_counter() - t0
+    _, _, step = sage_trainer(PRODUCTS_DIMS, PRODUCTS_LR, 13, dev)
+
+    def path():
+        it = iter(loader)
+        ms, losses = [], []
+        for i in range(TEMPORAL_BATCHES - TEMPORAL_PROFILED):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses.append(step(next(it)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        busy, wall, top = device_time_by_kernel(
+            lambda: losses.extend(step(next(it))
+                                  for _ in range(TEMPORAL_PROFILED)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for _ in it:  # the epoch's end
+            pass
+        return ms, [float(v) for v in losses], busy, wall, top, peak
+
+    ms, losses, busy, wall, top, peak = run_path(
+        'ogbn-products temporal GraphSAGE', ('K3', ), path,
+        engine=('neighbor_sample', ))
+    print(f'  ogbn-products temporal: neighbourhoods time-sorted on the '
+          f'card in {t_sort:.2f} s; buckets {loader.buckets} probed in '
+          f'{t_probe:.2f} s; step ms {[round(v, 1) for v in ms]} (the '
+          f'first waits for the loader\'s first batch); losses '
+          f'{[round(v, 4) for v in losses]}', flush=True)
+    print(f'profile ogbn-products temporal GraphSAGE, {TEMPORAL_PROFILED} '
+          f'steps: device busy {busy:.3f} ms of {wall:.3f} ms '
+          f'({wall / TEMPORAL_PROFILED:.3f} ms a step), idle share '
+          f'{1 - busy / wall:.3f}; peak memory {peak:.2f} GiB; by kernel '
+          f'(ms, the window): '
+          + '; '.join(f'{n} {v:.3f}' for n, v in top[:6]), flush=True)
+    loader_report('ogbn-products temporal', loader)
+    if len(losses) != TEMPORAL_BATCHES or not all(np.isfinite(losses)):
+        raise AssertionError('the temporal losses are not finite')
+    out = sampler.neighbor_sample(rowptr, col_t, seeds[:PRODUCTS_BATCH],
+                                  PRODUCTS_FANOUTS, rng=0, **kw)
+    batch_of, nodes = out[2][:, 0], out[2][:, 1]  # disjoint: (batch, node)
+    late = int((node_time[nodes] >
+                node_time[seeds[:PRODUCTS_BATCH]][batch_of]).sum())
+    print(f'  ogbn-products temporal sample: {len(nodes)} nodes, {late} '
+          f'later than their seed', flush=True)
+    if late:
+        raise AssertionError('the temporal sample holds nodes later than '
+                             'their seeds')
+
+
+def examples_path(dev, run_path):
+    """The last four examples' ``main`` on the card, ``EXAMPLE_STEPS``
+    epochs or steps each: full-batch GCN (K3), the planned GCN (K1),
+    weighted-disjoint and temporal GraphSAGE (K3, the C++ engine). Each
+    loss must fall."""
+    from pyg_lib_tpu_torch.examples import (train_gcn,
+                                            train_gcn_fullgraph_spmm,
+                                            train_sage_weighted_disjoint,
+                                            train_temporal_sage)
+
+    for name, need, engine, call in (
+            ('train_gcn', 'K3', (), lambda: train_gcn.main(
+                epochs=EXAMPLE_STEPS, verbose=False, device=dev)),
+            ('train_gcn_fullgraph_spmm', 'K1', (),
+             lambda: train_gcn_fullgraph_spmm.main(
+                 epochs=EXAMPLE_STEPS, verbose=False, device=dev)),
+            ('train_sage_weighted_disjoint', 'K3', ('neighbor_sample', ),
+             lambda: train_sage_weighted_disjoint.main(
+                 steps=EXAMPLE_STEPS, verbose=False, device=dev)),
+            ('train_temporal_sage', 'K3', ('neighbor_sample', ),
+             lambda: train_temporal_sage.main(
+                 steps=EXAMPLE_STEPS, verbose=False, device=dev))):
+        t0 = time.perf_counter()
+        acc, losses = run_path(f'example {name}', (need, ), call,
+                               engine=engine)
+        print(f'  example {name}: {len(losses)} steps, loss {losses[0]:.4f}'
+              f' -> {losses[-1]:.4f}, test accuracy {acc:.3f} '
+              f'({time.perf_counter() - t0:.1f} s)', flush=True)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f'the example {name}\'s loss did not fall')
+
+
 def host_paths(dev, run_path):
-    """Paths A, C, D and E (the host layer on the card); returns K3's rows
-    at path A's widths and path C's build seconds."""
+    """Paths A, C, D and E (the host layer on the card), P and Q
+    (ogbn-products) and the last four examples; returns K3's rows at path
+    A's and path P's widths and path C's build seconds."""
     from pyg_lib_tpu_torch.testing import uniform_graph
 
     t0 = time.perf_counter()
@@ -4178,17 +4542,29 @@ def host_paths(dev, run_path):
     t_d = time.perf_counter() - t0
     t0 = time.perf_counter()
     entry_path(dev, run_path)
+    t_e = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data, k3_p = products_path(dev, run_path)
+    t_p = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    temporal_path(dev, run_path, data)
+    del data
+    t_q = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    examples_path(dev, run_path)
     print(f'host paths (s): A {t_a:.1f}, C {t_c:.1f}, D {t_d:.1f}, E '
+          f'{t_e:.1f}, P {t_p:.1f}, Q {t_q:.1f}, examples '
           f'{time.perf_counter() - t0:.1f}', flush=True)
-    return k3_rows, builds
+    return k3_rows, k3_p, builds
 
 
 def host_main():
-    """``python3 chip_smoke.py --host``: paths A, C, D and E
-    (:func:`host_paths`) in a process of their own, as :func:`main` runs
-    them; its last line is :data:`HOST_RESULT` and, as JSON, the paths'
-    launch counts (K3's by width too), K3's rows at path A's widths and
-    path C's build seconds."""
+    """``python3 chip_smoke.py --host``: paths A, C, D, E, P, Q and the
+    examples (:func:`host_paths`) in a process of their own, as
+    :func:`main` runs them; its last line is :data:`HOST_RESULT` and, as
+    JSON, the paths' launch counts (by width too, in all and path by
+    path), K3's rows at path A's and path P's widths and path C's build
+    seconds."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4204,13 +4580,16 @@ def host_main():
     print(f'host engine build: {time.perf_counter() - t0:.1f} s', flush=True)
     paths = Paths()
     t0 = time.perf_counter()
-    k3_rows, builds = host_paths(torch.device('cuda', 0), paths.run)
+    k3_rows, k3_p, builds = host_paths(torch.device('cuda', 0), paths.run)
     paths.restore()
     print(f'host paths: {time.perf_counter() - t0:.1f} s', flush=True)
     print(HOST_RESULT + json.dumps({
-        'launches': paths.launches, 'k3': k3_rows, 'builds': builds,
+        'launches': paths.launches, 'k3': k3_rows, 'k3_p': k3_p,
+        'builds': builds,
         'by_width': [[kid, f, n] for (kid, f), n in
-                     sorted(paths.by_width.items())]}), flush=True)
+                     sorted(paths.by_width.items())],
+        'by_path': {name: [[kid, f, n] for (kid, f), n in sorted(w.items())]
+                    for name, w in paths.by_path.items()}}), flush=True)
 
 
 # -- the distribution child (python3 chip_smoke.py --dist) -------------------

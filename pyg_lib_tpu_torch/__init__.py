@@ -29,14 +29,24 @@ PyTorch version; on CUDA tensors it launches the kernel or raises.
   threads, pinned host batches copied to the card one batch ahead),
   ``metrics``, ``datasets``, and ``entry`` (a GraphSAGE forward over one
   sampled batch).
+* ``pyg_lib_tpu_torch.parallel`` — ranks of a ``torch.distributed``
+  group: meshes, halo aggregation, data-parallel train steps (imported at
+  its first use: ``torch.distributed.tensor`` takes about a second to
+  import, which every process that imports the package would pay).
+* ``profiling`` (the card's roofline, ``trace``, ``measure``) and
+  ``checkpoint`` (``save_checkpoint``, ``restore_checkpoint``,
+  ``latest_step``).
 
 This package never imports ``jax`` or ``pyg_lib_tpu``.
 """
 
+import importlib
+
 import torch
 
-from pyg_lib_tpu_torch import (classes, datasets, loader, metrics, models,
-                               ops, partition, sampler, utils)
+from pyg_lib_tpu_torch import (checkpoint, classes, datasets, loader, metrics,
+                               models, ops, partition, profiling, sampler,
+                               utils)
 from pyg_lib_tpu_torch._version import __version__
 from pyg_lib_tpu_torch.home import get_home_dir, set_home_dir
 
@@ -52,6 +62,13 @@ def cuda_version() -> str:
     return torch.cuda.get_device_name(0)
 
 
-__all__ = ['__version__', 'classes', 'cuda_version', 'datasets',
-           'get_home_dir', 'loader', 'metrics', 'models', 'ops', 'partition',
-           'sampler', 'set_home_dir', 'utils']
+def __getattr__(name):
+    if name == 'parallel':
+        return importlib.import_module('pyg_lib_tpu_torch.parallel')
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
+__all__ = ['__version__', 'checkpoint', 'classes', 'cuda_version',
+           'datasets', 'get_home_dir', 'loader', 'metrics', 'models', 'ops',
+           'parallel', 'partition', 'profiling', 'sampler', 'set_home_dir',
+           'utils']

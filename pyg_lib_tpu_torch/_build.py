@@ -12,7 +12,9 @@ The C++ engine of ``csrc/host/`` (the sampler, the hetero sampler,
 subgraph, random walks and the partitioner) becomes one library,
 ``_build/host-<digest>.so``, built with the JAX package's Makefile flags;
 its digest also covers what ``-march=native`` means on this machine, so
-a library built for another CPU is not loaded.
+a library built for another CPU is not loaded. The engine's C-ABI
+edge-case suite, ``csrc/host/test_abi.cpp``, is no part of it: it builds
+into a program linked against the library (:func:`build_abi_test`).
 
 Nothing is built when this module is imported: the first call of a
 kernel wrapper on a CUDA tensor builds what it needs (or
@@ -29,13 +31,14 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ['build', 'build_host', 'build_variants', 'load', 'load_host',
-           'sources', 'BUILD_DIR']
+__all__ = ['build', 'build_abi_test', 'build_host', 'build_variants',
+           'load', 'load_host', 'sources', 'BUILD_DIR']
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / 'csrc'
 BUILD_DIR = _HERE / '_build'
 HOST = CSRC / 'host'
+ABI_TEST = HOST / 'test_abi.cpp'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -159,6 +162,11 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
+def _host_sources():
+    """The engine's sources: ``csrc/host/*.cpp`` but the ABI suite."""
+    return [p for p in sorted(HOST.glob('*.cpp')) if p != ABI_TEST]
+
+
 def _host_target() -> Path:
     """``_build/host-<digest>.so``: the digest covers the flags, what
     ``-march=native`` resolves to here and every source of ``csrc/host``."""
@@ -166,7 +174,7 @@ def _host_target() -> Path:
                            capture_output=True, text=True).stdout
     h = hashlib.sha256(' '.join(HOST_FLAGS).encode())
     h.update(march.encode())
-    for p in sorted(HOST.glob('*.cpp')) + sorted(HOST.glob('*.h')):
+    for p in _host_sources() + sorted(HOST.glob('*.h')):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f'host-{h.hexdigest()[:16]}.so'
@@ -180,9 +188,29 @@ def build_host() -> Path:
     so = _host_target()
     if not so.exists():
         gxx = _gxx()
-        _run([(sorted(HOST.glob('*.cpp')), so, BUILD_DIR / 'host.log')],
+        _run([(_host_sources(), so, BUILD_DIR / 'host.log')],
              compiler=lambda out: [gxx, *HOST_FLAGS, '-o', out])
     return so
+
+
+def build_abi_test() -> Path:
+    """Build the engine's C-ABI edge-case suite (``csrc/host/test_abi.cpp``)
+    into a program, ``_build/test_abi-<digest>``, linked against the
+    engine (:func:`build_host`), unless it is built already; ``g++``'s
+    output goes to ``_build/test_abi.log``. Raises if the build fails.
+    Returns the program's path; it prints ``ABI TESTS PASSED`` and exits
+    with 0 when every case holds."""
+    lib = build_host()
+    h = hashlib.sha256(lib.name.encode())
+    h.update(ABI_TEST.read_bytes())
+    exe = BUILD_DIR / f'test_abi-{h.hexdigest()[:16]}'
+    if not exe.exists():
+        gxx = _gxx()
+        flags = [f for f in HOST_FLAGS if f != '-shared']
+        _run([([ABI_TEST, lib], exe, BUILD_DIR / 'test_abi.log')],
+             compiler=lambda out: [gxx, *flags, f'-Wl,-rpath,{BUILD_DIR}',
+                                   '-o', out])
+    return exe
 
 
 def load_host() -> ctypes.CDLL:

@@ -5,10 +5,10 @@
   copies and the step (a sampled-GNN loop whose host side starves the
   card shows here first);
 * throughput gauges: edges/s, GB/s and FLOP/s, and their shares of the
-  card's peaks (:func:`device_roofline`: the H100's published HBM3 rate
-  and f32 rate outside the tensor cores, labelled with the card's name
-  and power limit as ``nvidia-smi`` gives them; no figure on the CPU or on
-  another card, where the shares are left out);
+  card's peaks (``profiling.device_roofline``: the H100's published HBM3
+  rate and f32 rate outside the tensor cores, labelled with the card's
+  name and power limit as ``nvidia-smi`` gives them; no figure on the CPU
+  or on another card, where the shares are left out);
 * a machine-readable sink: JSON lines, one per report window.
 
 Use::
@@ -32,44 +32,12 @@ wait.
 
 import contextlib
 import json
-import subprocess
 import time
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Callable, Optional, Union
 
-import torch
+from pyg_lib_tpu_torch.profiling import Roofline, device_roofline
 
 __all__ = ['Metrics', 'Roofline', 'device_roofline']
-
-# NVIDIA's data sheet, H100 SXM at its full 700 W power limit: HBM3, and
-# f32 outside the tensor cores.
-H100_HBM_GBPS = 3350.0
-H100_F32_TFLOPS = 67.0
-
-
-class Roofline(NamedTuple):
-    """A card's published peaks, and the card they are for."""
-    device: str  # nvidia-smi's "name, power.limit"
-    hbm_gbps: float
-    f32_tflops: float
-
-
-def device_roofline() -> Optional[Roofline]:
-    """The H100's peaks, labelled with ``nvidia-smi``'s name and power
-    limit of card 0 (a card set below 700 W runs slower under load than
-    they say); ``None`` without a card or on another card."""
-    if not torch.cuda.is_available():
-        return None
-    name = torch.cuda.get_device_name(0)
-    if 'H100' not in name:
-        return None
-    try:
-        name = subprocess.run(
-            ['nvidia-smi', '--query-gpu=name,power.limit',
-             '--format=csv,noheader', '--id=0'], capture_output=True,
-            text=True, check=True).stdout.strip()
-    except (OSError, subprocess.CalledProcessError):
-        pass  # the name from torch, without its power limit
-    return Roofline(name, H100_HBM_GBPS, H100_F32_TFLOPS)
 
 
 class Metrics:

@@ -48,7 +48,8 @@ __all__ = ['GAT', 'GATBatch', 'GCN', 'RGCN', 'RGCNBatch', 'SAGE',
            'HeteroSpmmPlan', 'build_rgcn_graphs', 'build_rgcn_planned',
            'gat_batch_params_from_jax', 'gat_forward', 'gat_forward_spmm',
            'gat_params_from_jax', 'gcn_forward', 'gcn_forward_spmm',
-           'gcn_params_from_jax', 'init_rgcn', 'init_rgcn_spmm',
+           'gcn_params_from_jax', 'init_gat', 'init_gat_spmm', 'init_gcn',
+           'init_rgcn', 'init_rgcn_spmm', 'init_sage',
            'rgcn_forward', 'rgcn_forward_planned', 'rgcn_forward_spmm',
            'rgcn_params_from_jax', 'rgcn_spmm_params_from_jax',
            'sage_forward', 'sage_maxpool_forward_spmm',
@@ -70,6 +71,14 @@ def _glorot(fan_in: int, fan_out: int, generator, device,
     return ((2 * w - 1) * limit).to(device)
 
 
+def _set_lists(module: nn.Module, tree: Dict, keys) -> None:
+    """Give ``module`` one ``nn.ParameterList`` per key of ``keys``, of
+    that key's tensor in each layer of ``tree``."""
+    for k in keys:
+        setattr(module, k, nn.ParameterList(
+            nn.Parameter(layer[k]) for layer in tree['layers']))
+
+
 def _params_from_jax(tree: Dict, keys, device) -> Dict:
     device = _resolve_device(device)
     return {'layers': [{
@@ -79,6 +88,18 @@ def _params_from_jax(tree: Dict, keys, device) -> Dict:
 
 
 # -- GCN ----------------------------------------------------------------------
+
+
+def init_gcn(dims: List[int], generator: Optional[torch.Generator] = None,
+             device=None) -> Dict:
+    """Parameters of the GCN forwards, ``dims = [in, hidden..., out]``: per
+    layer ``w [in, out]`` Glorot-uniform from ``generator`` and a zero
+    bias ``b``, as ``init_gcn`` builds them; on ``device`` (default: the
+    CUDA card)."""
+    device = _resolve_device(device)
+    return {'layers': [{'w': _glorot(fan_in, fan_out, generator, device),
+                        'b': torch.zeros(fan_out, device=device)}
+                       for fan_in, fan_out in zip(dims[:-1], dims[1:])]}
 
 
 def gcn_forward(params: Dict, x: torch.Tensor, rowptr: torch.Tensor,
@@ -133,13 +154,7 @@ class GCN(nn.Module):
     def __init__(self, dims: List[int],
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        device = _resolve_device(device)
-        self.w = nn.ParameterList()
-        self.b = nn.ParameterList()
-        for fan_in, fan_out in zip(dims[:-1], dims[1:]):
-            self.w.append(nn.Parameter(_glorot(fan_in, fan_out, generator,
-                                               device)))
-            self.b.append(nn.Parameter(torch.zeros(fan_out, device=device)))
+        _set_lists(self, init_gcn(dims, generator, device), ('w', 'b'))
 
     def params(self) -> Dict:
         """The parameters as the functional forward's tree."""
@@ -150,6 +165,19 @@ class GCN(nn.Module):
 
 
 # -- GraphSAGE ----------------------------------------------------------------
+
+
+def init_sage(dims: List[int], generator: Optional[torch.Generator] = None,
+              device=None) -> Dict:
+    """Parameters of the GraphSAGE forwards: per layer ``w_self`` and
+    ``w_nbr [in, out]`` Glorot-uniform from ``generator`` (in that order)
+    and a zero bias ``b``, as ``init_sage`` builds them; on ``device``
+    (default: the CUDA card)."""
+    device = _resolve_device(device)
+    return {'layers': [{'w_self': _glorot(fan_in, fan_out, generator, device),
+                        'w_nbr': _glorot(fan_in, fan_out, generator, device),
+                        'b': torch.zeros(fan_out, device=device)}
+                       for fan_in, fan_out in zip(dims[:-1], dims[1:])]}
 
 
 def sage_forward(params: Dict, x: torch.Tensor, rowptr: torch.Tensor,
@@ -213,15 +241,8 @@ class SAGE(nn.Module):
     def __init__(self, dims: List[int],
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        device = _resolve_device(device)
-        self.w_self = nn.ParameterList()
-        self.w_nbr = nn.ParameterList()
-        self.b = nn.ParameterList()
-        for fan_in, fan_out in zip(dims[:-1], dims[1:]):
-            for ws in (self.w_self, self.w_nbr):
-                ws.append(nn.Parameter(_glorot(fan_in, fan_out, generator,
-                                               device)))
-            self.b.append(nn.Parameter(torch.zeros(fan_out, device=device)))
+        _set_lists(self, init_sage(dims, generator, device),
+                   ('w_self', 'w_nbr', 'b'))
 
     def params(self) -> Dict:
         """The parameters as the functional forwards' tree."""
@@ -234,6 +255,28 @@ class SAGE(nn.Module):
 
 
 # -- GAT ----------------------------------------------------------------------
+
+
+def init_gat_spmm(dims: List[int], heads: int = 4,
+                  generator: Optional[torch.Generator] = None,
+                  device=None) -> Dict:
+    """Parameters of :func:`gat_forward_spmm`: per layer ``w [in,
+    heads*out_h]`` and the attention vectors ``a_src``, ``a_dst [heads,
+    out_h]`` with ``out_h = dims[i+1] // heads``, Glorot-uniform from
+    ``generator`` in that order, as ``init_gat_spmm`` builds them; on
+    ``device`` (default: the CUDA card). A width that ``heads`` does not
+    divide raises ``ValueError``."""
+    device = _resolve_device(device)
+    layers = []
+    for i, (fan_in, fan_out) in enumerate(zip(dims[:-1], dims[1:])):
+        if fan_out % heads:
+            raise ValueError(f'dims[{i + 1}]={fan_out} not divisible by '
+                             f'heads={heads}')
+        out_h = fan_out // heads
+        layers.append({'w': _glorot(fan_in, heads * out_h, generator, device),
+                       'a_src': _glorot(heads, out_h, generator, device),
+                       'a_dst': _glorot(heads, out_h, generator, device)})
+    return {'layers': layers}
 
 
 def gat_forward_spmm(params: Dict, x: torch.Tensor, graph) -> torch.Tensor:
@@ -290,21 +333,8 @@ class GAT(nn.Module):
     def __init__(self, dims: List[int], heads: int = 4,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        device = _resolve_device(device)
-        self.w = nn.ParameterList()
-        self.a_src = nn.ParameterList()
-        self.a_dst = nn.ParameterList()
-        for i, (fan_in, fan_out) in enumerate(zip(dims[:-1], dims[1:])):
-            if fan_out % heads:
-                raise ValueError(f'dims[{i + 1}]={fan_out} not divisible by '
-                                 f'heads={heads}')
-            out_h = fan_out // heads
-            self.w.append(nn.Parameter(_glorot(fan_in, heads * out_h,
-                                               generator, device)))
-            self.a_src.append(nn.Parameter(_glorot(heads, out_h, generator,
-                                                   device)))
-            self.a_dst.append(nn.Parameter(_glorot(heads, out_h, generator,
-                                                   device)))
+        _set_lists(self, init_gat_spmm(dims, heads, generator, device),
+                   ('w', 'a_src', 'a_dst'))
 
     def params(self) -> Dict:
         """The parameters as the functional forward's tree."""
@@ -317,6 +347,31 @@ class GAT(nn.Module):
 
 
 # -- GAT on a padded batch ----------------------------------------------------
+
+
+def init_gat(dims: List[int], heads: int = 4,
+             generator: Optional[torch.Generator] = None,
+             device=None) -> Dict:
+    """Parameters of :func:`gat_forward`, ``heads`` heads of ``dims[i+1]``
+    features in every layer: per layer ``w [in, heads*out]`` (hidden
+    layers concatenate their heads, so layer ``i > 0`` takes ``heads *
+    dims[i]``), ``att_src`` and ``att_dst [1, heads, out]``,
+    Glorot-uniform from ``generator`` in that order, and a zero bias ``b``
+    of ``heads * out`` (the last layer: ``out``); and ``'heads'``, as
+    ``init_gat`` builds them. On ``device`` (default: the CUDA card)."""
+    device = _resolve_device(device)
+    layers = []
+    for i, (fan_in, out) in enumerate(zip(dims[:-1], dims[1:])):
+        in_dim = fan_in if i == 0 else heads * fan_in
+        layers.append({
+            'w': _glorot(in_dim, heads * out, generator, device),
+            'att_src': _glorot(heads, out, generator, device).view(
+                1, heads, out),
+            'att_dst': _glorot(heads, out, generator, device).view(
+                1, heads, out),
+            'b': torch.zeros(out * heads if i < len(dims) - 2 else out,
+                             device=device)})
+    return {'layers': layers, 'heads': heads}
 
 
 def gat_forward(params: Dict, x: torch.Tensor, rowptr: torch.Tensor,
@@ -381,21 +436,9 @@ class GATBatch(nn.Module):
     def __init__(self, dims: List[int], heads: int = 4,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        device = _resolve_device(device)
         self.heads = heads
-        self.w = nn.ParameterList()
-        self.att_src = nn.ParameterList()
-        self.att_dst = nn.ParameterList()
-        self.b = nn.ParameterList()
-        for i, (fan_in, out) in enumerate(zip(dims[:-1], dims[1:])):
-            in_dim = fan_in if i == 0 else heads * fan_in
-            self.w.append(nn.Parameter(_glorot(in_dim, heads * out,
-                                               generator, device)))
-            for att in (self.att_src, self.att_dst):
-                att.append(nn.Parameter(_glorot(heads, out, generator,
-                                                device).view(1, heads, out)))
-            width = out * heads if i < len(dims) - 2 else out
-            self.b.append(nn.Parameter(torch.zeros(width, device=device)))
+        _set_lists(self, init_gat(dims, heads, generator, device),
+                   ('w', 'att_src', 'att_dst', 'b'))
 
     def params(self) -> Dict:
         """The parameters as the functional forward's tree."""
@@ -490,12 +533,8 @@ class RGCNBatch(nn.Module):
     def __init__(self, dims: List[int], num_relations: int,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        layers = init_rgcn(dims, num_relations, generator, device)['layers']
-        self.w_rel = nn.ParameterList(nn.Parameter(l['w_rel'])
-                                      for l in layers)
-        self.w_root = nn.ParameterList(nn.Parameter(l['w_root'])
-                                       for l in layers)
-        self.b = nn.ParameterList(nn.Parameter(l['b']) for l in layers)
+        _set_lists(self, init_rgcn(dims, num_relations, generator, device),
+                   ('w_rel', 'w_root', 'b'))
 
     def params(self) -> Dict:
         """The parameters as the functional forward's tree."""
@@ -709,12 +748,8 @@ class RGCN(nn.Module):
     def __init__(self, dims: List[int], num_relations: int,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        layers = init_rgcn_spmm(dims, num_relations, generator,
-                                device)['layers']
-        self.w = nn.ParameterList(nn.Parameter(l['w']) for l in layers)
-        self.w_self = nn.ParameterList(nn.Parameter(l['w_self'])
-                                       for l in layers)
-        self.b = nn.ParameterList(nn.Parameter(l['b']) for l in layers)
+        _set_lists(self, init_rgcn_spmm(dims, num_relations, generator,
+                                        device), ('w', 'w_self', 'b'))
 
     def params(self) -> Dict:
         """The parameters as the functional forwards' tree."""

@@ -1,11 +1,17 @@
 """Test fixtures (counterpart of ``pyg_lib_tpu.testing``) and the
 synthetic graphs the card's checks and timings run on."""
 
-import numpy as np
+import functools
 
-__all__ = ['HUGE_EDGES', 'HUGE_NODES', 'MAG_EDGES', 'MAG_NODES',
-           'cycle_graph', 'huge_graph', 'mag_graph', 'powerlaw_graph',
-           'uniform_graph']
+import numpy as np
+import torch
+
+__all__ = ['HUGE_EDGES', 'HUGE_NODES', 'MAG_EDGES', 'MAG_NODES', 'SEED',
+           'assert_allclose', 'cycle_graph', 'huge_graph', 'mag_graph',
+           'powerlaw_graph', 'uniform_graph', 'withSeed']
+
+# The reference's seed (pyg_lib/testing.py:15-21).
+SEED = 12345
 
 # ogbn-mag's published node and edge counts (OGB, full size), with the
 # relations named as in the dataset.
@@ -15,6 +21,34 @@ MAG_EDGES = {('paper', 'cites', 'paper'): 5_416_271,
              ('author', 'writes', 'paper'): 7_145_660,
              ('author', 'affiliated_with', 'institution'): 1_043_998,
              ('paper', 'has_topic', 'field_of_study'): 7_505_078}
+
+
+def withSeed(fn):
+    """Runs ``fn`` with numpy's global generator and torch's default
+    generator seeded with :data:`SEED` (the JAX package injects a
+    ``jax.random`` key instead)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        np.random.seed(SEED)
+        torch.manual_seed(SEED)
+        return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def assert_allclose(actual, expected, rtol=1e-6, atol=1e-6):
+    """``np.testing.assert_allclose`` on tensors on any device (bf16 read
+    as f32), or on anything ``np.asarray`` takes."""
+
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu()
+            return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+        return np.asarray(a)
+
+    np.testing.assert_allclose(host(actual), host(expected), rtol=rtol,
+                               atol=atol)
 
 
 def cycle_graph(num_nodes: int = 6):

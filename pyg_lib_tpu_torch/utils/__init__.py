@@ -6,8 +6,9 @@ import torch
 
 Array = torch.Tensor
 
-__all__ = ['Array', 'broadcast_index', 'canonicalize_dim', 'indptr_to_index',
-           'infer_dim_size', 'max_identity', 'min_identity']
+__all__ = ['Array', 'broadcast_index', 'canonicalize_dim', 'index_to_indptr',
+           'indptr_to_index', 'infer_dim_size', 'is_floating', 'max_identity',
+           'min_identity', 'move_dim_back', 'move_dim_front']
 
 
 def _resolve_device(device: Optional[Union[str, torch.device]]
@@ -55,6 +56,21 @@ def broadcast_index(index: torch.Tensor, src_shape, dim: int) -> torch.Tensor:
     return torch.broadcast_to(index, tuple(src_shape))
 
 
+def move_dim_front(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with axis ``dim`` moved to the front."""
+    return torch.movedim(x, dim, 0)
+
+
+def move_dim_back(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The inverse of :func:`move_dim_front`: axis 0 moved to ``dim``."""
+    return torch.movedim(x, 0, dim)
+
+
+def is_floating(x: torch.Tensor) -> bool:
+    """Whether ``x`` holds floating-point values."""
+    return x.dtype.is_floating_point
+
+
 def min_identity(dtype: torch.dtype) -> torch.Tensor:
     """The identity of ``min`` in ``dtype``: ``+inf``, or the largest
     integer."""
@@ -86,3 +102,19 @@ def indptr_to_index(indptr: torch.Tensor, num_elements: int) -> torch.Tensor:
     ids = torch.searchsorted(indptr[1:].contiguous(), positions,
                              right=True).to(torch.int32)
     return torch.where(positions < indptr[0], torch.full_like(ids, -1), ids)
+
+
+def index_to_indptr(index: torch.Tensor, size: int) -> torch.Tensor:
+    """Sorted COO ``index`` -> CSR ``indptr`` of shape ``[size+1]``
+    (int32).
+
+    Ids outside ``[0, size)`` on either side (the ``-1`` leading-gap and
+    ``R`` trailing ids :func:`indptr_to_index` gives) belong to no row:
+    they are counted in two extra buckets that are cut off.
+    """
+    counts = torch.zeros(size + 2, dtype=torch.int32, device=index.device)
+    ids = (index.long() + 1).clamp(0, size + 1)
+    counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+    out = torch.zeros(size + 1, dtype=torch.int32, device=index.device)
+    out[1:] = torch.cumsum(counts[1:size + 1], 0)
+    return out

@@ -1660,3 +1660,65 @@ def test_halo_ring_and_fetch_on_the_card(dev, world, backend):
     for r in ranks:
         assert r['k3'] >= 2  # the halo sum and each ring block's
         np.testing.assert_array_equal(r['fetch'], x[ids])
+
+
+# -- profiling and checkpoints on the card ------------------------------------
+
+
+def test_measure_and_trace_on_the_card(dev, tmp_path):
+    import glob
+    import json
+
+    from pyg_lib_tpu_torch import profiling
+
+    x = torch.randn(4096, 1024, device=dev)
+    res = profiling.measure(lambda a: a * 2.0, x, iters=5,
+                            bytes_accessed=2 * x.numel() * 4,
+                            flops=x.numel())
+    assert res['seconds'] > 0 and res['gbps'] > 0
+    if 'H100' in torch.cuda.get_device_name(0):
+        assert 0 < res['hbm_fraction'] < 1.2
+        assert 0 < res['tensor_core_fraction'] < 1
+        assert 'H100' in res['roofline_of']
+    with profiling.trace(str(tmp_path)) as d:
+        (x * 3.0).sum().item()
+    (path, ) = glob.glob(f'{d}/trace-*.json')
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    assert any(e.get('cat') == 'kernel' for e in events)
+
+
+def test_a_checkpoint_restores_onto_the_card(dev, tmp_path):
+    from pyg_lib_tpu_torch.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from pyg_lib_tpu_torch.models import SAGE, sage_forward
+
+    g = torch.Generator().manual_seed(0)
+    model = SAGE([8, 16, 4], generator=g, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    x = torch.randn(32, 8, device=dev)
+    rowptr = torch.arange(0, 97, 3, device=dev)
+    row = torch.randint(0, 32, (96, ), device=dev)
+    out = sage_forward(model.params(), x, rowptr, row)
+    out.square().mean().backward()
+    opt.step()
+    state = {'model': model.state_dict(), 'opt': opt.state_dict()}
+    save_checkpoint(str(tmp_path), state, step=1)
+    fresh = SAGE([8, 16, 4], device=dev)
+    fresh_opt = torch.optim.Adam(fresh.parameters(), lr=1e-2)
+    got, meta = restore_checkpoint(str(tmp_path), {
+        'model': fresh.state_dict(), 'opt': fresh_opt.state_dict()})
+    assert meta['step'] == 1
+    for k, v in got['model'].items():
+        assert v.is_cuda
+        assert torch.equal(v, state['model'][k])
+    fresh.load_state_dict(got['model'])
+    fresh_opt.load_state_dict(got['opt'])
+    for k, v in fresh_opt.state_dict()['state'][0].items():
+        assert torch.equal(v, state['opt']['state'][0][k])
+        assert v.device == state['opt']['state'][0][k].device
+    # A CPU `like` puts the model on the CPU, as the caller asked.
+    cpu, _ = restore_checkpoint(str(tmp_path), {
+        'model': SAGE([8, 16, 4], device='cpu').state_dict(),
+        'opt': fresh_opt.state_dict()})
+    assert all(not v.is_cuda for v in cpu['model'].values())

@@ -21,7 +21,7 @@ import torch
 import pyg_lib_tpu_torch
 from pyg_lib_tpu import ops as jops
 from pyg_lib_tpu.models import gnn as jgnn
-from pyg_lib_tpu_torch import ops
+from pyg_lib_tpu_torch import models, ops
 from pyg_lib_tpu_torch.examples.train_pointcloud import \
     main as train_pointcloud_example
 from pyg_lib_tpu_torch.examples.train_rgcn_fullgraph_spmm import \
@@ -174,7 +174,13 @@ def test_package_imports_neither_jax_nor_reference():
             'pyg_lib_tpu_torch.sampler.transport, '
             'pyg_lib_tpu_torch.sampler.serve, '
             'pyg_lib_tpu_torch.examples.train_dist_fullgraph, '
-            'pyg_lib_tpu_torch.examples.train_dist_sampled; '
+            'pyg_lib_tpu_torch.examples.train_dist_sampled, '
+            'pyg_lib_tpu_torch.checkpoint, pyg_lib_tpu_torch.profiling, '
+            'pyg_lib_tpu_torch.utils, '
+            'pyg_lib_tpu_torch.examples.train_gcn, '
+            'pyg_lib_tpu_torch.examples.train_gcn_fullgraph_spmm, '
+            'pyg_lib_tpu_torch.examples.train_sage_weighted_disjoint, '
+            'pyg_lib_tpu_torch.examples.train_temporal_sage; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyg_lib_tpu')); "
             'assert not bad, bad')
@@ -208,7 +214,10 @@ def test_sources_import_neither_jax_nor_reference():
             'train_node2vec.py', 'halo.py', 'mesh.py', 'train.py',
             'launch.py', '_collectives.py', 'dist.py', 'dist_service.py',
             'transport.py', 'serve.py', 'train_dist_fullgraph.py',
-            'train_dist_sampled.py'} <= names and len(files) > 40
+            'train_dist_sampled.py', 'checkpoint.py', 'profiling.py',
+            'train_gcn.py', 'train_gcn_fullgraph_spmm.py',
+            'train_sage_weighted_disjoint.py', 'train_temporal_sage.py'
+            } <= names and len(files) > 40
     assert {'partition', 'classes', 'sampler', 'parallel'} <= {
         p.parent.name for p in files if p.name == '__init__.py'}
     for path in files:
@@ -321,3 +330,168 @@ def test_chip_smoke_device_events_keep_only_the_given_categories(
     starts = [start for _, _, start, _ in events]
     assert starts == sorted(starts)
     assert all(dur >= 0 for _, _, _, dur in events)
+
+
+# -- the functional initialisers and the package's surface -------------------
+
+INITS = {  # name: (JAX call, port call), both with dims [12, 8, 4]
+    'init_gcn': (lambda k: jgnn.init_gcn(k, [12, 8, 4]),
+                 lambda g: models.init_gcn([12, 8, 4], g, 'cpu')),
+    'init_sage': (lambda k: jgnn.init_sage(k, [12, 8, 4]),
+                  lambda g: models.init_sage([12, 8, 4], g, 'cpu')),
+    'init_gat': (lambda k: jgnn.init_gat(k, [12, 8, 4], heads=2),
+                 lambda g: models.init_gat([12, 8, 4], 2, g, 'cpu')),
+    'init_gat_spmm': (lambda k: jgnn.init_gat_spmm(k, [12, 8, 4], heads=2),
+                      lambda g: models.init_gat_spmm([12, 8, 4], 2, g,
+                                                     'cpu')),
+}
+
+
+def _init_forwards(name, tree, x, rowptr, row, col, pkg):
+    """The forward that takes ``name``'s tree, in ``pkg`` (``jgnn`` or the
+    port's ``models``), over a CSR batch (or its planned graph)."""
+    if name == 'init_gcn':
+        return pkg.gcn_forward(tree, x, rowptr, row)
+    if name == 'init_sage':
+        return pkg.sage_forward(tree, x, rowptr, row)
+    if name == 'init_gat':
+        return pkg.gat_forward(tree, x, rowptr, row, col)
+    graph = (jops if pkg is jgnn else ops).build_spmm_graph(
+        rowptr, row, with_edge_maps=True,
+        **({} if pkg is jgnn else {'device': 'cpu'}))
+    return pkg.gat_forward_spmm(tree, x, graph)
+
+
+@pytest.mark.parametrize('name', list(INITS))
+def test_init_trees_match_the_jax_packages(name):
+    jax_init, port_init = INITS[name]
+    with jax.enable_x64(False):  # the JAX package's default float type
+        ref = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(3)))
+    got = port_init(torch.Generator().manual_seed(3))
+    assert got.keys() == ref.keys() and len(got['layers']) == 2
+    if name == 'init_gat':
+        assert got['heads'] == ref['heads'] == 2
+    for g, r in zip(got['layers'], ref['layers']):
+        assert g.keys() == r.keys()
+        for k, v in g.items():
+            assert tuple(v.shape) == r[k].shape and v.dtype == torch.float32
+            assert r[k].dtype == np.float32
+            if k == 'b':
+                assert not v.any()
+                continue
+            fan_in, fan_out = v.shape[-2:]
+            limit = (6.0 / (fan_in + fan_out))**0.5
+            assert v.abs().max() <= limit and v.std() > limit / 4
+    # One tree through both packages: the same forward output.
+    rowptr, col = uniform_graph(31, 40, 200)
+    row = np.repeat(np.arange(40), np.diff(rowptr))
+    x = features(32, 40, 12)
+    tree = jax.tree.map(lambda v: v.numpy() if isinstance(v, torch.Tensor)
+                        else v, got)
+    want = _init_forwards(name, jax.tree.map(jnp.asarray, tree),
+                          jnp.asarray(x), jnp.asarray(rowptr),
+                          jnp.asarray(col), jnp.asarray(row), jgnn)
+    out = _init_forwards(name, got, torch.from_numpy(x),
+                         torch.from_numpy(rowptr), torch.from_numpy(col),
+                         torch.from_numpy(row), models)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_init_gat_spmm_refuses_a_width_heads_do_not_divide():
+    with pytest.raises(ValueError, match='not divisible by heads=3'):
+        jgnn.init_gat_spmm(jax.random.PRNGKey(0), [12, 8, 4], heads=3)
+    with pytest.raises(ValueError, match='not divisible by heads=3'):
+        models.init_gat_spmm([12, 8, 4], 3, device='cpu')
+
+
+def _public(module, prefix):
+    """The names ``module`` defines itself (and its ``__all__``)."""
+    names = set(getattr(module, '__all__', ()))
+    names |= {n for n, v in vars(module).items() if not n.startswith('_')
+              and getattr(v, '__module__', '').startswith(prefix)}
+    return names
+
+
+# Names of the JAX package the port covers under another name, or leaves
+# out on purpose (ROADMAP.md: not a module to port).
+RENAMED = {'tpu_version': 'cuda_version'}
+NOT_PORTED = {'register_plan_pytree'}  # utils/pytree.py: JAX pytrees
+
+
+@pytest.mark.parametrize('module', ['', '.models', '.utils', '.testing',
+                                    '.checkpoint', '.profiling'])
+def test_the_port_exports_every_name_of_the_jax_package(module):
+    import importlib
+
+    ref = importlib.import_module('pyg_lib_tpu' + module)
+    got = importlib.import_module('pyg_lib_tpu_torch' + module)
+    port = lambda names: {RENAMED.get(n, n) for n in names} - NOT_PORTED
+    want = _public(ref, 'pyg_lib_tpu')
+    if module == '':  # and the subpackages the JAX package imports
+        want |= {n for n, v in vars(ref).items() if not n.startswith('_')
+                 and type(v).__name__ == 'module'
+                 and v.__name__.startswith('pyg_lib_tpu.')}
+    if module == '.utils':
+        want |= {'register_plan_pytree'}
+    missing = {n for n in port(want) if not hasattr(got, n)}
+    assert not missing, missing
+    listed = port(getattr(ref, '__all__', want))
+    assert not listed - set(got.__all__), listed - set(got.__all__)
+
+
+def test_utils_match_the_jax_package():
+    from pyg_lib_tpu import utils as jutils
+    from pyg_lib_tpu_torch import utils
+
+    x = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    for dim in (0, 1, -1):
+        front = utils.move_dim_front(torch.from_numpy(x), dim)
+        ref = np.asarray(jutils.move_dim_front(jnp.asarray(x), dim))
+        assert np.array_equal(front.numpy(), ref)
+        back = utils.move_dim_back(front, dim)
+        assert np.array_equal(back.numpy(), np.asarray(
+            jutils.move_dim_back(jnp.asarray(ref), dim)))
+        assert np.array_equal(back.numpy(), x)
+    for t in (torch.zeros(2), torch.zeros(2, dtype=torch.bfloat16),
+              torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=bool)):
+        a = jnp.zeros(2, str(t.dtype).split('.')[1])
+        assert utils.is_floating(t) == jutils.is_floating(a)
+    # Sorted ids with a leading gap (-1) and trailing padding (R), as
+    # indptr_to_index gives them, and the round trip.
+    indptr = np.array([2, 2, 5, 9, 9, 12], np.int64)
+    ids = utils.indptr_to_index(torch.from_numpy(indptr), 14)
+    assert np.array_equal(ids.numpy(), np.asarray(jutils.indptr_to_index(
+        jnp.asarray(indptr), 14)))
+    for index, size in ((ids, 5), (torch.tensor([0, 0, 3, 3, 3]), 4),
+                        (torch.tensor([], dtype=torch.int64), 3),
+                        (torch.tensor([-1, 0, 1, 7, 7]), 3)):
+        got = utils.index_to_indptr(index, size)
+        ref = np.asarray(jutils.index_to_indptr(jnp.asarray(index.numpy()),
+                                                size))
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), ref)
+    assert np.array_equal(utils.index_to_indptr(ids, 5).numpy()[1:],
+                          indptr[1:] - indptr[0])
+
+
+def test_testing_helpers_match_the_jax_package():
+    from pyg_lib_tpu import testing as jtesting
+    from pyg_lib_tpu_torch import testing
+
+    assert testing.SEED == jtesting.SEED == 12345
+
+    @testing.withSeed
+    def draw():
+        return np.random.rand(3), torch.rand(3)
+
+    a, b = draw(), draw()
+    assert np.array_equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    np.random.seed(1)
+    assert np.array_equal(draw()[0], np.random.RandomState(12345).rand(3))
+    testing.assert_allclose(torch.tensor([1.0, 2.0]), [1.0, 2.0 + 1e-7])
+    testing.assert_allclose(torch.tensor([1.0], dtype=torch.bfloat16),
+                            torch.tensor([1.0]))
+    with pytest.raises(AssertionError):
+        testing.assert_allclose(torch.tensor([1.0]), np.array([1.1]))
+    assert np.array_equal(testing.cycle_graph(7)[1],
+                          jtesting.cycle_graph(7)[1])

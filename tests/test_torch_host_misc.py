@@ -1,9 +1,10 @@
 """The rest of the port's host layer against the JAX package on the CPU:
 ``classes`` (``HashMap``, ``DeviceHashMap``, the stateful samplers,
 ``MetapathTracker``), ``datasets`` and ``home``, ``metrics``, ``entry``
-and the three host-layer examples; and the host engine's build
-(``_build.build_host``): it writes only under ``pyg_lib_tpu_torch/``, and
-a failed ``g++`` raises.
+and the examples (the host layer's three, and full-batch and planned
+GCN, weighted-disjoint and temporal GraphSAGE); and the host engine's
+build (``_build.build_host``): it writes only under
+``pyg_lib_tpu_torch/``, and a failed ``g++`` raises.
 
 Lookups, samples, readers and generators must equal the JAX package's bit
 for bit. The ``entry()`` forward with the JAX weights (through
@@ -363,6 +364,150 @@ def test_examples_train_on_the_cpu():
     agree, losses = train_node2vec.main(steps=60, verbose=False,
                                         device='cpu')
     assert agree > 0.6 and losses[-1] < losses[0]
+
+
+# -- the examples of the last slice -------------------------------------------
+
+
+def _gcn_first_loss(params, spmm):
+    from pyg_lib_tpu import ops as jops
+    from pyg_lib_tpu.models import gcn_forward, gcn_forward_spmm
+
+    d = jdatasets.sbm_graph(num_nodes=1000 if spmm else 400, seed=0)
+    x, y = jnp.asarray(d['x']), jnp.asarray(d['y'])
+    p = jax.tree.map(jnp.asarray, params)
+    if spmm:
+        logits = gcn_forward_spmm(p, x, jops.build_spmm_graph(d['rowptr'],
+                                                              d['col']))
+    else:
+        logits = gcn_forward(p, x, jnp.asarray(d['rowptr']),
+                             jnp.asarray(d['col']))
+    nll = -jnp.take_along_axis(jax.nn.log_softmax(logits), y[:, None],
+                               axis=1)[:, 0]
+    train = d['train_mask']
+    return float(jnp.where(train, nll, 0.0).sum() / train.sum())
+
+
+def _loader_first_loss(params, temporal):
+    from examples.train_temporal_sage import time_sort_neighborhoods
+    from pyg_lib_tpu import loader as jloader
+    from pyg_lib_tpu.models import sage_forward
+    from pyg_lib_tpu.sampler import _cpp as jcpp
+
+    # Loaded before the JAX loader's threads race to load it (the loser
+    # would sample with numpy; see tests/test_torch_loader.py).
+    assert jcpp.get_lib() is not None
+    d = jdatasets.sbm_graph(num_nodes=2000 if temporal else 3000,
+                            num_classes=4, seed=3 if temporal else 1)
+    col, kw = d['col'], dict(edge_weight=np.random.default_rng(0).uniform(
+        0.05, 1.0, size=len(d['col'])), num_neighbors=[10, 5])
+    if temporal:
+        node_time = np.random.default_rng(0).integers(0, 100, 2000)
+        col = time_sort_neighborhoods(d['rowptr'], d['col'], node_time)
+        kw = dict(node_time=node_time, temporal_strategy='last',
+                  num_neighbors=[8, 4])
+    ldr = jloader.NeighborLoader(d['rowptr'], col, d['x'], d['y'],
+                                 np.nonzero(d['train_mask'])[0],
+                                 batch_size=64, num_workers=2, rng=0,
+                                 disjoint=True, **kw)
+    batch = next(iter(ldr))
+    logp = jax.nn.log_softmax(sage_forward(
+        jax.tree.map(jnp.asarray, params), batch['x'], batch['rowptr'],
+        batch['row']))
+    nll = -jnp.take_along_axis(logp, batch['y'][:, None].astype(jnp.int32),
+                               axis=1)[:, 0]
+    mask = batch['node_mask'] & (jnp.arange(nll.shape[0])
+                                 < batch['num_seeds'])
+    return float((nll * mask).sum() / jnp.maximum(mask.sum(), 1))
+
+
+LAST_EXAMPLES = {  # name: (JAX init, main's arguments, JAX first loss)
+    'train_gcn': ('init_gcn', [16, 32, 4], dict(epochs=1),
+                  lambda p: _gcn_first_loss(p, False)),
+    'train_gcn_fullgraph_spmm': ('init_gcn', [16, 64, 4],
+                                 dict(num_nodes=1000, epochs=1),
+                                 lambda p: _gcn_first_loss(p, True)),
+    'train_sage_weighted_disjoint': ('init_sage', [16, 64, 4],
+                                     dict(steps=1),
+                                     lambda p: _loader_first_loss(p, False)),
+    'train_temporal_sage': ('init_sage', [16, 64, 4], dict(steps=1),
+                            lambda p: _loader_first_loss(p, True)),
+}
+
+
+@pytest.mark.parametrize('name', list(LAST_EXAMPLES))
+def test_last_examples_first_loss_equals_the_jax_examples(name):
+    import importlib
+
+    from pyg_lib_tpu import models
+
+    sys.path.insert(0, str(REPO))
+    init, dims, kw, first_loss = LAST_EXAMPLES[name]
+    params = _f32_tree(getattr(models, init)(jax.random.PRNGKey(0), dims))
+    example = importlib.import_module(f'pyg_lib_tpu_torch.examples.{name}')
+    _, losses = example.main(verbose=False, device='cpu', params=params,
+                             **kw)
+    ref = first_loss(params)
+    assert len(losses) == 1
+    assert abs(losses[0] - ref) <= MODEL_RTOL * abs(ref)
+
+
+def test_last_examples_train_on_the_cpu():
+    from pyg_lib_tpu_torch.examples import (train_gcn,
+                                            train_gcn_fullgraph_spmm,
+                                            train_sage_weighted_disjoint,
+                                            train_temporal_sage)
+
+    # tests/test_end_to_end.py's full-batch GCN, and its bar.
+    acc, losses = train_gcn.main(num_nodes=200, epochs=60, verbose=False,
+                                 device='cpu')
+    assert acc > 0.85 and losses[-1] < losses[0]
+    acc, losses = train_gcn_fullgraph_spmm.main(num_nodes=600, epochs=20,
+                                                verbose=False, device='cpu')
+    assert acc > 0.85 and losses[-1] < losses[0]
+    for example in (train_sage_weighted_disjoint, train_temporal_sage):
+        acc, losses = example.main(epochs=2, verbose=False, device='cpu')
+        assert acc > 0.85 and losses[-1] < losses[0]
+
+
+def test_time_sort_equals_the_jax_example():
+    sys.path.insert(0, str(REPO))
+    from examples.train_temporal_sage import time_sort_neighborhoods as ref
+    from pyg_lib_tpu_torch.examples.train_temporal_sage import \
+        time_sort_neighborhoods
+
+    rng = np.random.default_rng(4)
+    for n, span in ((300, 100), (50, 3), (1, 5)):
+        deg = rng.integers(0, 30, n)
+        rowptr = np.zeros(n + 1, np.int64)
+        rowptr[1:] = np.cumsum(deg)
+        col = rng.integers(0, n, int(rowptr[-1]))
+        node_time = rng.integers(-span, span, n)  # many ties
+        got = time_sort_neighborhoods(rowptr, col, node_time, 'cpu')
+        assert got.dtype == col.dtype
+        assert np.array_equal(got, ref(rowptr, col, node_time))
+        row = np.repeat(np.arange(n), deg)
+        assert np.array_equal(got, col[np.lexsort((node_time[col], row))])
+
+
+def test_last_examples_need_a_card_unless_told(monkeypatch):
+    from pyg_lib_tpu_torch.examples import (train_gcn,
+                                            train_gcn_fullgraph_spmm,
+                                            train_sage_weighted_disjoint,
+                                            train_temporal_sage)
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for call in (lambda: train_gcn.main(epochs=1, verbose=False),
+                 lambda: train_gcn_fullgraph_spmm.main(epochs=1,
+                                                       verbose=False),
+                 lambda: train_sage_weighted_disjoint.main(steps=1,
+                                                           verbose=False),
+                 lambda: train_temporal_sage.main(steps=1, verbose=False),
+                 lambda: train_temporal_sage.time_sort_neighborhoods(
+                     np.zeros(2, np.int64), np.zeros(0, np.int64),
+                     np.zeros(1, np.int64))):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            call()
 
 
 # -- the host engine's build --------------------------------------------------

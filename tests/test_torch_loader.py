@@ -2,8 +2,9 @@
 package's on the CPU: for the same graph, features and ``rng``,
 ``NeighborLoader`` and ``HeteroNeighborLoader`` give the JAX loaders'
 batches bit for bit (probed buckets, explicit budgets, disjoint sampling,
-several epochs), resume from ``state_dict`` at the same batches, and count
-their buckets alike. On the CPU the batches stay host tensors; on the card
+biased by ``edge_weight``, node-temporal with ``'last'``, several
+epochs), resume from ``state_dict`` at the same batches, and count their
+buckets alike. On the CPU the batches stay host tensors; on the card
 (``tests/test_torch_cuda.py``) they equal these.
 """
 
@@ -52,8 +53,13 @@ def batches(ldr, epochs=1):
     return [b for _ in range(epochs) for b in ldr]
 
 
+_W = np.random.default_rng(9)
 CONFIGS = {
     'probed': dict(),
+    'weighted_disjoint': dict(disjoint=True, edge_weight=_W.uniform(
+        0.05, 1.0, len(data()[1]))),
+    'temporal_last': dict(disjoint=True, temporal_strategy='last',
+                          node_time=_W.integers(0, 100, 400)),
     'explicit': dict(max_nodes=160, max_edges=200),
     'buckets': dict(buckets=[(200, 300), (4000, 6000)]),
     'disjoint': dict(disjoint=True),
