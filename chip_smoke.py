@@ -260,6 +260,11 @@ POINT_LR = 1e-3
 # (6,890 vertices, 13,776 faces), M_in 1 (conv1) and 32; graclus_cluster
 # and edge_sample on a graph of GRACLUS_NODES nodes.
 BIG_CLOUD, BIG_RATIO = 100_000, 0.1
+# F1 is also timed on BIG_BATCH clouds of BIG_CLOUD points (a batch of
+# LiDAR scans: SemanticKITTI's hold about 120,000 points) and on one cloud
+# of HUGE_CLOUD points at HUGE_RATIO (RandLA-Net's scale).
+BIG_BATCH = 8
+HUGE_CLOUD, HUGE_RATIO = 1_000_000, 0.01
 # DGCNN's dynamic EdgeConv layers run knn over 64 features a point: knn is
 # timed there (cosine) with its dot products summed one feature at a time
 # and with them from one GEMM a block.
@@ -269,10 +274,12 @@ GRACLUS_NODES = 20_000
 # A knn, radius or nearest pair may differ between the card and the CPU
 # only where its f64 distance lies within this of the k-th distance or r².
 PAIR_RTOL = 1e-6
-# The earlier designs' times of K5 (its [N, F] key table) and K6 (a warp
-# per row) on this script's shapes, printed beside the current ones
-# (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
-EARLIER_MS = {'K5': 5.251, 'K6': 0.342, 'K6 hub rows': 60.877}
+# The earlier designs' times of K5 (its [N, F] key table), K6 (a warp
+# per row) and F1 (one block a cloud) on this script's shapes, printed
+# beside the current ones (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+EARLIER_MS = {'K5': 5.251, 'K6': 0.342, 'K6 hub rows': 60.877,
+              'F1 32 clouds of 1024, ratio 0.5 (SA1)': 0.540,
+              'F1 one cloud of 100000, ratio 0.1': 616.6}
 # Path A, Reddit's mini-batch GraphSAGE (PyG examples/reddit.py;
 # BASELINE.json config 2): the dataset's 232,965 nodes, 114,615,892 edges,
 # 602 features, 41 classes and 153,431 training nodes, here a uniform
@@ -3593,10 +3600,9 @@ def geometry_paths(dev, run_path, rp, cl):
     gradients are held against the same model through the plain versions
     (:func:`plain_kernels`), DGCNN's against the same model on the CPU,
     each with the kernel path's ReLU branches, within ``GCN_RTOL``. Each
-    path gets one profiled step. Then :func:`device_ops`, and F1 timed on
-    the clouds beside its plain version, the batched plain loop and its
-    latency floor (:func:`fps_floor`). Returns F1's row of the kernels line (without its
-    launches)."""
+    path gets one profiled step. Then :func:`device_ops`, and F1 on each
+    of :func:`f1_shapes` (:func:`f1_shape`). Returns F1's row of the
+    kernels line (SA1's shape; without its launches)."""
     import copy
 
     import torch
@@ -3606,7 +3612,6 @@ def geometry_paths(dev, run_path, rp, cl):
                                           init_gin, init_pointnet_sa,
                                           edgeconv_forward)
     from pyg_lib_tpu_torch.models.extra import _init_mlp, _mlp, _Module
-    from pyg_lib_tpu_torch.ops.kernels.fps import fps_floor
 
     t_all = time.perf_counter()
     gen = torch.Generator().manual_seed(19)
@@ -3724,46 +3729,127 @@ def geometry_paths(dev, run_path, rp, cl):
     err, big = device_ops(dev, rp, cl, pos, ptr)
     print(f'  device-op phase: {time.perf_counter() - t0:.1f} s', flush=True)
 
-    # F1 on SA1's clouds, beside its plain version (one cloud after the
-    # other), the batched plain loop, and its latency floor: the same
-    # chain of block-wide argmaxes with no distance work (fps_floor).
-    rng = np.random.default_rng(0)
-    n_c = np.diff(ptr)
-    m_c = np.maximum(1, np.ceil(0.5 * n_c)).astype(np.int64)
-    clouds = np.stack([ptr[:-1], n_c, m_c, rng.integers(n_c)], 1)
-    ms = cuda_ms(lambda: ops.fps_kernel(pos, clouds))
-    plain_ms = cuda_ms(lambda: ops.fps_plain(pos, clouds), iters=1,
-                       warmup=1)
-    lib_ms = cuda_ms(lambda: fps_batched_loop(pos, clouds), iters=3)
-    if not torch_equal(fps_batched_loop(pos, clouds),
-                       ops.fps_kernel(pos, clouds)):
-        raise AssertionError('the batched plain loop differs from F1')
-    latency_ms = cuda_ms(lambda: fps_floor(clouds, dev))
-    big_clouds = np.array([[0, BIG_CLOUD,
-                            int(np.ceil(BIG_RATIO * BIG_CLOUD)), 0]])
-    big = big.to(dev)
-    big_ms = cuda_ms(lambda: ops.fps_kernel(big, big_clouds), iters=3,
-                     warmup=1)
-    d = pos.shape[1]
-    nbytes = pos.numel() * 4 + clouds.size * 8 + int(m_c.sum()) * 4
-    flops = int(((m_c - 1) * n_c).sum()) * (3 * d + 2)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    print(f'  F1 {CLOUDS} clouds of {CLOUD_POINTS} ratio 0.5 f32: '
-          f'{ms:.3f} ms, plain (cloud after cloud) {plain_ms:.3f} ms, '
-          f'batched plain loop {lib_ms:.3f} ms, bound {bound_ms:.5f} ms '
-          f'({nbytes / 1e9:.6f} GB, {flops / 1e9:.3f} GFLOP); latency '
-          f'floor {latency_ms:.3f} ms ({int(m_c.max()) - 1} block-wide '
-          f'argmaxes a cloud, no distance work); one cloud of {BIG_CLOUD} '
-          f'points ratio {BIG_RATIO}: {big_ms:.3f} ms', flush=True)
+    rows = [f1_shape(dev, label, pts, clouds, cheap)
+            for label, pts, clouds, cheap in f1_shapes(dev, pos, ptr, big)]
     print(f'geometry paths: {time.perf_counter() - t_all:.1f} s', flush=True)
+    row = rows[0]  # SA1's clouds, the main path's shape
     return {
         'name': 'F1', 'route': 'cuda',
         'source': f'pyg_lib_tpu_torch/csrc/{SOURCES["F1"][0]}',
-        'replaces': SOURCES['F1'][1], 'max_abs_err': float(err), 'ms': ms,
-        'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >=
-                     flops / F32_FLOPS else 'operations'),
-        'library_ms': lib_ms}
+        'replaces': SOURCES['F1'][1],
+        'max_abs_err': float(max([err] + [r['err'] for r in rows])),
+        'ms': row['ms'], 'plain_ms': row['plain_ms'],
+        'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+        'library_ms': row['library_ms']}
+
+
+def f1_shapes(dev, pos, ptr, big):
+    """F1's timed shapes, ``(label, points on dev, clouds, cheap)``:
+    PointNet++'s SA1 clouds (``ptr``, ratio 0.5, starts from seed 0) and
+    SA2's (SA1's centroids, 32 of 512, ratio 0.25), tier S; one cloud of
+    ``BIG_CLOUD`` (``big``, ratio ``BIG_RATIO``, start 0) and
+    ``BIG_BATCH`` such clouds (seed 5), tier C; one of ``HUGE_CLOUD``
+    (seed 6, ratio ``HUGE_RATIO``), tier G. ``cheap``: F1 and the batched
+    plain loop take well under a second and are timed over several
+    calls."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    rng = np.random.default_rng(0)
+
+    def clouds_of(sizes, ratio, start=None):
+        n = np.asarray(sizes, np.int64)
+        lo = np.concatenate([[0], np.cumsum(n)[:-1]])
+        m = np.maximum(1, np.ceil(ratio * n)).astype(np.int64)
+        first = rng.integers(n) if start is None else np.full_like(n, start)
+        return np.stack([lo, n, m, first], 1)
+
+    def randn(n, seed):
+        gen = torch.Generator(dev).manual_seed(seed)
+        return torch.randn((n, 3), generator=gen, device=dev)
+
+    sa1 = clouds_of(np.diff(ptr), SA_LEVELS[0][0])
+    sa2_pos = pos[ops.fps_kernel(pos, sa1).long()]
+    sa2 = clouds_of(sa1[:, 2], SA_LEVELS[1][0])
+    return [
+        (f'{CLOUDS} clouds of {CLOUD_POINTS}, ratio {SA_LEVELS[0][0]} '
+         f'(SA1)', pos, sa1, True),
+        (f'{CLOUDS} clouds of {int(sa1[0, 2])}, ratio {SA_LEVELS[1][0]} '
+         f'(SA2)', sa2_pos, sa2, True),
+        (f'one cloud of {BIG_CLOUD}, ratio {BIG_RATIO}', big.to(dev),
+         clouds_of([BIG_CLOUD], BIG_RATIO, 0), False),
+        (f'{BIG_BATCH} clouds of {BIG_CLOUD}, ratio {BIG_RATIO}',
+         randn(BIG_BATCH * BIG_CLOUD, 5),
+         clouds_of([BIG_CLOUD] * BIG_BATCH, BIG_RATIO), False),
+        (f'one cloud of {HUGE_CLOUD}, ratio {HUGE_RATIO}',
+         randn(HUGE_CLOUD, 6), clouds_of([HUGE_CLOUD], HUGE_RATIO), False)]
+
+
+def f1_shape(dev, label, pts, clouds, cheap):
+    """F1 on one shape: equal to its plain version (one cloud after the
+    other) and to the batched plain loop, or it raises; timed beside them,
+    its latency floor in its tier's form (:func:`fps_floor`) and its
+    bound. Prints one line; returns the numbers."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels.fps import (_batch_plan,
+                                                   active_clusters,
+                                                   fps_floor)
+
+    d = pts.shape[1]
+    plan = _batch_plan(clouds, d)
+    clusters = (f', {active_clusters(plan, d, dev)} such clusters at once'
+                if plan.tier != 'S' else '')
+    got = ops.fps_kernel(pts, clouds)
+    ref, plain_ms = timed_once(lambda: ops.fps_plain(pts, clouds))
+    lib, lib_ms = timed_once(lambda: fps_batched_loop(pts, clouds))
+    err = int((got.long() - ref.long()).abs().max())
+    if not (torch_equal(got, ref) and torch_equal(lib, ref)):
+        raise AssertionError(f'F1 on {label} differs from its plain version '
+                             f'or the batched plain loop')
+    if cheap:  # the loop's first call also makes its allocator's blocks
+        lib_ms = cuda_ms(lambda: fps_batched_loop(pts, clouds), iters=3)
+    iters = 10 if cheap else 3
+    ms = cuda_ms(lambda: ops.fps_kernel(pts, clouds), iters=iters, warmup=1)
+    floor_ms = cuda_ms(lambda: fps_floor(clouds, dev, d), iters=iters,
+                       warmup=1)
+    n, m = clouds[:, 1], clouds[:, 2]
+    nbytes = int(n.sum()) * d * 4 + clouds.size * 8 + int(m.sum()) * 4
+    flops = int(((m - 1) * n).sum()) * (3 * d + 2)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    bound_by = ('bytes' if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+                else 'operations')
+    earlier = EARLIER_MS.get(f'F1 {label}')
+    print(f'  F1 {label}: {ms:.3f} ms (tier {plan.tier}, {plan.cluster} '
+          f'block(s) of {plan.threads} a cloud, {plan.smem_bytes} B shared '
+          f'memory a block{clusters}), bound {bound_ms:.5f} ms by '
+          f'{bound_by} ({nbytes / 1e9:.6f} GB, {flops / 1e9:.3f} GFLOP), '
+          f'latency floor {floor_ms:.3f} ms ({int(m.max()) - 1} dependent '
+          f'argmaxes, no distance work), plain (cloud after cloud) '
+          f'{plain_ms:.3f} ms, batched plain loop {lib_ms:.3f} ms'
+          + (f'; the one-block design took {earlier} ms' if earlier else ''),
+          flush=True)
+    del got, ref, lib
+    torch.cuda.empty_cache()
+    return {'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'err': err}
+
+
+def timed_once(fn):
+    """``fn()``'s result and its ms on the card by CUDA events, one call
+    (for the plain versions on the large clouds, which take seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def reddit_data():

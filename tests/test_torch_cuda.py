@@ -1376,34 +1376,56 @@ def test_spmm_sharded_matches_cpu(dev, kind):
 
 # F1 (csrc/fps.cu) against its plain version: the same arithmetic in the
 # same order, so the same indices exactly, in one launch a call. Clouds of
-# 1 and 2 points, of 1,000 (distances in registers), 20,000 and 100,000
-# (in the global scratch), duplicate points (equal maxima, the lowest
-# index wins), all points equal (every distance 0), ratio 1 and a batch
-# with empty clouds.
-@pytest.mark.parametrize('case', ['1', '2', '1000', '20000', '100000',
-                                  'duplicates', 'all equal', 'ratio 1',
-                                  'batch', 'D=1'])
+# 1 and 2 points, of 1,000 (tier S: one block, the points in registers),
+# just above tier S's limit, 20,000, 100,000 and 100,003 (tier C: a
+# cluster, its slices in shared memory; 100,003 not a multiple of the
+# cluster size), 300,000 (tier G: the slices streamed), duplicate points
+# (equal maxima, the lowest index wins), the two halves of a 100,000-point
+# cloud equal (equal maxima in different blocks of one cluster), all points
+# equal (every distance 0; 700 and 50,000), ratio 1 (tier S and C), a batch
+# with empty clouds, a batch of empty, 1-, 1,024- and 100,000-point clouds
+# (tier C for all), D=1, 6 and 12 (tiers C and G in their runtime-D form,
+# the winner's coordinates through shared memory, at any size: tier C
+# for D=1's clouds of 2,000 and 3,000 and of 30,000, D=2's of 1, 2 and
+# 37 points (blocks with no point), D=6's 9,000 and D=12's 3,000, tier G
+# for D=12's 80,000).
+F1_CASES = {
+    '1': (3, [0, 1], 0.5), '2': (3, [0, 2], 0.5),
+    '1000': (3, [0, 1000], 0.5), '20000': (3, [0, 20000], 0.5),
+    '100000': (3, [0, 100000], 0.05), '100003': (3, [0, 100003], 0.05),
+    '300000': (3, [0, 300000], 0.01),
+    'duplicates': (3, [0, 1000, 3000], 0.5),
+    'halves equal': (3, [0, 100000], 0.01),
+    'all equal': (3, [0, 700], 0.5), 'all equal 50000': (3, [0, 50000], 0.1),
+    'ratio 1': (3, [0, 600, 1500], 1.0),
+    'ratio 1 20000': (3, [0, 20000], 1.0),
+    'batch': (3, [0, 0] + [700 * (i + 1) for i in range(40)] + [28000],
+              0.5),
+    'mixed batch': (3, [0, 0, 1, 1025, 1025, 101025], 0.1),
+    'D=1': (1, [0, 2000, 5000], 0.5), 'D=1 tier C': (1, [0, 30000], 0.1),
+    'D=2 small': (2, [0, 1, 3, 40], 0.5),
+    'D=6 tier C': (6, [0, 9000], 0.2), 'D=12 tier C': (12, [0, 3000], 0.2),
+    'D=12 tier G': (12, [0, 80000], 0.01)}
+
+
+@pytest.mark.parametrize('case', list(F1_CASES) + ['above tier S'])
 def test_f1_matches_plain(dev, case):
+    from pyg_lib_tpu_torch.ops.kernels import fps
+
     rng = np.random.default_rng(21)
-    ratio, d = 0.5, 3
-    if case.isdigit():
-        n = int(case)
-        ptr, ratio = [0, n], (0.05 if n == 100000 else 0.5)
-    elif case == 'duplicates':
-        n, ptr = 3000, [0, 1000, 3000]
-    elif case == 'all equal':
-        n, ptr = 700, [0, 700]
-    elif case == 'ratio 1':
-        n, ptr, ratio = 1500, [0, 600, 1500], 1.0
-    elif case == 'batch':
-        n, ptr = 40 * 700, [0, 0] + [700 * (i + 1) for i in range(40)] + [
-            28000]
+    if case == 'above tier S':
+        cap = max(k for k in fps.ITEMS if k * 4 <= fps.S_REGS)
+        d, ptr, ratio = 3, [0, fps.S_THREADS * cap + 1], 0.5
+        assert fps._f1_plan(ptr[-1], d).tier == 'C'
     else:
-        n, ptr, d = 5000, [0, 2000, 5000], 1
+        d, ptr, ratio = F1_CASES[case]
+    n = ptr[-1]
     pts = rng.normal(size=(n, d)).astype(np.float32)
     if case == 'duplicates':
         pts = np.repeat(pts[::3], 3, axis=0)[:n]
-    elif case == 'all equal':
+    elif case == 'halves equal':
+        pts[n // 2:] = pts[:n // 2]
+    elif case.startswith('all equal'):
         pts[:] = 0.25
     src = torch.tensor(pts, device=dev)
     before = ops.fps_kernel.launches
@@ -1413,6 +1435,42 @@ def test_f1_matches_plain(dev, case):
     ref = ops.fps(src.cpu(), ptr, ratio, seed=3)
     assert got.device == src.device and got.dtype == torch.int32
     assert torch.equal(got.cpu(), ref)
+
+
+# F1's latency floor runs in each tier's form: one block (tier S) and one
+# cluster (C, G) a cloud; each winner lies in its cloud's offered range.
+@pytest.mark.parametrize('n', [1024, 100000, 1000000])
+def test_f1_floor_runs(dev, n):
+    from pyg_lib_tpu_torch.ops.kernels import fps
+
+    clouds = np.array([[0, n, 200, 5], [n, n, 100, 0]])
+    plan = fps._f1_plan(n, 3)
+    out = fps.fps_floor(clouds, dev)
+    torch.cuda.synchronize()
+    offered = plan.threads * plan.cluster
+    assert out.shape == (300, ) and out[0] == 5 and out[200] == n
+    assert bool(((out[:200] >= 0) & (out[:200] < offered)).all())
+    assert bool(((out[200:] >= n) & (out[200:] < n + offered)).all())
+
+
+# A cluster whose blocks ask for more shared memory than a block may
+# hold (SMEM_BLOCK of dynamic shared memory beside the kernel's own
+# arrays): the runtime refuses the attribute in the occupancy query, and
+# the wrapper raises, with no launch and no other path. (An answer of 0
+# clusters raises too: tests/test_torch_fps.py.)
+def test_f1_refused_cluster_raises(dev, monkeypatch):
+    from pyg_lib_tpu_torch.ops.kernels import fps
+
+    monkeypatch.setattr(fps, 'SMEM_MAX', fps.SMEM_BLOCK)
+    n = fps.SMEM_BLOCK // 16 * 16  # 16 blocks of SMEM_BLOCK bytes at D=3
+    plan = fps._f1_plan(n, 3)
+    assert plan.tier == 'C' and plan.smem_bytes == fps.SMEM_BLOCK
+    before = ops.fps_kernel.launches
+    with pytest.raises(RuntimeError, match='F1 .fps.cu. occupancy query '
+                       'failed'):
+        ops.fps_kernel(torch.zeros((n, 3), device=dev),
+                       np.array([[0, n, 2, 0]]))
+    assert ops.fps_kernel.launches == before
 
 
 def test_f1_refuses_what_it_does_not_take(dev):
