@@ -30,14 +30,13 @@ bit.
 """
 
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from pyg_lib_tpu_torch import sampler
+from pyg_lib_tpu_torch import profiling, sampler
 from pyg_lib_tpu_torch.sampler.padding import (BudgetExceeded, bucket_ladder,
                                                budget_for,
                                                pad_hetero_sample_output,
@@ -45,6 +44,24 @@ from pyg_lib_tpu_torch.sampler.padding import (BudgetExceeded, bucket_ladder,
 from pyg_lib_tpu_torch.utils import _resolve_device
 
 __all__ = ['DistNeighborLoader', 'HeteroNeighborLoader', 'NeighborLoader']
+
+
+def _count_padding(pad, row: np.ndarray, nodes: int, edges: int,
+                   node_slots: int, edge_slots: int, **attrs) -> None:
+    """The ``sampler.pad`` span's counters of a padded batch: its real
+    nodes and edges against its slots and, when the span records, the
+    most edges (pad edges included) that read one source row of ``row``
+    (counted after the span, outside its time)."""
+    pad.attrs.update(nodes=int(nodes), node_slots=int(node_slots),
+                     edges=int(edges), edge_slots=int(edge_slots), **attrs)
+    if pad.recording:
+        pad.attrs['max_row_reads'] = int(np.bincount(row).max())
+
+
+def _phase_ms(sample, pad, gather) -> Dict[str, float]:
+    """A batch's timing dict entries, from its three spans."""
+    return {'sample_ms': sample.seconds * 1e3, 'pad_ms': pad.seconds * 1e3,
+            'gather_ms': gather.seconds * 1e3}
 
 
 class _Pipeline:
@@ -67,8 +84,9 @@ class _Pipeline:
         self._epoch = 0
         self._in_epoch = None
         # The current epoch's batches in order: sample_ms, pad_ms and
-        # gather_ms (host clock, in the worker), num_nodes, num_edges,
-        # bucket, and on the card 'h2d', the copy's pair of CUDA events.
+        # gather_ms (the worker's spans sampler.sample, sampler.pad and
+        # loader.gather), num_nodes, num_edges, bucket, and on the card
+        # 'h2d', the copy's pair of CUDA events.
         self.timings: List[Dict] = []
 
     def __len__(self) -> int:
@@ -129,6 +147,13 @@ class _Pipeline:
                     v.record_stream(stream)
         return dev
 
+    def _job(self, seed_ids: np.ndarray, stream: int, traced: bool):
+        """``_make_batch`` in a worker, whose spans record if the consumer
+        saw a profiler session when it submitted the batch (a worker
+        thread cannot see one)."""
+        with profiling.recording(traced):
+            return self._make_batch(seed_ids, stream)
+
     def __iter__(self) -> Iterator[Dict]:
         epoch = self._epoch
         self._epoch += 1
@@ -151,8 +176,9 @@ class _Pipeline:
                 nonlocal submitted
                 if submitted < nb:
                     stream = self.rng + epoch * nb + submitted
-                    futures.append(pool.submit(self._make_batch,
-                                               batches[submitted], stream))
+                    futures.append((stream, pool.submit(
+                        self._job, batches[submitted], stream,
+                        torch.autograd._profiler_enabled())))
                     submitted += 1
 
             for _ in range(self.lookahead + 1):
@@ -161,7 +187,9 @@ class _Pipeline:
             while futures or staged is not None:
                 nxt = None
                 if futures:
-                    host, timing = futures.pop(0).result()
+                    stream, fut = futures.pop(0)
+                    with profiling.span('loader.starve', batch=stream):
+                        host, timing = fut.result()
                     submit_next()
                     self.timings.append(timing)
                     nxt = (self._put(host, timing, side), timing)
@@ -270,34 +298,33 @@ class NeighborLoader(_Pipeline):
                                        **self.sample_kwargs)
 
     def _make_batch(self, seed_ids: np.ndarray, stream: int):
-        t0 = time.perf_counter()
-        out = self._sample(seed_ids, stream)
-        t1 = time.perf_counter()
-        b, bi = self._pad_to_bucket(out, len(seed_ids),
-                                    self.sample_kwargs.get('disjoint', False))
-        t2 = time.perf_counter()
-        nodes = torch.from_numpy(b.node_id)
-        x = self._empty((nodes.shape[0], ) + tuple(self.x.shape[1:]),
-                        self.x.dtype)
-        torch.index_select(self.x, 0, nodes, out=x)
-        batch = {
-            'x': x,
-            'rowptr': self._host(b.rowptr),
-            'row': self._host(b.row),
-            'col': self._host(b.col),
-            'node_mask': self._host(b.node_mask),
-            'num_seeds': len(seed_ids),
-        }
-        if b.batch is not None:
-            batch['batch'] = self._host(b.batch)
-        if self.y is not None:
-            y = self._empty((nodes.shape[0], ) + tuple(self.y.shape[1:]),
-                            self.y.dtype)
-            batch['y'] = torch.index_select(self.y, 0, nodes, out=y)
-        t3 = time.perf_counter()
-        return batch, {'sample_ms': (t1 - t0) * 1e3,
-                       'pad_ms': (t2 - t1) * 1e3,
-                       'gather_ms': (t3 - t2) * 1e3,
+        with profiling.span('sampler.sample', batch=stream) as sample:
+            out = self._sample(seed_ids, stream)
+        with profiling.span('sampler.pad', batch=stream) as pad:
+            b, bi = self._pad_to_bucket(
+                out, len(seed_ids), self.sample_kwargs.get('disjoint', False))
+        _count_padding(pad, b.row, b.num_nodes, b.num_edges, *self.buckets[bi],
+                       bucket=bi)
+        with profiling.span('loader.gather', batch=stream) as gather:
+            nodes = torch.from_numpy(b.node_id)
+            x = self._empty((nodes.shape[0], ) + tuple(self.x.shape[1:]),
+                            self.x.dtype)
+            torch.index_select(self.x, 0, nodes, out=x)
+            batch = {
+                'x': x,
+                'rowptr': self._host(b.rowptr),
+                'row': self._host(b.row),
+                'col': self._host(b.col),
+                'node_mask': self._host(b.node_mask),
+                'num_seeds': len(seed_ids),
+            }
+            if b.batch is not None:
+                batch['batch'] = self._host(b.batch)
+            if self.y is not None:
+                y = self._empty((nodes.shape[0], ) + tuple(self.y.shape[1:]),
+                                self.y.dtype)
+                batch['y'] = torch.index_select(self.y, 0, nodes, out=y)
+        return batch, {**_phase_ms(sample, pad, gather),
                        'num_nodes': b.num_nodes, 'num_edges': b.num_edges,
                        'bucket': bi}
 
@@ -343,47 +370,45 @@ class HeteroNeighborLoader(_Pipeline):
         self.sample_kwargs = sample_kwargs
 
     def _make_batch(self, seed_ids: np.ndarray, stream: int):
-        t0 = time.perf_counter()
-        out = sampler.hetero_neighbor_sample(
-            self.rowptr_dict, self.col_dict, {self.seed_type: seed_ids},
-            self.num_neighbors_dict, rng=stream, **self.sample_kwargs)
-        t1 = time.perf_counter()
-        b = pad_hetero_sample_output(
-            out, self.node_budgets, self.max_edges,
-            csc=self.sample_kwargs.get('csc', False),
-            disjoint=self.sample_kwargs.get('disjoint', False))
-        t2 = time.perf_counter()
-        first = next(iter(self.x_dict.values()))
-        x = self._empty((b.num_flat_nodes, first.shape[1]), first.dtype)
-        for t, off in b.type_offset.items():
-            bt = self.node_budgets[t]
-            torch.index_select(self.x_dict[t], 0,
-                               torch.from_numpy(b.node_id[t]),
-                               out=x[off:off + bt])
-        batch = {
-            'x': x,
-            'row': self._host(b.row),
-            'col': self._host(b.col),
-            'rel_ptr': self._host(b.rel_ptr),
-            'edge_mask': self._host(b.edge_mask),
-            'node_mask': self._host(np.concatenate(
-                [b.node_mask[t] for t in b.type_offset])),
-            'num_seeds': len(seed_ids),
-        }
-        if b.batch and all(v is not None for v in b.batch.values()):
-            batch['batch'] = self._host(np.concatenate(
-                [b.batch[t] for t in b.type_offset]))
-        if self.y_dict is not None and self.seed_type in self.y_dict:
-            batch['y'] = self._host(self.y_dict[self.seed_type][b.node_id[
-                self.seed_type]])
-            batch['seed_offset'] = b.type_offset[self.seed_type]
-        t3 = time.perf_counter()
-        return batch, {'sample_ms': (t1 - t0) * 1e3,
-                       'pad_ms': (t2 - t1) * 1e3,
-                       'gather_ms': (t3 - t2) * 1e3,
-                       'num_nodes': int(sum(b.node_mask[t].sum()
-                                            for t in b.type_offset)),
-                       'num_edges': b.num_edges}
+        with profiling.span('sampler.sample', batch=stream) as sample:
+            out = sampler.hetero_neighbor_sample(
+                self.rowptr_dict, self.col_dict, {self.seed_type: seed_ids},
+                self.num_neighbors_dict, rng=stream, **self.sample_kwargs)
+        with profiling.span('sampler.pad', batch=stream) as pad:
+            b = pad_hetero_sample_output(
+                out, self.node_budgets, self.max_edges,
+                csc=self.sample_kwargs.get('csc', False),
+                disjoint=self.sample_kwargs.get('disjoint', False))
+        num_nodes = int(sum(b.node_mask[t].sum() for t in b.type_offset))
+        _count_padding(pad, b.row, num_nodes, b.num_edges, b.num_flat_nodes,
+                       self.max_edges)
+        with profiling.span('loader.gather', batch=stream) as gather:
+            first = next(iter(self.x_dict.values()))
+            x = self._empty((b.num_flat_nodes, first.shape[1]), first.dtype)
+            for t, off in b.type_offset.items():
+                bt = self.node_budgets[t]
+                torch.index_select(self.x_dict[t], 0,
+                                   torch.from_numpy(b.node_id[t]),
+                                   out=x[off:off + bt])
+            batch = {
+                'x': x,
+                'row': self._host(b.row),
+                'col': self._host(b.col),
+                'rel_ptr': self._host(b.rel_ptr),
+                'edge_mask': self._host(b.edge_mask),
+                'node_mask': self._host(np.concatenate(
+                    [b.node_mask[t] for t in b.type_offset])),
+                'num_seeds': len(seed_ids),
+            }
+            if b.batch and all(v is not None for v in b.batch.values()):
+                batch['batch'] = self._host(np.concatenate(
+                    [b.batch[t] for t in b.type_offset]))
+            if self.y_dict is not None and self.seed_type in self.y_dict:
+                batch['y'] = self._host(self.y_dict[self.seed_type][
+                    b.node_id[self.seed_type]])
+                batch['seed_offset'] = b.type_offset[self.seed_type]
+        return batch, {**_phase_ms(sample, pad, gather),
+                       'num_nodes': num_nodes, 'num_edges': b.num_edges}
 
 
 class DistNeighborLoader(NeighborLoader):

@@ -35,6 +35,7 @@ import json
 import time
 from typing import Callable, Optional, Union
 
+from pyg_lib_tpu_torch import profiling
 from pyg_lib_tpu_torch.profiling import Roofline, device_roofline
 
 __all__ = ['Metrics', 'Roofline', 'device_roofline']
@@ -74,12 +75,15 @@ class Metrics:
     # ------------------------------------------------------------ phases
     @contextlib.contextmanager
     def phase(self, name: str):
-        """Attribute the enclosed host wall time to ``name``."""
-        t0 = time.perf_counter()
+        """Attribute the enclosed host wall time to ``name``: a
+        ``phase.<name>`` span of :mod:`~pyg_lib_tpu_torch.profiling`, so
+        under ``profiling.trace()`` the phase is a range of the trace."""
+        s = profiling.span(f'phase.{name}')
         try:
-            yield
+            with s:
+                yield
         finally:
-            dt = time.perf_counter() - t0
+            dt = s.seconds
             self._win_phases[name] = self._win_phases.get(name, 0.0) + dt
             self._totals[name] = self._totals.get(name, 0.0) + dt
 

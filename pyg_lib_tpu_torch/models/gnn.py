@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pyg_lib_tpu_torch import profiling
 from pyg_lib_tpu_torch.ops import (FusedRangePlan, build_spmm_graph,
                                    build_weighted_fused_graph,
                                    scatter_softmax, scatter_sum,
@@ -125,15 +126,20 @@ def gcn_forward_spmm(params: Dict, x: torch.Tensor, graph) -> torch.Tensor:
     """Kipf-Welling GCN with symmetric degree normalisation, aggregating
     with the planned :func:`~pyg_lib_tpu_torch.ops.spmm` over ``graph``
     (a :class:`~pyg_lib_tpu_torch.ops.SpmmGraph`, whose ``deg`` supplies
-    the degrees)."""
+    the degrees). Each layer's phases are ``model.dense``,
+    ``model.aggregate`` and ``model.combine`` spans of
+    :mod:`~pyg_lib_tpu_torch.profiling` (``layer``)."""
     inv_sqrt = torch.rsqrt(graph.deg.to(x.dtype).clamp(min=1.0))[:, None]
     layers = params['layers']
     for i, layer in enumerate(layers):
-        h = x @ layer['w']
-        agg = spmm(h * inv_sqrt, graph)
-        x = agg * inv_sqrt + h * inv_sqrt**2 + layer['b']
-        if i < len(layers) - 1:
-            x = torch.relu(x)
+        with profiling.span('model.dense', layer=i):
+            h = x @ layer['w']
+        with profiling.span('model.aggregate', layer=i):
+            agg = spmm(h * inv_sqrt, graph)
+        with profiling.span('model.combine', layer=i):
+            x = agg * inv_sqrt + h * inv_sqrt**2 + layer['b']
+            if i < len(layers) - 1:
+                x = torch.relu(x)
     return x
 
 
@@ -184,20 +190,30 @@ def sage_forward(params: Dict, x: torch.Tensor, rowptr: torch.Tensor,
                  row: torch.Tensor, aggr: str = 'mean') -> torch.Tensor:
     """GraphSAGE with the mean or max aggregator over a CSR batch:
     ``segment_mean_csr`` (K3) or ``segment_max_csr`` (K4 over a cached
-    plan at 65,536 edges and more)."""
+    plan at 65,536 edges and more). Each layer's phases are
+    ``model.gather``, ``model.aggregate``, ``model.dense`` and
+    ``model.combine`` spans of :mod:`~pyg_lib_tpu_torch.profiling`
+    (``layer``)."""
     n = x.shape[0]
     layers = params['layers']
     for i, layer in enumerate(layers):
-        msgs = _gather_src(x, row)
-        if aggr == 'mean':
-            agg = segment_mean_csr(msgs, rowptr)[:n]
-        elif aggr == 'max':
-            agg = segment_max_csr(msgs, rowptr)[0][:n]
-        else:
-            raise ValueError(f'Unknown aggr: {aggr!r}')
-        x = x @ layer['w_self'] + agg @ layer['w_nbr'] + layer['b']
-        if i < len(layers) - 1:
-            x = torch.relu(x)
+        with profiling.span('model.gather', layer=i):
+            msgs = _gather_src(x, row)
+        with profiling.span('model.aggregate', layer=i):
+            if aggr == 'mean':
+                agg = segment_mean_csr(msgs, rowptr)[:n]
+            elif aggr == 'max':
+                agg = segment_max_csr(msgs, rowptr)[0][:n]
+            else:
+                raise ValueError(f'Unknown aggr: {aggr!r}')
+        # x is rebound at once: a name kept for the dense sum would hold
+        # its [N, F] rows until the next layer.
+        with profiling.span('model.dense', layer=i):
+            x = x @ layer['w_self'] + agg @ layer['w_nbr']
+        with profiling.span('model.combine', layer=i):
+            x = x + layer['b']
+            if i < len(layers) - 1:
+                x = torch.relu(x)
     return x
 
 

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from pyg_lib_tpu_torch import partition
+from pyg_lib_tpu_torch import partition, profiling
 from pyg_lib_tpu_torch.ops.kernels.plan_cache import _host, plan_key
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (POS_NONE,
                                                           segment_max_kernel)
@@ -211,6 +211,14 @@ def build_weighted_fused_graph(rowptr, col, num_cols: int, bounds,
     return SpmmGraph(fwd=fwd, bwd=bwd, deg=deg)
 
 
+def _gate(side: str, rowptr, col, ec: int) -> float:
+    """:func:`estimate_dedup`'s predicted gain of ``(rowptr, col)`` where
+    it decides an ``'auto'`` choice, timed as a ``plan.gate`` span."""
+    with profiling.setup_span('plan.gate', side=side) as s:
+        s.attrs['gain'] = gain = estimate_dedup(rowptr, col, ec=ec)[1]
+    return gain
+
+
 def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
                      num_cols: Optional[int] = None, range_split: int = 1,
                      range_fused: bool = False, dedup='off',
@@ -255,7 +263,20 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
     original's) dedup gain on it, the JAX package's gate, set on the TPU
     and kept for parity. Square adjacencies only; refuses
     ``with_edge_maps``.
+
+    The build is a ``plan.build`` span of :mod:`~pyg_lib_tpu_torch.
+    profiling`, and each gain estimate that decides an ``'auto'`` a
+    ``plan.gate`` span (``side``, ``gain``).
     """
+    with profiling.setup_span('plan.build'):
+        return _build_spmm_graph(rowptr, col, chunk, with_edge_maps,
+                                 num_cols, range_split, range_fused, dedup,
+                                 edge_weight, minmax, reorder, device)
+
+
+def _build_spmm_graph(rowptr, col, chunk, with_edge_maps, num_cols,
+                      range_split, range_fused, dedup, edge_weight, minmax,
+                      reorder, device) -> SpmmGraph:
     dedup = _mode(dedup, 'dedup')
     minmax = _mode(minmax, 'minmax')
     if reorder not in ('off', 'auto', 'on', False, True) and not isinstance(
@@ -286,8 +307,8 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
         adopt = True
         if reorder == 'auto':
             ecr = 512 if chunk == 'auto' else int(chunk)
-            g0 = estimate_dedup(rowptr, col, ec=ecr)[1]
-            g1 = estimate_dedup(rp_r, cl_r, ec=ecr)[1]
+            g0 = _gate('original', rowptr, col, ecr)
+            g1 = _gate('reordered', rp_r, cl_r, ecr)
             adopt = g1 >= max(1.3, 1.1 * g0)
         if adopt:
             rowptr, col = rp_r, cl_r
@@ -301,7 +322,7 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
     if minmax != 'off':
         rp_d, cl_d = dedup_pairs(rowptr, col)
         ec_mm, uc_mm = estimate_minmax_config(rp_d, cl_d)
-        if minmax == 'on' or estimate_dedup(rp_d, cl_d, ec=ec_mm)[1] >= 1.3:
+        if minmax == 'on' or _gate('minmax', rp_d, cl_d, ec_mm) >= 1.3:
             mm = build_dedup_minmax_plan(rp_d, cl_d, ec=ec_mm, uc=uc_mm,
                                          _pre_deduped=True, device=device)
             mm = mm._replace(num_edges=int(col.shape[0]))
@@ -322,15 +343,15 @@ def build_spmm_graph(rowptr, col, chunk=512, with_edge_maps: bool = False,
                                              return_order=True)
         t_weight = edge_weight[order] if edge_weight is not None else None
 
-        def side(rp, cl, w):
-            if dedup == 'auto' and estimate_dedup(rp, cl, ec=ec)[1] < 1.3:
+        def side(name, rp, cl, w):
+            if dedup == 'auto' and _gate(name, rp, cl, ec) < 1.3:
                 return build_spmm_plan(rp, cl, chunk=ec, device=device)
             return build_dedup_plan(rp, cl, ec=ec, edge_weight=w,
                                     device=device)
 
-        return SpmmGraph(fwd=side(rowptr, col, edge_weight),
-                         bwd=side(t_ptr, t_col, t_weight), deg=deg, mm=mm,
-                         perm=perm, rank=rank)
+        return SpmmGraph(fwd=side('fwd', rowptr, col, edge_weight),
+                         bwd=side('bwd', t_ptr, t_col, t_weight), deg=deg,
+                         mm=mm, perm=perm, rank=rank)
     if range_split > 1:
         if with_edge_maps:
             raise ValueError('range_split is incompatible with '
@@ -413,8 +434,10 @@ class _SpmmSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (_plan_apply_any(g.contiguous(), ctx.graph.bwd,
-                                ctx.precision), None, None)
+        with profiling.span('ops.spmm.backward',
+                            plan=type(ctx.graph.bwd).__name__):
+            return (_plan_apply_any(g.contiguous(), ctx.graph.bwd,
+                                    ctx.precision), None, None)
 
 
 def spmm(x: torch.Tensor, graph: SpmmGraph, reduce: str = 'sum',
@@ -432,7 +455,16 @@ def spmm(x: torch.Tensor, graph: SpmmGraph, reduce: str = 'sum',
     ``x`` must be on the graph's device. On a reordered graph ``x`` is
     permuted in and the output back out (each a gather whose gradient is
     the inverse gather).
+
+    The call is an ``ops.spmm`` span of :mod:`~pyg_lib_tpu_torch.
+    profiling`, and the backward of a sum an ``ops.spmm.backward`` one.
     """
+    with profiling.span('ops.spmm', plan=type(graph.fwd).__name__):
+        return _spmm(x, graph, reduce, precision)
+
+
+def _spmm(x: torch.Tensor, graph: SpmmGraph, reduce: str,
+          precision: Optional[str]) -> torch.Tensor:
     if precision not in (None, 'highest', 'bf16', 'int8'):
         raise ValueError(f"spmm precision must be None, 'highest', 'bf16' "
                          f"or 'int8', got {precision!r}")
@@ -704,7 +736,7 @@ def build_spmm_graph_sharded(rowptr, col, num_splits: int, chunk=512,
         rp_d, cl_d = dedup_pairs(rowptr, col)
         ec_mm, uc_mm = estimate_minmax_config(rp_d, cl_d)
         subs_d = _split_csrs(rp_d, cl_d, num_rows, num_splits)
-        if minmax == 'on' or estimate_dedup(rp_d, cl_d, ec=ec_mm)[1] >= 1.3:
+        if minmax == 'on' or _gate('minmax', rp_d, cl_d, ec_mm) >= 1.3:
             plans = [build_dedup_minmax_plan(s_rp, s_cl, ec=ec_mm, uc=uc_mm,
                                              _pre_deduped=True, device=device)
                      for s_rp, s_cl in subs_d]

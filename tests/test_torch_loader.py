@@ -5,9 +5,14 @@ batches bit for bit (probed buckets, explicit budgets, disjoint sampling,
 biased by ``edge_weight``, node-temporal with ``'last'``, several
 epochs), resume from ``state_dict`` at the same batches, and count their
 buckets alike. On the CPU the batches stay host tensors; on the card
-(``tests/test_torch_cuda.py``) they equal these.
+(``tests/test_torch_cuda.py``) they equal these. Under a profiler session
+the workers record each batch's phases as spans, with its padding's
+counters, and the consumer its waits; without one they record nothing.
 """
 
+import glob
+import json
+import os
 import sys
 import threading
 
@@ -16,7 +21,7 @@ import pytest
 import torch
 
 from pyg_lib_tpu import loader as jloader
-from pyg_lib_tpu_torch import loader
+from pyg_lib_tpu_torch import loader, profiling
 from pyg_lib_tpu_torch.sampler import _cpp
 from test_torch_sampler import H_COL, H_ROWPTR, graph
 
@@ -183,3 +188,91 @@ def test_loader_needs_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         loader.NeighborLoader(rowptr, col, x, y, np.arange(10), 5, [2],
                               max_nodes=64, max_edges=64)
+
+
+HETERO_X = {t: np.random.default_rng(2).normal(size=(n, 4)).astype(np.float32)
+            for t, n in (('paper', 120), ('author', 80), ('field', 15))}
+
+
+def span_loader(kind):
+    """A loader of 2 workers, and the slots of each batch's bucket."""
+    if kind == 'hetero':
+        budgets = {'paper': 512, 'author': 256, 'field': 128}
+        ldr = loader.HeteroNeighborLoader(
+            H_ROWPTR, H_COL, HETERO_X, None, 'paper', np.arange(0, 120, 4),
+            8, {k: [3, 2] for k in H_ROWPTR}, budgets, 2000, num_workers=2,
+            rng=4, device='cpu')
+        return ldr, lambda tm: (sum(budgets.values()), 2000)
+    rowptr, col, x, y = data(seed=6)
+    ldr = loader.NeighborLoader(rowptr, col, x, y, np.arange(0, 400, 2), 16,
+                                [5, 3], num_workers=2, rng=11, device='cpu')
+    return ldr, lambda tm: ldr.buckets[tm['bucket']]
+
+
+@pytest.mark.parametrize('kind', ['neighbor', 'hetero'])
+def test_loader_records_its_phases_only_under_a_session(kind, monkeypatch):
+    ldr, slots = span_loader(kind)
+    opened = []
+    monkeypatch.setattr(profiling, 'record_function',
+                        lambda name: opened.append(name))
+    profiling.clear_spans()
+    batches(ldr)  # no session: timings, and no span or range
+    assert profiling.spans() == [] and opened == []
+    monkeypatch.undo()
+    assert all(t['sample_ms'] >= 0 and t['gather_ms'] >= 0
+               for t in ldr.timings)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = batches(ldr)  # epoch 1
+    nb = len(ldr)
+    ids = [ldr.rng + nb + i for i in range(nb)]
+    by = {}
+    for s in profiling.spans():
+        by.setdefault(s.name, {})[s.attrs['batch']] = s
+    assert set(by) == {'sampler.sample', 'sampler.pad', 'loader.gather',
+                       'loader.starve'}
+    main = threading.get_native_id()
+    for name in ('sampler.sample', 'sampler.pad', 'loader.gather'):
+        assert sorted(by[name]) == ids, name
+        assert all(s.thread != main for s in by[name].values()), name
+    assert sorted(by['loader.starve']) == ids
+    assert {s.thread for s in by['loader.starve'].values()} == {main}
+    for i, (tm, batch) in enumerate(zip(ldr.timings, got)):
+        for key, name in (('sample_ms', 'sampler.sample'),
+                          ('pad_ms', 'sampler.pad'),
+                          ('gather_ms', 'loader.gather')):
+            assert tm[key] == by[name][ids[i]].seconds * 1e3, key
+        pad = by['sampler.pad'][ids[i]].attrs
+        node_slots, edge_slots = slots(tm)
+        assert pad['edges'] == tm['num_edges'] == int(
+            batch['edge_mask'].sum() if kind == 'hetero' else
+            batch['rowptr'][-1])
+        assert pad['nodes'] == tm['num_nodes']
+        assert (pad['node_slots'], pad['edge_slots']) == (
+            node_slots, edge_slots) == (len(batch['x']), len(batch['row']))
+        assert pad['max_row_reads'] == np.bincount(batch['row']).max()
+        if kind == 'neighbor':
+            assert pad['bucket'] == tm['bucket']
+
+
+def test_the_exported_trace_shows_the_workers_spans(tmp_path):
+    ldr, _ = span_loader('neighbor')
+    profiling.clear_spans()
+    with profiling.trace(str(tmp_path)) as d:
+        batches(ldr)
+    (path, ) = glob.glob(os.path.join(d, 'trace-*.json'))
+    with open(path) as fh:
+        events = json.load(fh)['traceEvents']
+    mine = [ev for ev in events if ev.get('cat') == 'program_span']
+    assert sorted({ev['name'] for ev in mine}) == [
+        'loader.gather', 'sampler.pad', 'sampler.sample']
+    assert len(mine) == 3 * len(ldr)
+    rows = {ev['tid'] for ev in mine}
+    assert threading.get_native_id() not in rows
+    named = {ev['tid'] for ev in events if ev.get('ph') == 'M'
+             and ev.get('name') == 'thread_name'
+             and ev['args']['name'].startswith('spans of thread')}
+    assert named == rows
+    # the consumer's waits are the profiler's own ranges
+    assert sum(ev.get('cat') == 'user_annotation'
+               and ev['name'] == 'loader.starve' for ev in events) == len(ldr)
