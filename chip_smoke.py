@@ -17,6 +17,15 @@ ogbn-mag's full published shape:
 * the CSR segment family: ``sage_forward`` [512, 512, 47] with
   ``aggr='mean'`` (K3) and ``aggr='max'`` (the planned K4) runs forward
   and backward on the uniform graph's CSR;
+* the padded gather's backward, G1 (``gather_rows_backward``, the
+  gradient of ``x[row.clamp(max=N-1)]``), runs wherever a gathered ``x``
+  needs a gradient: ``sage_forward``'s second layer (F=512), GIN,
+  PointNet++'s second level, the R-GCN mini-batches (B), paths A, P and
+  Q, the distribution's T and E and the GCN and GraphSAGE examples, and
+  each of them must launch it; it is held against its plain version (as
+  are the paths, under :func:`plain_kernels`) and timed on a batch
+  of the products bucket's shape (936,960 edge slots, 17.5% of them pads
+  on one row) at F=256 and F=100;
 * attention: a GAT [512, 512, 48] with 4 heads trains over chunked plans
   with edge maps on both graphs (K6 for the softmax, K1's ``msgs_padded``
   entry for the aggregation and the softmax backward's row sums);
@@ -318,6 +327,13 @@ PRODUCTS_DIMS, PRODUCTS_LR = [100, 256, 256, 47], 0.003
 PRODUCTS_BATCH, PRODUCTS_FANOUTS = 1024, [15, 10, 5]
 PRODUCTS_WARMUP, PRODUCTS_STEPS, PRODUCTS_PROFILED = 2, 5, 3
 PRODUCTS_RESUME = 2
+# G1's row: a padded batch of the products bucket (the sage-products
+# cell's, 1,024 seeds and fanouts [15, 10, 5]): its edge and node slots,
+# G1_PAD_SHARE of the entries pads (row = the node slots, clamped onto the
+# last row: the 17.3-17.7% the loader's batches carry), the others uniform
+# over the first G1_REAL node slots; timed at the model's widths G1_WIDTHS.
+G1_EDGE_SLOTS, G1_NODE_SLOTS, G1_REAL = 936_960, 937_984, 600_000
+G1_PAD_SHARE, G1_WIDTHS = 0.175, (256, 100)
 # Path Q, its temporal variant (examples/train_temporal_sage.py): the same
 # graph and model, node times uniform in [0, 100) (seed 3), each
 # neighbourhood time-sorted once, temporal_strategy='last'; one epoch of
@@ -354,7 +370,8 @@ COUNTERS = {'K1': ('spmm_chunked', 'launches'),
             'K7': ('fused_range_sum', 'launches'),
             'K1m': ('segment_sum_chunked', 'launches'),
             'K1p': ('spmm_chunked', 'piece_launches'),
-            'F1': ('fps_kernel', 'launches')}
+            'F1': ('fps_kernel', 'launches'),
+            'G1': ('gather_rows_backward', 'launches')}
 SOURCES = {
     'K1': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
     'K2': ('spmm_dedup.cu', 'pyg_lib_tpu/ops/pallas/spmm_dedup.py:527'),
@@ -374,6 +391,7 @@ SOURCES = {
     'K1m': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
     'K1p': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
     'F1': ('fps.cu', 'pyg_lib_tpu/ops/geometry.py:59'),
+    'G1': ('gather_rows.cu', 'pyg_lib_tpu/models/gnn.py:34'),
 }
 
 
@@ -1280,7 +1298,7 @@ def main():
                          (time.perf_counter() - t0) * 1e3)
         return res
 
-    sf_res = run_path('sage_forward mean/max', ('K3', 'K4'),
+    sf_res = run_path('sage_forward mean/max', ('K3', 'K4', 'G1'),
                       sage_forward_path)
     print('  sage_forward forward + backward ms: ' + ', '.join(
         f'{a} {r[2]:.3f}' for a, r in sf_res.items()), flush=True)
@@ -1698,7 +1716,7 @@ def main():
     torch.cuda.empty_cache()
 
     paths.restore()
-    print('K1, K1m, K3 and K7 launches on the main paths by width: '
+    print('K1, K1m, K3, K7 and G1 launches on the main paths by width: '
           + ', '.join(f'{kid} F={f} {n}'
                       for (kid, f), n in sorted(by_width.items())),
           flush=True)
@@ -1953,8 +1971,8 @@ def main():
 
     # K1, K7 and K1m at the main paths' other widths, on the same plans
     # (K1 and K7 at F=47 take the scalar branch).
-    for kid, f in sorted(k for k in by_width
-                         if k[1] != F_BENCH and k[0] != 'K3'):
+    for kid, f in sorted(k for k in by_width if k[1] != F_BENCH
+                         and k[0] in ('K1', 'K7', 'K1m')):
         if kid == 'K1m':
             src = msgs[:, :f].contiguous()
             ms = cuda_ms(lambda: ops.segment_sum_chunked(src, g_u.fwd))
@@ -1964,6 +1982,17 @@ def main():
                                         g_uf.fwd))
         print(f'  {kid} F={f} f32 ({by_width[kid, f]} launches on the main '
               f'paths): {ms:.3f} ms', flush=True)
+    # G1 on a batch of the products bucket's shape (paths P and Q, and the
+    # benchmark's sage-products cell), with its launches on the main paths;
+    # its row is F=256's, F=100's beside it.
+    del msgs, xb
+    torch.cuda.empty_cache()
+    g1, errs['G1'] = g1_rows(dev)
+    rows.append(dict(
+        g1[G1_WIDTHS[0]], name='G1', route='cuda',
+        source=f'pyg_lib_tpu_torch/csrc/{SOURCES["G1"][0]}',
+        replaces=SOURCES['G1'][1], launches=launches['G1'],
+        **{f'f{f}': g1[f] for f in G1_WIDTHS[1:]}))
     # K1's pieces, timed by the sharded process over the huge power-law
     # graph's hub rows.
     rows.append(dict(sharded['row'], launches=launches['K1p']))
@@ -2008,12 +2037,13 @@ def child(flag, result):
 class Paths:
     """Runs the main paths, each with every launch count set to 0 just
     before it and read just after; sums the launches (``launches``) and
-    K1's, K1m's, K3's and K7's launches by width (``by_width``; and path
-    by path, ``by_path``), read off their C entry points while it is
+    K1's, K1m's, K3's, K7's and G1's launches by width (``by_width``; and
+    path by path, ``by_path``), read off their C entry points while it is
     installed (the wrappers' counters are the launch counts)."""
 
     def __init__(self):
         from pyg_lib_tpu_torch import _build
+        from pyg_lib_tpu_torch.ops.kernels import gather_rows as g1_mod
         from pyg_lib_tpu_torch.ops.kernels import segment_csr as k3_mod
         from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
         from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
@@ -2024,10 +2054,12 @@ class Paths:
         self.tallies = [ByWidth(k1_mod._k1_lib(), 8,
                                 lambda a: 'K1' if a[2] else 'K1m'),
                         ByWidth(k7_mod._k7_lib(), 12, lambda a: 'K7'),
-                        ByWidth(k3_mod._k3_lib(), 6, lambda a: 'K3')]
+                        ByWidth(k3_mod._k3_lib(), 6, lambda a: 'K3'),
+                        ByWidth(g1_mod._lib(), 7, lambda a: 'G1')]
         self.entries = [('spmm_chunked', 'pygt_spmm_chunked'),
                         ('spmm_range_fused', 'pygt_spmm_range_fused'),
-                        ('segment_csr', 'pygt_segment_sum_csr')]
+                        ('segment_csr', 'pygt_segment_sum_csr'),
+                        ('gather_rows', 'pygt_gather_rows_backward')]
         for (lib, fn), tally in zip(self.entries, self.tallies):
             setattr(_build.load(lib), fn, tally)
 
@@ -2729,7 +2761,7 @@ def mag_minibatch(dev, run_path, num_nodes, rowptr_d, col_d):
         return ms, losses, peak, prof
 
     ms, losses, peak, (busy, wall, top) = run_path(
-        'R-GCN mini-batch (ogbn-mag)', (), path,
+        'R-GCN mini-batch (ogbn-mag)', ('G1', ), path,
         engine=('hetero_neighbor_sample', ))
     t = loader.timings
     mean = lambda v: sum(v) / len(v)
@@ -3300,10 +3332,11 @@ def sharded_main():
 
 
 def plain_kernels():
-    """A context in which the port's ops run F1, K3, K4 and, under
+    """A context in which the port's ops run F1, K3, K4, G1 and, under
     ``spmm``, K1, K2/K2h and K5 through their plain versions on the card
-    (all but F1 ``BLOCK`` columns at a time): the models' and ``spmm``'s
-    plain computation, permutations and autograd as they are."""
+    (K3, K4, K1, K2/K2h and K5 ``BLOCK`` columns at a time): the models'
+    and ``spmm``'s plain computation, permutations and autograd as they
+    are."""
     import contextlib
     from unittest import mock
 
@@ -3322,7 +3355,7 @@ def plain_kernels():
     # The modules, not the ops of their names that the package exports.
     mods = {m: sys.modules[f'pyg_lib_tpu_torch.ops.{m}'] for m in (
         'geometry', 'segment_csr', 'spmm', 'kernels.spmm_chunked',
-        'kernels.spmm_dedup')}
+        'kernels.spmm_dedup', 'kernels.gather_rows')}
     stack = contextlib.ExitStack()
     for mod, name, plain in (
             ('geometry', 'fps_kernel', ops.fps_plain),
@@ -3337,7 +3370,9 @@ def plain_kernels():
             ('kernels.spmm_chunked', 'spmm_chunked',
              plain_sum_of(ops.spmm_chunked_plain)),
             ('kernels.spmm_dedup', 'dedup_sum',
-             plain_sum_of(ops.dedup_sum_plain))):
+             plain_sum_of(ops.dedup_sum_plain)),
+            ('kernels.gather_rows', 'gather_rows_backward',
+             ops.gather_rows_backward_plain)):
         stack.enter_context(mock.patch.object(mods[mod], name, plain))
     return stack
 
@@ -3643,14 +3678,14 @@ def geometry_paths(dev, run_path, rp, cl):
     models = {
         'GIN': (_Module({'gin': init_gin(GIN_DIMS, 2, gen, dev),
                          'head': _init_mlp([GIN_DIMS[-1], GIN_CLASSES], gen,
-                                           dev)}), gin_loss, ('K3', ),
+                                           dev)}), gin_loss, ('K3', 'G1'),
                 GIN_LR),
         'PointNet++': (_Module({
             'sa': [init_pointnet_sa(fin, dims, gen, dev)
                    for _, _, fin, dims in SA_LEVELS],
             'glob': _init_mlp(GLOBAL_MLP, gen, dev),
-            'head': _init_mlp(PN_HEAD, gen, dev)}), pn_loss, ('F1', 'K4'),
-            POINT_LR),
+            'head': _init_mlp(PN_HEAD, gen, dev)}), pn_loss,
+            ('F1', 'K4', 'G1'), POINT_LR),
         'DGCNN': (_Module({'conv': init_edgeconv(DGCNN_DIMS, 1, gen, dev),
                            'head': _init_mlp(DGCNN_HEAD, gen, dev)}),
                   dg_loss, (), POINT_LR)}
@@ -3708,11 +3743,12 @@ def geometry_paths(dev, run_path, rp, cl):
             ref, _ = relu_signs(lambda: dg_loss(
                 cpu.params(), pos.cpu(), knn_idx.cpu(), labels.cpu()),
                                 signs)
+            refs = torch.autograd.grad(ref, leaves_ref)
         else:
             leaves_ref = leaves
-            with plain_kernels():
+            with plain_kernels():  # G1's plain version runs in backward
                 ref, _ = relu_signs(lambda: loss_fn(model0.params()), signs)
-        refs = torch.autograd.grad(ref, leaves_ref)
+                refs = torch.autograd.grad(ref, leaves_ref)
         del signs
         against = 'the CPU' if name == 'DGCNN' else 'the plain path'
         close(f'{name} loss against {against}', loss.detach().cpu(),
@@ -3911,6 +3947,79 @@ def k3_row(label, msgs, ptr, f):
     return r
 
 
+def g1_rows(dev):
+    """G1 (``gather_rows_backward``) on a batch of the products bucket's
+    shape (``G1_*``): at each of ``G1_WIDTHS`` in f32, and at the first
+    in bf16, held against its plain version within the sum bound and
+    against itself bit for bit (two calls); at each f32 width timed beside
+    its plain version, ``index_add_`` (atomics) and its bound. At the pad
+    row, read by some 164,000 entries, the bound is about 1.3 a column, so
+    one term dropped or added twice exceeds it in about a fifth of the
+    columns; at a real row, of one to a few terms, in nearly every one.
+    Returns ``{f: row}`` and the largest error."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    row = torch.randint(0, G1_REAL, (G1_EDGE_SLOTS, ), generator=gen,
+                        device=dev)
+    pad = torch.rand(G1_EDGE_SLOTS, generator=gen, device=dev) < G1_PAD_SHARE
+    idx = row.masked_fill_(pad, G1_NODE_SLOTS).clamp_(max=G1_NODE_SLOTS - 1)
+    n, rows, worst = G1_NODE_SLOTS, {}, 0.0
+    for f, dtype in [*((f, torch.float32) for f in G1_WIDTHS),
+                     (G1_WIDTHS[0], torch.bfloat16)]:
+        label = f'G1 products bucket F={f} {str(dtype)[6:]}'
+        g = torch.randn((G1_EDGE_SLOTS, f), generator=gen,
+                        device=dev).to(dtype)
+        got = ops.gather_rows_backward(g, idx, n)
+        same = torch.equal(got, ops.gather_rows_backward(g, idx, n))
+        ref = ops.gather_rows_backward_plain(g.float(), idx, n)
+        mag = ops.gather_rows_backward_plain(g.float().abs(), idx, n)
+        err = (got.float() - ref).abs()
+        tol = SUM_RTOL * mag + SUM_ATOL
+        if dtype == torch.bfloat16:
+            tol += 2.0**-8 * ref.abs()
+        e = float(err.max())
+        worst = max(worst, e)
+        print(f'  {label}: max_abs_err {e:.3g} (tolerance {SUM_RTOL:g} * '
+              f'sum|terms| + {SUM_ATOL:g}'
+              f'{" + 2^-8 |plain|" if dtype == torch.bfloat16 else ""}); '
+              f'two calls {"equal" if same else "DIFFER"} bit for bit',
+              flush=True)
+        if not torch.isfinite(got).all() or bool((err > tol).any()):
+            raise AssertionError(f'{label} disagrees with its plain version')
+        if not same:
+            raise AssertionError(f'{label}: two calls differ')
+        del got, ref, mag, err, tol
+        if dtype != torch.float32:
+            continue
+        nbytes = (G1_EDGE_SLOTS * (f * 4 + 8) + n * f * 4 + (n + 1) * 8)
+        flops = G1_EDGE_SLOTS * f
+        r = rows[f] = {
+            'max_abs_err': e,
+            'ms': cuda_ms(lambda: ops.gather_rows_backward(g, idx, n)),
+            'plain_ms': cuda_ms(
+                lambda: ops.gather_rows_backward_plain(g, idx, n), iters=3),
+            'bound_ms': max(nbytes / HBM_BYTES_PER_S,
+                            flops / F32_FLOPS) * 1e3,
+            'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >=
+                         flops / F32_FLOPS else 'operations'),
+            'library_ms': cuda_ms(lambda: torch.zeros(
+                (n, f), device=dev).index_add_(0, idx, g))}
+        _, _, top = device_time_by_kernel(
+            lambda: ops.gather_rows_backward(g, idx, n))
+        print(f'  {label}: {r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} '
+              f'ms, index_add_ {r["library_ms"]:.3f} ms, bound '
+              f'{r["bound_ms"]:.3f} ms ({r["bound_by"]}: '
+              f'{nbytes / 1e9:.3f} GB; {G1_EDGE_SLOTS} entries, '
+              f'{int(pad.sum())} pads, {n} rows); one call by kernel (ms): '
+              + '; '.join(f'{name} {t:.3f}' for name, t in top), flush=True)
+        del g
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def reddit_path(dev, run_path):
     """Path A: GraphSAGE [602, 256, 41] (mean) trains with Adam on Reddit's
     shape in batches of 1,024 seeds, fanouts [25, 10], from the port's
@@ -3963,7 +4072,7 @@ def reddit_path(dev, run_path):
         return ms, [float(v) for v in losses], peak, busy, wall, top
 
     ms, losses, peak, busy, wall, top = run_path(
-        'Reddit GraphSAGE mini-batch', ('K3', ), path,
+        'Reddit GraphSAGE mini-batch', ('K3', 'G1'), path,
         engine=('neighbor_sample', ))
     timed = ms[REDDIT_WARMUP:]
     print(f'  Reddit step (mean of {len(timed)} after {REDDIT_WARMUP}): '
@@ -3987,9 +4096,9 @@ def reddit_path(dev, run_path):
     params, leaves = model.params(), list(model.parameters())
     loss, signs = relu_signs(lambda: seed_loss(params, batch))
     grads = torch.autograd.grad(loss, leaves)
-    with plain_kernels():
+    with plain_kernels():  # G1's plain version runs in backward
         ref, _ = relu_signs(lambda: seed_loss(params, batch), replay=signs)
-    refs = torch.autograd.grad(ref, leaves)
+        refs = torch.autograd.grad(ref, leaves)
     close('Reddit GraphSAGE loss', loss.detach()[None], ref.detach()[None])
     for (name, _), g, r in zip(model.named_parameters(), grads, refs):
         close(f'  Reddit GraphSAGE grad {name}', g, r)
@@ -4442,7 +4551,7 @@ def products_path(dev, run_path):
         return ms, [float(v) for v in losses], peak, busy, wall, top, resumed
 
     ms, losses, peak, busy, wall, top, resumed = run_path(
-        'ogbn-products GraphSAGE (weighted, disjoint)', ('K3', ), path,
+        'ogbn-products GraphSAGE (weighted, disjoint)', ('K3', 'G1'), path,
         engine=('neighbor_sample', ))
     timed = ms[PRODUCTS_WARMUP:]
     mean = sum(timed) / len(timed)
@@ -4481,9 +4590,9 @@ def products_path(dev, run_path):
     params, leaves = model.params(), list(model.parameters())
     loss, signs = relu_signs(lambda: seed_loss(params, batch))
     grads = torch.autograd.grad(loss, leaves)
-    with plain_kernels():
+    with plain_kernels():  # G1's plain version runs in backward
         ref, _ = relu_signs(lambda: seed_loss(params, batch), replay=signs)
-    refs = torch.autograd.grad(ref, leaves)
+        refs = torch.autograd.grad(ref, leaves)
     close('ogbn-products GraphSAGE loss', loss.detach()[None],
           ref.detach()[None])
     for (name, _), g, r in zip(model.named_parameters(), grads, refs):
@@ -4549,7 +4658,7 @@ def temporal_path(dev, run_path, data):
         return ms, [float(v) for v in losses], busy, wall, top, peak
 
     ms, losses, busy, wall, top, peak = run_path(
-        'ogbn-products temporal GraphSAGE', ('K3', ), path,
+        'ogbn-products temporal GraphSAGE', ('K3', 'G1'), path,
         engine=('neighbor_sample', ))
     print(f'  ogbn-products temporal: neighbourhoods time-sorted on the '
           f'card in {t_sort:.2f} s; buckets {loader.buckets} probed in '
@@ -4579,28 +4688,29 @@ def temporal_path(dev, run_path, data):
 
 def examples_path(dev, run_path):
     """The last four examples' ``main`` on the card, ``EXAMPLE_STEPS``
-    epochs or steps each: full-batch GCN (K3), the planned GCN (K1),
-    weighted-disjoint and temporal GraphSAGE (K3, the C++ engine). Each
-    loss must fall."""
+    epochs or steps each: full-batch GCN (K3, G1), the planned GCN (K1),
+    weighted-disjoint and temporal GraphSAGE (K3, G1, the C++ engine).
+    Each loss must fall."""
     from pyg_lib_tpu_torch.examples import (train_gcn,
                                             train_gcn_fullgraph_spmm,
                                             train_sage_weighted_disjoint,
                                             train_temporal_sage)
 
     for name, need, engine, call in (
-            ('train_gcn', 'K3', (), lambda: train_gcn.main(
+            ('train_gcn', ('K3', 'G1'), (), lambda: train_gcn.main(
                 epochs=EXAMPLE_STEPS, verbose=False, device=dev)),
-            ('train_gcn_fullgraph_spmm', 'K1', (),
+            ('train_gcn_fullgraph_spmm', ('K1', ), (),
              lambda: train_gcn_fullgraph_spmm.main(
                  epochs=EXAMPLE_STEPS, verbose=False, device=dev)),
-            ('train_sage_weighted_disjoint', 'K3', ('neighbor_sample', ),
+            ('train_sage_weighted_disjoint', ('K3', 'G1'),
+             ('neighbor_sample', ),
              lambda: train_sage_weighted_disjoint.main(
                  steps=EXAMPLE_STEPS, verbose=False, device=dev)),
-            ('train_temporal_sage', 'K3', ('neighbor_sample', ),
+            ('train_temporal_sage', ('K3', 'G1'), ('neighbor_sample', ),
              lambda: train_temporal_sage.main(
                  steps=EXAMPLE_STEPS, verbose=False, device=dev))):
         t0 = time.perf_counter()
-        acc, losses = run_path(f'example {name}', (need, ), call,
+        acc, losses = run_path(f'example {name}', need, call,
                                engine=engine)
         print(f'  example {name}: {len(losses)} steps, loss {losses[0]:.4f}'
               f' -> {losses[-1]:.4f}, test accuracy {acc:.3f} '
@@ -4689,9 +4799,10 @@ def sync(dev):
 
 
 def rank_setup(cfg):
-    """A rank's start: TF32 off, and on the card K3's C entry point
-    replaced by a :class:`ByWidth` tally (its calls by width). Returns the
-    rank's device and the tally (``None`` on the CPU)."""
+    """A rank's start: TF32 off, and on the card K3's and G1's C entry
+    points replaced by :class:`ByWidth` tallies (their calls by width).
+    Returns the rank's device and the tallies by kernel (``None`` on the
+    CPU)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4700,16 +4811,21 @@ def rank_setup(cfg):
     tally = None
     if dev.type == 'cuda':
         from pyg_lib_tpu_torch import _build
+        from pyg_lib_tpu_torch.ops.kernels import gather_rows as g1_mod
         from pyg_lib_tpu_torch.ops.kernels import segment_csr as k3_mod
 
-        tally = ByWidth(k3_mod._k3_lib(), 6, lambda a: 'K3')
-        setattr(_build.load('segment_csr'), 'pygt_segment_sum_csr', tally)
+        tally = {'K3': ByWidth(k3_mod._k3_lib(), 6, lambda a: 'K3'),
+                 'G1': ByWidth(g1_mod._lib(), 7, lambda a: 'G1')}
+        setattr(_build.load('segment_csr'), 'pygt_segment_sum_csr',
+                tally['K3'])
+        setattr(_build.load('gather_rows'), 'pygt_gather_rows_backward',
+                tally['G1'])
     return dev, tally
 
 
 def k3_start(dev, tally):
-    """Set the rank's K3 counts and its peak memory to 0 (just before a
-    main path)."""
+    """Set the rank's K3 and G1 counts and its peak memory to 0 (just
+    before a main path)."""
     import torch
 
     from pyg_lib_tpu_torch import ops
@@ -4718,23 +4834,27 @@ def k3_start(dev, tally):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     ops.segment_sum_csr_kernel.launches = 0
-    if tally is not None:
-        tally.counts.clear()
+    ops.gather_rows_backward.launches = 0
+    for t in (tally or {}).values():
+        t.counts.clear()
 
 
 def k3_read(dev, tally):
-    """The rank's K3 launches since :func:`k3_start`, by width too, and
-    its peak memory in GiB."""
+    """The rank's K3 and G1 launches since :func:`k3_start`, by width too,
+    and its peak memory in GiB."""
     import torch
 
     from pyg_lib_tpu_torch import ops
 
-    widths = [] if tally is None else [
-        [f, n] for (_, f), n in sorted(tally.counts.items())]
+    def widths(kid):
+        return [] if tally is None else [
+            [f, n] for (_, f), n in sorted(tally[kid].counts.items())]
+
     peak = (torch.cuda.max_memory_allocated(dev) / 2**30
             if dev.type == 'cuda' else 0.0)
-    return {'k3': ops.segment_sum_csr_kernel.launches, 'widths': widths,
-            'peak': peak}
+    return {'k3': ops.segment_sum_csr_kernel.launches,
+            'widths': widths('K3'), 'g1': ops.gather_rows_backward.launches,
+            'g1_widths': widths('G1'), 'peak': peak}
 
 
 def digest(params):
@@ -4932,16 +5052,17 @@ def dist_rank(rank, world, cfg):
 
 
 def report_ranks(label, ranks):
-    """The ranks' step ms, peaks, K3 launches, the collectives of the last
-    step and rank 0's profile of it, printed; checks that the ranks'
-    losses and parameters agree after every step."""
+    """The ranks' step ms, peaks, K3 and G1 launches, the collectives of
+    the last step and rank 0's profile of it, printed; checks that the
+    ranks' losses and parameters agree after every step."""
     for i, r in enumerate(ranks):
         c = r['coll_ms']
         print(f'  {label} rank {i}: step ms '
               f'{[round(v, 1) for v in r["ms"]]} (the last with the '
               f'collectives timed{", profiled" if i == 0 else ""}); peak '
               f'{r["peak"]:.2f} GiB; K3 launches {r["k3"]} (by width '
-              f'{r["widths"]}); last step\'s collectives ms: all-gather '
+              f'{r["widths"]}), G1 {r["g1"]} (by width {r["g1_widths"]}); '
+              f'last step\'s collectives ms: all-gather '
               f'{c["all_gather"]:.1f}, reduce-scatter '
               f'{c["reduce_scatter"]:.1f}, ring send/recv {c["ring"]:.1f}, '
               f'gradient all-reduce {c["all_reduce"]:.1f}, host staging '
@@ -4964,9 +5085,13 @@ def report_ranks(label, ranks):
             raise AssertionError(f'{label}: the ranks\' losses differ')
 
 
-def need_k3(label, ranks, cfg):
-    if cfg['device'] == 'cuda' and any(r['k3'] <= 0 for r in ranks):
-        raise AssertionError(f'K3 never launched in a rank of {label}')
+def need_k3(label, ranks, cfg, g1=False):
+    """K3, and G1 too with ``g1``, must launch in every rank on the
+    card."""
+    for kid in ('k3', 'g1') if g1 else ('k3', ):
+        if cfg['device'] == 'cuda' and any(r[kid] <= 0 for r in ranks):
+            raise AssertionError(f'{kid.upper()} never launched in a rank '
+                                 f'of {label}')
 
 
 def gcn_dist_data(dev, cfg):
@@ -5138,7 +5263,7 @@ def dryrun_against_plain(world, dev, tally):
     :func:`plain_kernels`: the errors of its train step's loss, its
     protocol batch's loss and the step's gradients against the plain
     run's, with their tolerances (``GCN_RTOL`` of the plain run's
-    largest). The plain run must launch no K3."""
+    largest). The plain run must launch no K3 and no G1."""
     from pyg_lib_tpu_torch.entry import dryrun_multichip
 
     k3_start(dev, tally)
@@ -5147,8 +5272,9 @@ def dryrun_against_plain(world, dev, tally):
     k3_start(dev, tally)
     with plain_kernels():
         ref = dryrun_multichip(world, device=dev)
-    if k3_read(dev, tally)['k3']:
-        raise AssertionError('K3 launched under plain_kernels')
+    plain = k3_read(dev, tally)
+    if plain['k3'] or plain['g1']:
+        raise AssertionError('K3 or G1 launched under plain_kernels')
     keys = ('loss', 'dist_loss')
     out['loss_err'] = max(abs(got[k] - ref[k]) for k in keys)
     out['loss_tol'] = GCN_RTOL * max(abs(ref[k]) for k in keys)
@@ -5214,11 +5340,12 @@ def dist_nccl_rank(rank, world, cfg):
                 dev))
     (ref * cot).sum().backward()
     ref = ref.detach()
-    counts['k3'] += dry['k3']
-    widths = dict(dry['widths'])
-    for f, n in counts['widths']:
-        widths[f] = widths.get(f, 0) + n
-    counts['widths'] = [[f, n] for f, n in sorted(widths.items())]
+    for kid, key in (('k3', 'widths'), ('g1', 'g1_widths')):
+        counts[kid] += dry[kid]
+        widths = dict(dry[key])
+        for f, n in counts[key]:
+            widths[f] = widths.get(f, 0) + n
+        counts[key] = [[f, n] for f, n in sorted(widths.items())]
     return dict(counts, dry=dry, line=dry['line'], staged=staged,
                 halo_ms=halo_ms,
                 calls={k: v[1] for k, v in C.stats.items()},
@@ -5257,8 +5384,8 @@ def nccl_four_ranks():
 def dist_paths(dev, cfg):
     """NCCL's answer to four ranks, then paths H, T and E in four gloo
     ranks of the card (one start of the ranks), then N in one NCCL rank;
-    returns the child's result: K3's launches (in total and by width,
-    per path and rank) and K3's rows at H's and T's widths."""
+    returns the child's result: K3's and G1's launches (in total and by
+    width, per path and rank) and K3's rows at H's and T's widths."""
     import torch
 
     from pyg_lib_tpu_torch import parallel
@@ -5294,23 +5421,27 @@ def dist_paths(dev, cfg):
               f'pinned gather {h["gather_ms"]:.1f}, H2D {h["h2d_ms"]:.2f}; '
               f'nodes {h["nodes"]}', flush=True)
     report_ranks('T', rs)
-    need_k3('T', rs, cfg)
+    need_k3('T', rs, cfg, g1=True)
     first = check_sage_dist(dev, cfg, rs)
     rs = [r['E'] for r in ranks]
     print(f'E: {rs[0]["line"]} ({DIST_RANKS} ranks, 2 x 2 mesh, gloo; K3 '
-          f'launches per rank {[r["k3"] for r in rs]})', flush=True)
-    need_k3('E', rs, cfg)
+          f'launches per rank {[r["k3"] for r in rs]}, G1 '
+          f'{[r["g1"] for r in rs]})', flush=True)
+    need_k3('E', rs, cfg, g1=True)
     check_dryrun('E', rs)
 
     paths = {}
     for label, keys in (('H', ('H halo', 'H ring')), ('T', ('T', )),
                         ('E', ('E', ))):
-        p = paths[label] = {'per_rank': [], 'widths': {}}
+        p = paths[label] = {'per_rank': [], 'widths': {},
+                            'g1_per_rank': [], 'g1_widths': {}}
         for r in ranks:
             p['per_rank'].append(sum(r[k]['k3'] for k in keys))
+            p['g1_per_rank'].append(sum(r[k]['g1'] for k in keys))
             for k in keys:
-                for f, n in r[k]['widths']:
-                    p['widths'][f] = p['widths'].get(f, 0) + n
+                for kid in ('widths', 'g1_widths'):
+                    for f, n in r[k][kid]:
+                        p[kid][f] = p[kid].get(f, 0) + n
     if dev.type == 'cuda':
         t0 = time.perf_counter()
         (r, ) = parallel.spawn(dist_nccl_rank, 1, 'nccl', cfg, timeout=600)
@@ -5333,7 +5464,9 @@ def dist_paths(dev, cfg):
                 raise AssertionError(f'N: NCCL never ran {kind}')
         need_k3('N', [r], cfg)
         check_dryrun('N', [r['dry']])
-        paths['N'] = {'per_rank': [r['k3']], 'widths': dict(r['widths'])}
+        paths['N'] = {'per_rank': [r['k3']], 'widths': dict(r['widths']),
+                      'g1_per_rank': [r['g1']],
+                      'g1_widths': dict(r['g1_widths'])}
 
     # K3 at H's widths on rank 0's halo messages and at T's on rank 0's
     # first batch, each against its plain version and timed.
@@ -5358,11 +5491,14 @@ def dist_paths(dev, cfg):
             del msgs
     totals = {}
     for p in paths.values():
-        for f, n in p['widths'].items():
-            totals[f] = totals.get(f, 0) + n
+        for kid, key in (('K3', 'widths'), ('G1', 'g1_widths')):
+            for f, n in p[key].items():
+                totals[kid, f] = totals.get((kid, f), 0) + n
     print(f'dist K3 launches per path and rank: '
-          f'{ {k: p["per_rank"] for k, p in paths.items()} }', flush=True)
-    return {'by_width': [['K3', f, n] for f, n in sorted(totals.items())],
+          f'{ {k: p["per_rank"] for k, p in paths.items()} }; G1 '
+          f'{ {k: p["g1_per_rank"] for k, p in paths.items()} }', flush=True)
+    return {'by_width': [[kid, f, n]
+                         for (kid, f), n in sorted(totals.items())],
             'paths': paths, 'k3_h': rows_h, 'k3_t': rows_t}
 
 
@@ -5402,10 +5538,10 @@ def dist_main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f'dist paths: {time.perf_counter() - t0:.1f} s', flush=True)
-    total = sum(n for _, _, n in res['by_width'])
-    print(DIST_RESULT + json.dumps(dict(
-        res, launches={k: total if k == 'K3' else 0 for k in COUNTERS})),
-        flush=True)
+    launches = {k: 0 for k in COUNTERS}
+    for kid, _, n in res['by_width']:
+        launches[kid] += n
+    print(DIST_RESULT + json.dumps(dict(res, launches=launches)), flush=True)
 
 
 def work(plan, f):

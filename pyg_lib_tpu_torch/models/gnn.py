@@ -41,6 +41,7 @@ from pyg_lib_tpu_torch.ops import (FusedRangePlan, build_spmm_graph,
                                    segment_matmul, segment_max_csr,
                                    segment_mean_csr, segment_softmax_padded,
                                    segment_sum_csr, segment_sum_padded, spmm)
+from pyg_lib_tpu_torch.ops.kernels.gather_rows import gather_rows
 from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _build_padded_layout
 from pyg_lib_tpu_torch.ops.spmm import _forward_plan, _gathered_max_padded
 from pyg_lib_tpu_torch.utils import _resolve_device
@@ -60,7 +61,7 @@ __all__ = ['GAT', 'GATBatch', 'GCN', 'RGCN', 'RGCNBatch', 'SAGE',
 def _gather_src(x: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     # Pad edges carry row == N: clip; they sit past rowptr[-1], so the
     # segment op drops their messages.
-    return x[row.clamp(max=x.shape[0] - 1)]
+    return gather_rows(x, row)
 
 
 def _glorot(fan_in: int, fan_out: int, generator, device,

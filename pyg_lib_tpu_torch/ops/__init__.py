@@ -5,6 +5,7 @@ family, exact max/min, the attention primitives (``softmax_csr``, the
 padded-space softmax and sum, ``sddmm``), the scatter and sorted-COO
 families, the scatter composites, ``fused_scatter_reduce``, the
 segment/grouped matmul, the sampled binary ops, ``index_sort``, the
+padded-batch row gather ``gather_rows`` (its backward over kernel G1), the
 SplineCNN basis and weighting, and the point-cloud and clustering ops
 (``fps`` over kernel F1, ``knn``, ``radius``, ``nearest``,
 ``grid_cluster``, ``graclus_cluster``, ``edge_sample``)."""
@@ -17,6 +18,8 @@ from pyg_lib_tpu_torch.ops.geometry import (edge_sample, fps,
                                             knn, nearest, radius)
 from pyg_lib_tpu_torch.ops.index_sort import index_sort
 from pyg_lib_tpu_torch.ops.kernels.fps import fps_kernel, fps_plain
+from pyg_lib_tpu_torch.ops.kernels.gather_rows import (
+    gather_rows, gather_rows_backward, gather_rows_backward_plain)
 from pyg_lib_tpu_torch.ops.kernels.segment_csr import (segment_sum_csr_kernel,
                                                        segment_sum_csr_plain)
 from pyg_lib_tpu_torch.ops.kernels.segment_minmax import (segment_max_kernel,
@@ -80,7 +83,8 @@ __all__ = [
     'dedup_sum_plain', 'edge_sample', 'estimate_dedup',
     'estimate_minmax_config', 'fps', 'fps_kernel', 'fps_plain',
     'fused_range_apply', 'fused_range_plain', 'fused_range_sum',
-    'fused_scatter_reduce', 'gather_coo', 'gather_csr', 'graclus_cluster',
+    'fused_scatter_reduce', 'gather_coo', 'gather_csr', 'gather_rows',
+    'gather_rows_backward', 'gather_rows_backward_plain', 'graclus_cluster',
     'grid_cluster', 'grouped_matmul', 'index_sort', 'knn', 'nearest',
     'quantize_columns', 'radius', 'sampled_add', 'sampled_div', 'sampled_mul',
     'sampled_sub', 'scatter', 'scatter_add', 'scatter_log_softmax',

@@ -19,6 +19,7 @@ import torch
 
 from pyg_lib_tpu_torch import home, metrics, ops, profiling
 from pyg_lib_tpu_torch.models import gcn_forward_spmm, init_gcn
+from pyg_lib_tpu_torch.ops.kernels.gather_rows import gather_rows
 
 STEP_SPANS = ('model.dense', 'model.aggregate', 'model.combine', 'ops.spmm',
               'ops.spmm.backward')
@@ -211,3 +212,23 @@ def test_step_ranges_lie_inside_their_spans_on_the_trace_clock(
             type(plan).__name__}
     assert {s.parent for s in recorded if s.name == 'ops.spmm'} == {
         'model.aggregate'}
+
+
+def test_the_gather_backward_span_records_its_path_and_sizes():
+    # On the CPU the backward runs on the calling thread, so recording()
+    # reaches it; a CPU x keeps PyTorch's backward, the 'plain' path.
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((50, 8), generator=gen, requires_grad=True)
+    row = torch.randint(0, 51, (300,), generator=gen)  # 50: a pad entry
+    profiling.clear_spans()
+    with profiling.recording(True):
+        out = gather_rows(x, row)
+        assert profiling.spans() == []  # the forward records none
+        out.sum().backward()
+    sp = profiling.spans()
+    assert [(s.name, s.attrs) for s in sp] == [
+        ('ops.gather.backward', {'path': 'plain', 'edge_slots': 300,
+                                 'rows': 50})]
+    assert sp[0].seconds > 0
+    assert torch.equal(x.grad, torch.zeros_like(x).index_put_(
+        (row.clamp(max=49),), torch.ones(300, 8), accumulate=True))
