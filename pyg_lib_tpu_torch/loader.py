@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from pyg_lib_tpu_torch import profiling, sampler
+from pyg_lib_tpu_torch.sampler._cpp import EngineSample
 from pyg_lib_tpu_torch.sampler.padding import (BudgetExceeded, bucket_ladder,
                                                budget_for,
                                                pad_hetero_sample_output,
@@ -278,11 +279,16 @@ class NeighborLoader(_Pipeline):
 
     def _pad_to_bucket(self, out, num_seeds: int, disjoint: bool):
         """Pad into the smallest bucket that holds the batch; returns it
-        and the bucket's index."""
+        and the bucket's index. ``out`` is ``_sample``'s: an
+        ``EngineSample`` writes itself, a tuple goes through
+        ``pad_sample_output``."""
         for bi, (bn, be) in enumerate(self.buckets):
             try:
-                b = pad_sample_output(out, bn, be, num_seeds=num_seeds,
-                                      disjoint=disjoint)
+                if isinstance(out, EngineSample):
+                    b = out.pad(bn, be, num_seeds)
+                else:
+                    b = pad_sample_output(out, bn, be, num_seeds=num_seeds,
+                                          disjoint=disjoint)
             except BudgetExceeded:
                 continue
             with self._counts_lock:
@@ -292,10 +298,12 @@ class NeighborLoader(_Pipeline):
             f'sample exceeds even the worst-case bucket {self.buckets[-1]}')
 
     def _sample(self, seed_ids: np.ndarray, stream: int):
-        """The batch's sample, as ``sampler.neighbor_sample`` returns it."""
-        return sampler.neighbor_sample(self.rowptr, self.col, seed_ids,
-                                       self.num_neighbors, rng=stream,
-                                       **self.sample_kwargs)
+        """The batch's sample, as ``sampler.sample_for_padding`` returns
+        it: kept in the engine where its edges come in destination order
+        (``csc=True``), else ``sampler.neighbor_sample``'s tuple."""
+        return sampler.sample_for_padding(self.rowptr, self.col, seed_ids,
+                                          self.num_neighbors, rng=stream,
+                                          **self.sample_kwargs)
 
     def _make_batch(self, seed_ids: np.ndarray, stream: int):
         with profiling.span('sampler.sample', batch=stream) as sample:
@@ -303,6 +311,8 @@ class NeighborLoader(_Pipeline):
         with profiling.span('sampler.pad', batch=stream) as pad:
             b, bi = self._pad_to_bucket(
                 out, len(seed_ids), self.sample_kwargs.get('disjoint', False))
+        sample.attrs.update(path='padded' if isinstance(out, EngineSample)
+                            else 'tuple', edges=b.num_edges)
         _count_padding(pad, b.row, b.num_nodes, b.num_edges, *self.buckets[bi],
                        bucket=bi)
         with profiling.span('loader.gather', batch=stream) as gather:

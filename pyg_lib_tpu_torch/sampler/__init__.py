@@ -44,7 +44,7 @@ Rng = Union[None, int, np.random.Generator]
 __all__ = ['dist_neighbor_sample', 'hetero_neighbor_sample',
            'hetero_relabel_neighborhood', 'merge_sampler_outputs',
            'neighbor_sample', 'padding', 'random_walk',
-           'relabel_neighborhood', 'subgraph']
+           'relabel_neighborhood', 'sample_for_padding', 'subgraph']
 
 
 def _np(x):
@@ -63,6 +63,34 @@ def _use_cpp(impl: str) -> bool:
         raise ValueError(f"impl must be 'auto', 'cpp' or 'numpy', got "
                          f'{impl!r}')
     return impl != 'numpy'
+
+
+def _sample_kwargs(node_time, edge_time, seed_time, edge_weight, csc,
+                   replace, directed, disjoint, temporal_strategy,
+                   return_edge_id):
+    """:func:`neighbor_sample`'s options, checked as the JAX package
+    checks them."""
+    if (node_time is not None or edge_time is not None) and not disjoint:
+        raise ValueError(
+            'Temporal sampling needs to create disjoint subgraphs')
+    if node_time is not None and edge_time is not None:
+        raise ValueError(
+            'Only one of node-level or edge-level sampling is supported')
+    if edge_time is not None and seed_time is None:
+        raise ValueError('Seed time needs to be specified')
+    if temporal_strategy not in ('uniform', 'last'):
+        raise ValueError('No valid temporal strategy found')
+    if edge_weight is not None and (node_time is not None
+                                    or edge_time is not None):
+        raise ValueError('Biased temporal sampling not yet supported')
+    if not directed and disjoint:
+        raise ValueError(
+            'Undirected sampling cannot create disjoint subgraphs')
+    return dict(node_time=_np(node_time), edge_time=_np(edge_time),
+                seed_time=_np(seed_time), edge_weight=_np(edge_weight),
+                csc=csc, replace=replace, directed=directed,
+                disjoint=disjoint, temporal_strategy=temporal_strategy,
+                return_edge_id=return_edge_id)
 
 
 def neighbor_sample(rowptr, col, seed, num_neighbors: List[int],
@@ -85,33 +113,43 @@ def neighbor_sample(rowptr, col, seed, num_neighbors: List[int],
     sampling (``node_time``/``edge_time``) needs ``disjoint=True``.
     ``impl='auto'`` is ``'cpp'`` (not the JAX package's ``'auto'``).
     """
-    if (node_time is not None or edge_time is not None) and not disjoint:
-        raise ValueError(
-            'Temporal sampling needs to create disjoint subgraphs')
-    if node_time is not None and edge_time is not None:
-        raise ValueError(
-            'Only one of node-level or edge-level sampling is supported')
-    if edge_time is not None and seed_time is None:
-        raise ValueError('Seed time needs to be specified')
-    if temporal_strategy not in ('uniform', 'last'):
-        raise ValueError('No valid temporal strategy found')
-    if edge_weight is not None and (node_time is not None
-                                    or edge_time is not None):
-        raise ValueError('Biased temporal sampling not yet supported')
-    if not directed and disjoint:
-        raise ValueError(
-            'Undirected sampling cannot create disjoint subgraphs')
-    kw = dict(node_time=_np(node_time), edge_time=_np(edge_time),
-              seed_time=_np(seed_time), edge_weight=_np(edge_weight),
-              csc=csc, replace=replace, directed=directed, disjoint=disjoint,
-              temporal_strategy=temporal_strategy,
-              return_edge_id=return_edge_id)
+    kw = _sample_kwargs(node_time, edge_time, seed_time, edge_weight, csc,
+                        replace, directed, disjoint, temporal_strategy,
+                        return_edge_id)
     if _use_cpp(impl):
         return _cpp.neighbor_sample_cpp(
             _np(rowptr), _np(col), _np(seed), list(num_neighbors),
             rng_seed=_cpp.rng_seed_from(rng), **kw)
     return neighbor_sample_np(_np(rowptr), _np(col), _np(seed),
                               list(num_neighbors), rng=_rng(rng), **kw)
+
+
+def sample_for_padding(rowptr, col, seed, num_neighbors: List[int],
+                       node_time=None, edge_time=None, seed_time=None,
+                       edge_weight=None, csc: bool = False,
+                       replace: bool = False, directed: bool = True,
+                       disjoint: bool = False,
+                       temporal_strategy: str = 'uniform',
+                       return_edge_id: bool = True, rng: Rng = None,
+                       impl: str = 'auto'):
+    """:func:`neighbor_sample` (the same arguments and draws) for
+    :func:`padding.pad_sample_output`. Where the engine samples with
+    ``csc=True`` and ``directed=True``, its edges come in destination
+    order and the sample stays in the engine: a
+    :class:`~pyg_lib_tpu_torch.sampler._cpp.EngineSample`, whose
+    ``pad(max_nodes, max_edges, num_seeds)`` writes the padded batch with
+    no sort, byte for byte ``pad_sample_output``'s. Otherwise the tuple
+    of :func:`neighbor_sample`."""
+    kw = _sample_kwargs(node_time, edge_time, seed_time, edge_weight, csc,
+                        replace, directed, disjoint, temporal_strategy,
+                        return_edge_id)
+    if not (csc and directed and _use_cpp(impl)):
+        return neighbor_sample(rowptr, col, seed, num_neighbors, rng=rng,
+                               impl=impl, **kw)
+    del kw['csc'], kw['directed']
+    return _cpp.neighbor_sample_padded_cpp(
+        _np(rowptr), _np(col), _np(seed), list(num_neighbors),
+        rng_seed=_cpp.rng_seed_from(rng), **kw)
 
 
 def hetero_neighbor_sample(

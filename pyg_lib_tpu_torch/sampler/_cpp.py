@@ -10,7 +10,12 @@ numpy: the numpy specification runs only where a caller asks for it with
 
 ``calls`` counts the engine's calls by entry point, so a run can show
 that the engine, not numpy, drew its samples. The engine releases the GIL
-during each call (ctypes does), so threads that sample overlap.
+during each call (ctypes does), so threads that sample overlap; each call
+takes its working memory from a pool the engine keeps, so a thread that
+samples batch after batch touches no fresh pages.
+
+:func:`neighbor_sample_padded_cpp` keeps a sample inside the engine, for
+:meth:`EngineSample.pad` to write as the padded batch in one call.
 """
 
 import ctypes
@@ -20,18 +25,21 @@ from typing import List, Optional
 import numpy as np
 
 from pyg_lib_tpu_torch import _build
+from pyg_lib_tpu_torch.sampler.padding import BudgetExceeded, PaddedBatch
 
-__all__ = ['calls', 'edge_cut_cpp', 'get_lib', 'hetero_neighbor_sample_cpp',
-           'neighbor_sample_cpp', 'part_grow_cpp', 'part_refine_cpp',
+__all__ = ['EngineSample', 'calls', 'edge_cut_cpp', 'get_lib',
+           'hetero_neighbor_sample_cpp', 'neighbor_sample_cpp',
+           'neighbor_sample_padded_cpp', 'part_grow_cpp', 'part_refine_cpp',
            'random_walk_cpp', 'random_walk_pq_cpp', 'rng_seed_from',
            'set_num_threads', 'subgraph_cpp']
 
 # Engine calls by entry point (the loader's threads add to it too).
-calls = {name: 0 for name in ('neighbor_sample', 'hetero_neighbor_sample',
-                              'subgraph', 'random_walk', 'random_walk_pq',
-                              'part_grow', 'part_refine', 'edge_cut')}
+calls = {name: 0 for name in ('neighbor_sample', 'neighbor_sample_padded',
+                              'hetero_neighbor_sample', 'subgraph',
+                              'random_walk', 'random_walk_pq', 'part_grow',
+                              'part_refine', 'edge_cut')}
 _calls_lock = threading.Lock()
-_lib = None
+_lib = _held_lib = None
 
 
 def _count(name: str) -> None:
@@ -50,6 +58,10 @@ def _declare(lib) -> None:
         i32, i32, i32, i32, i32, u64]
     lib.pygt_result_sizes.argtypes = [ctypes.c_void_p, i64p]
     lib.pygt_result_copy.argtypes = [ctypes.c_void_p] + [i64p] * 7
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.pygt_result_pad.restype = i32
+    lib.pygt_result_pad.argtypes = [ctypes.c_void_p, i64, i64, i64p, i32p,
+                                    u8p, i32p, i32p, i32p, i64p, u8p]
     lib.pygt_result_free.argtypes = [ctypes.c_void_p]
     lib.pygt_hetero_sample.restype = ctypes.c_void_p
     lib.pygt_hetero_sample.argtypes = [
@@ -94,6 +106,19 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
+def _held() -> ctypes.PyDLL:
+    """The engine's library again, its calls holding the GIL: for a
+    result's small calls (its sizes, its per-hop counts, its free), which
+    take microseconds, where a call that lets the GIL go must wait to take
+    it back while other threads run Python."""
+    global _held_lib
+    if _held_lib is None:
+        held = ctypes.PyDLL(get_lib()._name)
+        _declare(held)
+        _held_lib = held
+    return _held_lib
+
+
 def set_num_threads(n: int) -> None:
     """Set the engine's OpenMP width at run time (``OMP_NUM_THREADS`` is
     read only when the library loads)."""
@@ -123,6 +148,39 @@ def _opt(a, dtype) -> Optional[np.ndarray]:
     return None if a is None else np.ascontiguousarray(a, dtype)
 
 
+def _sample(lib, entry: str, rowptr, col, seed, num_neighbors,
+            node_time=None, edge_time=None, seed_time=None, edge_weight=None,
+            replace=False, directed=True, disjoint=False,
+            temporal_strategy='uniform', return_edge_id=True,
+            distributed=False, rng_seed=0):
+    """The engine's handle of one sample (free it with
+    ``pygt_result_free``), counted in ``calls[entry]``."""
+    _count(entry)
+    rowptr, col, seed = _i64(rowptr), _i64(col), _i64(seed)
+    fanouts = _i64(num_neighbors)
+    ew = _opt(edge_weight, np.float64)
+    nt, et, st = (_opt(a, np.int64) for a in (node_time, edge_time,
+                                              seed_time))
+    handle = lib.pygt_neighbor_sample(
+        _ptr(rowptr), _ptr(col), len(rowptr) - 1, _ptr(seed), len(seed),
+        _ptr(fanouts), len(fanouts), _ptr(ew, ctypes.c_double), _ptr(nt),
+        _ptr(et), _ptr(st), int(replace), int(directed), int(disjoint),
+        int(temporal_strategy == 'last'), int(return_edge_id),
+        int(distributed), rng_seed & (2**64 - 1))
+    if not handle:
+        raise IndexError(
+            'neighbor_sample: seed id out of range [0, num_nodes), or '
+            'temporal sampling without disjoint=True')
+    return handle
+
+
+def _sizes(handle):
+    """Edges, nodes, edge ids, and the per-hop node and edge counts."""
+    sizes = np.zeros(5, np.int64)
+    _held().pygt_result_sizes(handle, _ptr(sizes))
+    return map(int, sizes)
+
+
 def neighbor_sample_cpp(rowptr: np.ndarray, col: np.ndarray,
                         seed: np.ndarray, num_neighbors: List[int],
                         node_time=None, edge_time=None, seed_time=None,
@@ -135,26 +193,13 @@ def neighbor_sample_cpp(rowptr: np.ndarray, col: np.ndarray,
     """The engine's neighbour sampler; returns the numpy specification's
     tuple (or the distributed triple with ``distributed=True``)."""
     lib = get_lib()
-    rowptr, col, seed = _i64(rowptr), _i64(col), _i64(seed)
-    fanouts = _i64(num_neighbors)
-    ew = _opt(edge_weight, np.float64)
-    nt, et, st = (_opt(a, np.int64) for a in (node_time, edge_time,
-                                              seed_time))
-    handle = lib.pygt_neighbor_sample(
-        _ptr(rowptr), _ptr(col), len(rowptr) - 1, _ptr(seed), len(seed),
-        _ptr(fanouts), len(fanouts), _ptr(ew, ctypes.c_double), _ptr(nt),
-        _ptr(et), _ptr(st), int(replace), int(directed), int(disjoint),
-        int(temporal_strategy == 'last'), int(return_edge_id),
-        int(distributed), rng_seed & (2**64 - 1))
-    _count('neighbor_sample')
-    if not handle:
-        raise IndexError(
-            'neighbor_sample: seed id out of range [0, num_nodes), or '
-            'temporal sampling without disjoint=True')
+    handle = _sample(lib, 'neighbor_sample', rowptr, col, seed,
+                     num_neighbors, node_time, edge_time, seed_time,
+                     edge_weight, replace, directed, disjoint,
+                     temporal_strategy, return_edge_id, distributed,
+                     rng_seed)
     try:
-        sizes = np.zeros(5, np.int64)
-        lib.pygt_result_sizes(handle, _ptr(sizes))
-        n_edges, n_nodes, n_eids, n_nph, n_eph = map(int, sizes)
+        n_edges, n_nodes, n_eids, n_nph, n_eph = _sizes(handle)
         rows = np.empty(n_edges, np.int64)
         cols = np.empty(n_edges, np.int64)
         eids = np.empty(n_eids, np.int64)
@@ -166,7 +211,7 @@ def neighbor_sample_cpp(rowptr: np.ndarray, col: np.ndarray,
                              _ptr(nodes), _ptr(batches), _ptr(nph),
                              _ptr(eph))
     finally:
-        lib.pygt_result_free(handle)
+        _held().pygt_result_free(handle)
     if distributed:
         # rows holds the cumulative node count after each hop; the seed
         # count goes first.
@@ -176,6 +221,96 @@ def neighbor_sample_cpp(rowptr: np.ndarray, col: np.ndarray,
     out_row, out_col = (cols, rows) if csc else (rows, cols)
     return (out_row, out_col, node_id, eids if return_edge_id else None,
             nph.tolist(), eph.tolist())
+
+
+class EngineSample:
+    """A directed sample that the engine keeps
+    (:func:`neighbor_sample_padded_cpp`): its edges come in destination
+    order, so :meth:`pad` writes the padded batch of ``csc=True`` straight
+    from the engine's arrays, in one call that releases the GIL, with no
+    sort. ``num_nodes``, ``num_edges``, ``nodes_per_hop`` and
+    ``edges_per_hop`` are the sample's counts. The engine's memory goes
+    back to its pool once a batch is written, or at :meth:`close`."""
+
+    def __init__(self, lib, handle, disjoint: bool, return_edge_id: bool):
+        held = _held()
+        self._lib, self._handle, self._free = lib, handle, \
+            held.pygt_result_free
+        self.disjoint, self.return_edge_id = disjoint, return_edge_id
+        self.num_edges, self.num_nodes, _, n_nph, n_eph = _sizes(handle)
+        nph = np.empty(n_nph, np.int64)
+        eph = np.empty(n_eph, np.int64)
+        held.pygt_result_copy(handle, None, None, None, None, None,
+                              _ptr(nph), _ptr(eph))
+        self.nodes_per_hop, self.edges_per_hop = nph.tolist(), eph.tolist()
+
+    def pad(self, max_nodes: int, max_edges: int,
+            num_seeds: int) -> PaddedBatch:
+        """The sample padded to ``max_nodes`` nodes and ``max_edges`` edges,
+        byte for byte ``padding.pad_sample_output`` of its ``csc=True``
+        tuple; raises :class:`~padding.BudgetExceeded` as that does, and
+        the sample stays for a larger bucket."""
+        if self._handle is None:
+            raise RuntimeError('the sample was padded or closed already')
+        n, e = self.num_nodes, self.num_edges
+        if n > max_nodes:
+            raise BudgetExceeded(f'{n} nodes > budget {max_nodes}')
+        if e > max_edges:
+            raise BudgetExceeded(f'{e} edges > budget {max_edges}')
+        node_id = np.empty(max_nodes, np.int64)
+        batch = np.empty(max_nodes, np.int32) if self.disjoint else None
+        node_mask = np.empty(max_nodes, bool)
+        rowptr = np.empty(max_nodes + 1, np.int32)
+        row = np.empty(max_edges, np.int32)
+        col = np.empty(max_edges, np.int32)
+        edge_id = np.empty(max_edges, np.int64) if self.return_edge_id \
+            else None
+        edge_mask = np.empty(max_edges, bool)
+        i32, u8 = ctypes.c_int32, ctypes.c_uint8
+        rc = self._lib.pygt_result_pad(
+            self._handle, max_nodes, max_edges, _ptr(node_id),
+            _ptr(batch, i32), _ptr(node_mask, u8), _ptr(rowptr, i32),
+            _ptr(row, i32), _ptr(col, i32), _ptr(edge_id),
+            _ptr(edge_mask, u8))
+        if rc != 0:
+            raise RuntimeError(f'pygt_result_pad returned {rc}')
+        self.close()
+        return PaddedBatch(
+            node_id=node_id, batch=batch, row=row, col=col, edge_id=edge_id,
+            rowptr=rowptr, node_mask=node_mask, edge_mask=edge_mask,
+            num_nodes=n, num_edges=e,
+            num_sampled_nodes_per_hop=list(self.nodes_per_hop),
+            num_sampled_edges_per_hop=list(self.edges_per_hop),
+            num_seeds=num_seeds)
+
+    def close(self) -> None:
+        """Give the engine's memory back (a later :meth:`pad` raises)."""
+        handle, self._handle = self._handle, None
+        if handle:
+            self._free(handle)
+
+    def __del__(self):
+        self.close()
+
+
+def neighbor_sample_padded_cpp(rowptr: np.ndarray, col: np.ndarray,
+                               seed: np.ndarray, num_neighbors: List[int],
+                               node_time=None, edge_time=None,
+                               seed_time=None, edge_weight=None,
+                               replace: bool = False, disjoint: bool = False,
+                               temporal_strategy: str = 'uniform',
+                               return_edge_id: bool = True,
+                               rng_seed: int = 0) -> EngineSample:
+    """The engine's directed neighbour sample, kept in the engine as an
+    :class:`EngineSample`: the same draws as :func:`neighbor_sample_cpp`
+    with ``csc=True``, for the padded batch."""
+    lib = get_lib()
+    handle = _sample(lib, 'neighbor_sample_padded', rowptr, col, seed,
+                     num_neighbors, node_time, edge_time, seed_time,
+                     edge_weight, replace, disjoint=disjoint,
+                     temporal_strategy=temporal_strategy,
+                     return_edge_id=return_edge_id, rng_seed=rng_seed)
+    return EngineSample(lib, handle, disjoint, return_edge_id)
 
 
 # -- heterogeneous sampling -------------------------------------------------

@@ -1545,18 +1545,18 @@ def test_device_hash_map_on_the_card_equals_the_cpu(dev):
     assert empty.tolist() == [-1, -1]
 
 
-@pytest.mark.parametrize('kind', ['homogeneous', 'hetero'])
+@pytest.mark.parametrize('kind', ['homogeneous', 'hetero', 'csc'])
 def test_loader_batches_on_the_card_equal_the_host_batches(dev, kind):
     from pyg_lib_tpu_torch.loader import HeteroNeighborLoader, NeighborLoader
 
     rng = np.random.default_rng(1)
-    if kind == 'homogeneous':
+    if kind != 'hetero':  # 'csc': the engine writes the padded batches
         rowptr, col = GRAPHS['ragged']()
         x = rng.normal(size=(1000, 24)).astype(np.float32)
         y = rng.integers(0, 7, 1000)
         make = lambda device: NeighborLoader(
             rowptr, col, x, y, np.arange(0, 1000, 2), 64, [6, 4], rng=3,
-            device=device, lookahead=3)
+            device=device, lookahead=3, csc=kind == 'csc')
     else:
         sizes = {'a': 700, 'b': 400}
         rels = [('a', 'r', 'a'), ('b', 's', 'a'), ('a', 't', 'b')]

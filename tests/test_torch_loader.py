@@ -70,6 +70,7 @@ CONFIGS = {
     'disjoint': dict(disjoint=True),
     'replace': dict(replace=True, num_workers=3, lookahead=1),
     'numpy': dict(impl='numpy'),
+    'csc': dict(csc=True),
 }
 
 
@@ -182,6 +183,33 @@ def test_loader_workers_lose_no_count():
     assert _cpp.calls['neighbor_sample'] - before == 225
 
 
+def test_a_kept_padded_batch_outlives_later_batches():
+    # As the benchmark's tap keeps one: the batch's PaddedBatch, held
+    # while 4 workers make 8 more, still holds its first bytes.
+    class Tapped(loader.NeighborLoader):
+        padded = []
+
+        def _pad_to_bucket(self, out, num_seeds, disjoint):
+            b, bi = super()._pad_to_bucket(out, num_seeds, disjoint)
+            self.padded.append(b)
+            return b, bi
+
+    rowptr, col, x, y = data(seed=7)
+    ldr = Tapped(rowptr, col, x, y, np.arange(400), 16, [5, 3], csc=True,
+                 num_workers=4, lookahead=4, rng=2, device='cpu')
+    it = iter(ldr)
+    next(it)
+    kept = ldr.padded[0]
+    first = {k: v.copy() for k, v in vars(kept).items()
+             if isinstance(v, np.ndarray)}
+    for _ in range(8):
+        next(it)
+    it.close()
+    assert len(ldr.padded) >= 9
+    for k, v in first.items():
+        assert np.array_equal(getattr(kept, k), v), k
+
+
 def test_loader_needs_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     rowptr, col, x, y = data()
@@ -195,7 +223,8 @@ HETERO_X = {t: np.random.default_rng(2).normal(size=(n, 4)).astype(np.float32)
 
 
 def span_loader(kind):
-    """A loader of 2 workers, and the slots of each batch's bucket."""
+    """A loader of 2 workers, and the slots of each batch's bucket
+    (``'csc'``: the neighbour loader sampling with ``csc=True``)."""
     if kind == 'hetero':
         budgets = {'paper': 512, 'author': 256, 'field': 128}
         ldr = loader.HeteroNeighborLoader(
@@ -205,11 +234,12 @@ def span_loader(kind):
         return ldr, lambda tm: (sum(budgets.values()), 2000)
     rowptr, col, x, y = data(seed=6)
     ldr = loader.NeighborLoader(rowptr, col, x, y, np.arange(0, 400, 2), 16,
-                                [5, 3], num_workers=2, rng=11, device='cpu')
+                                [5, 3], num_workers=2, rng=11, device='cpu',
+                                csc=kind == 'csc')
     return ldr, lambda tm: ldr.buckets[tm['bucket']]
 
 
-@pytest.mark.parametrize('kind', ['neighbor', 'hetero'])
+@pytest.mark.parametrize('kind', ['neighbor', 'hetero', 'csc'])
 def test_loader_records_its_phases_only_under_a_session(kind, monkeypatch):
     ldr, slots = span_loader(kind)
     opened = []
@@ -251,8 +281,14 @@ def test_loader_records_its_phases_only_under_a_session(kind, monkeypatch):
         assert (pad['node_slots'], pad['edge_slots']) == (
             node_slots, edge_slots) == (len(batch['x']), len(batch['row']))
         assert pad['max_row_reads'] == np.bincount(batch['row']).max()
-        if kind == 'neighbor':
+        if kind != 'hetero':
             assert pad['bucket'] == tm['bucket']
+            # The engine wrote the csc batch padded; a tuple went through
+            # pad_sample_output otherwise.
+            sample = by['sampler.sample'][ids[i]].attrs
+            assert sample['path'] == ('padded' if kind == 'csc' else
+                                      'tuple')
+            assert sample['edges'] == tm['num_edges']
 
 
 def test_the_exported_trace_shows_the_workers_spans(tmp_path):

@@ -44,14 +44,15 @@ def graph(seed, n=200, max_deg=14):
     return rowptr, rng.integers(0, n, int(rowptr[-1])).astype(np.int64)
 
 
-def _cases():
-    rng = np.random.default_rng(5)
-    rowptr, col = graph(1)
+def _cases(rowptr, col, num_seeds, seed=5):
+    """Every mode's options over the graph ``(rowptr, col)``, and the
+    graph with ``num_seeds`` seeds."""
+    rng = np.random.default_rng(seed)
     n, e = len(rowptr) - 1, len(col)
-    seed = rng.choice(n, 16, replace=False)
+    seeds = rng.choice(n, num_seeds, replace=False)
     node_time = rng.integers(0, 50, n)
     edge_time = rng.integers(0, 50, e)
-    seed_time = rng.integers(20, 50, 16)
+    seed_time = rng.integers(20, 50, num_seeds)
     return {
         'uniform': dict(),
         'replace': dict(replace=True),
@@ -66,22 +67,35 @@ def _cases():
         'undirected': dict(directed=False),
         'csc': dict(csc=True),
         'no_edge_id': dict(return_edge_id=False),
-    }, (rowptr, col, seed)
+        'distributed': dict(distributed=True),
+    }, (rowptr, col, seeds)
 
 
-CASES, GRAPH = _cases()
+CASES, GRAPH = _cases(*graph(1), 16)
+# About 30,000 nodes of up to 100 neighbours and 256 seeds: the engine's
+# staged loop runs thousands of chunks a hop.
+LARGE_CASES, LARGE_GRAPH = _cases(*graph(2, n=30000, max_deg=101), 256)
+
+
+def sample(package, rowptr, col, seed, fanouts, kw, **more):
+    """``package``'s ``neighbor_sample``, or its one-hop
+    ``dist_neighbor_sample`` (the engine's distributed mode) for the
+    ``'distributed'`` case."""
+    if kw.get('distributed'):
+        return package.dist_neighbor_sample(rowptr, col, seed, fanouts[0],
+                                            **more)
+    return package.neighbor_sample(rowptr, col, seed, fanouts, **kw, **more)
 
 
 @pytest.mark.parametrize('impl', IMPLS)
 @pytest.mark.parametrize('case', sorted(CASES))
-@pytest.mark.parametrize('fanouts', [[4, 3], [-1, 2], [6]])
+@pytest.mark.parametrize('fanouts', [[4, 3], [-1, 2], [6], [15, 10, 5]])
 def test_neighbor_sample_equals_the_jax_package(case, impl, fanouts):
-    rowptr, col, seed = GRAPH
-    kw = CASES[case]
-    got = sampler.neighbor_sample(rowptr, col, seed, fanouts, rng=11,
-                                  impl=impl, **kw)
-    ref = jsampler.neighbor_sample(rowptr, col, seed, fanouts, rng=11,
-                                   impl=impl, **kw)
+    large = fanouts == [15, 10, 5]
+    rowptr, col, seed = LARGE_GRAPH if large else GRAPH
+    kw = (LARGE_CASES if large else CASES)[case]
+    got = sample(sampler, rowptr, col, seed, fanouts, kw, rng=11, impl=impl)
+    ref = sample(jsampler, rowptr, col, seed, fanouts, kw, rng=11, impl=impl)
     assert equal(got, ref)
 
 
@@ -237,6 +251,122 @@ def test_padded_batches_equal_the_jax_package(disjoint, budget):
     # Trailing pad edges sit past rowptr[-1] and point one past the nodes.
     assert got.rowptr[-1] == got.num_edges
     assert (got.row[got.num_edges:] == budget[0]).all()
+
+
+def same_bytes(a, b) -> bool:
+    """Two ``PaddedBatch``es equal byte for byte: every array of the same
+    dtype and shape, every count equal."""
+    for k, v in vars(a).items():
+        w = getattr(b, k)
+        if isinstance(v, np.ndarray):
+            if not (isinstance(w, np.ndarray) and v.dtype == w.dtype
+                    and v.shape == w.shape and v.tobytes() == w.tobytes()):
+                return False
+        elif v != w or type(v) is not type(w):
+            return False
+    return True
+
+
+# The directed modes, each with csc=True: the engine's padded hand-over.
+PADDED_CASES = ('uniform', 'replace', 'weighted', 'weighted_replace',
+                'disjoint', 'node_time', 'node_time_last', 'edge_time',
+                'no_edge_id')
+
+
+@pytest.mark.parametrize('case', PADDED_CASES)
+@pytest.mark.parametrize('large', [False, True])
+def test_the_engines_padded_batch_is_pad_sample_outputs(case, large):
+    rowptr, col, seed = LARGE_GRAPH if large else GRAPH
+    kw = dict((LARGE_CASES if large else CASES)[case], csc=True)
+    fanouts = [15, 10, 5] if large else [5, 4]
+    disjoint = kw.get('disjoint', False)
+    before = _cpp.calls['neighbor_sample_padded']
+    held = sampler.sample_for_padding(rowptr, col, seed, fanouts, rng=3,
+                                      **kw)
+    assert isinstance(held, _cpp.EngineSample)
+    assert _cpp.calls['neighbor_sample_padded'] == before + 1
+    out = sampler.neighbor_sample(rowptr, col, seed, fanouts, rng=3, **kw)
+    assert equal(out, jsampler.neighbor_sample(rowptr, col, seed, fanouts,
+                                               rng=3, impl='cpp', **kw))
+    n, e = len(out[2]), len(out[0])
+    assert (held.num_nodes, held.num_edges) == (n, e)
+    assert (held.nodes_per_hop, held.edges_per_hop) == (out[4], out[5])
+    # Too few node slots, then too few edge slots: BudgetExceeded as
+    # pad_sample_output raises it, and the sample stays for the next.
+    for budget in ((n - 1, e), (n, e - 1)):
+        with pytest.raises(padding.BudgetExceeded) as got:
+            held.pad(*budget, len(seed))
+        with pytest.raises(padding.BudgetExceeded) as ref:
+            padding.pad_sample_output(out, *budget, num_seeds=len(seed),
+                                      disjoint=disjoint)
+        assert str(got.value) == str(ref.value)
+    for budget in ((n, e), (n + 40, e + 72)):
+        if budget != (n, e):
+            held = sampler.sample_for_padding(rowptr, col, seed, fanouts,
+                                              rng=3, **kw)
+        got = held.pad(*budget, len(seed))
+        ref = padding.pad_sample_output(out, *budget, num_seeds=len(seed),
+                                        disjoint=disjoint)
+        assert same_bytes(got, ref)
+        assert same_bytes(got, jpadding.pad_sample_output(
+            out, *budget, num_seeds=len(seed), disjoint=disjoint))
+        with pytest.raises(RuntimeError, match='padded or closed'):
+            held.pad(*budget, len(seed))
+
+
+@pytest.mark.parametrize('kw', [dict(), dict(csc=True, directed=False),
+                                dict(csc=True, impl='numpy')])
+def test_only_the_engines_csc_sample_is_held(kw):
+    # Where the edges do not come in destination order, or numpy samples,
+    # sample_for_padding is neighbor_sample.
+    rowptr, col, seed = GRAPH
+    got = sampler.sample_for_padding(rowptr, col, seed, [4, 3], rng=6, **kw)
+    assert equal(got, sampler.neighbor_sample(rowptr, col, seed, [4, 3],
+                                              rng=6, **kw))
+
+
+def test_threads_that_sample_at_once_get_the_serial_batches():
+    # More threads than cores, switching often, share the engine's pool
+    # of call states: each batch must be the one sampled alone.
+    import sys
+    import threading
+
+    rowptr, col, seed = LARGE_GRAPH
+    kws = [dict(csc=True), dict(csc=True, disjoint=True), dict(),
+           dict(disjoint=True, edge_weight=LARGE_CASES['weighted'][
+               'edge_weight'])]
+    budget = padding.budget_for(len(seed), [15, 10, 5])
+    nb, workers = 32, 16
+
+    def batch(i):
+        kw = kws[i % len(kws)]
+        out = sampler.sample_for_padding(rowptr, col, seed, [15, 10, 5],
+                                         rng=100 + i, **kw)
+        if isinstance(out, _cpp.EngineSample):
+            return out.pad(*budget, len(seed))
+        return padding.pad_sample_output(out, *budget, len(seed),
+                                         disjoint=kw.get('disjoint', False))
+
+    serial = [batch(i) for i in range(nb)]
+    got = [None] * nb
+
+    def work(k):
+        for i in range(k, nb, workers):
+            got[i] = batch(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k, ))
+                   for k in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert all(same_bytes(a, b) for a, b in zip(got, serial))
 
 
 @pytest.mark.parametrize('disjoint', [False, True])
