@@ -173,6 +173,7 @@ before that line. It imports nothing of JAX or of ``pyg_lib_tpu``.
 """
 
 import copy
+import functools
 import json
 import os
 import re
@@ -180,31 +181,13 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
-# A kernel and its plain version sum the same f32 terms in another order:
-# |kernel - plain| <= SUM_RTOL * Σ|terms| + SUM_ATOL, elementwise. A bf16
-# result adds one bf16 step, 2**-8 of its size. K4 and K5 are exact.
-SUM_RTOL, SUM_ATOL = 1e-5, 1e-5
-# K6 and its plain version: exponentials a few f32 ulps apart, and each
-# row's sum of n terms in another order, at most n * 2**-24 of it apart in
-# each: |kernel - plain| <= (1e-5 + n * 2**-23) |plain| + 1e-7 (a bf16
-# result adds one bf16 step, 2**-7 |plain|), NaN where the plain has NaN.
-K6_RTOL, K6_ATOL = 1e-5, 1e-7
-# An f32 K6 row sums to 1 within this: its outputs' f32 rounding adds at
-# most 2**-24, and the kernel's sum is a few dozen f32 additions deep (a
-# stretch's groups, then its partials 32 lanes wide), a few 1e-6 at most. A hub row's stretch partial
-# dropped or counted twice moves the whole row by that stretch's share of
-# its sum (1/469 on the 810,552-edge row), which the per-element bound
-# above, n * 2**-23 = 9.7% there, would let through.
-K6_SUM_TOL = 1e-5
-# A model's output and weight gradients pass several such sums and
-# matmuls over 262,144 rows.
-GCN_RTOL = 1e-4  # of max|plain output| (or of max|plain gradient|)
 N_NODES, N_EDGES, F_BENCH = 262_144, 4_194_304, 512
 DIMS = [512, 512, 47]
 # GAT: ogbn-products' 47 classes rounded up to a multiple of the heads,
@@ -280,9 +263,6 @@ HUGE_CLOUD, HUGE_RATIO = 1_000_000, 0.01
 KNN_FEATURES = 64
 FAUST_EDGES, SPLINE_KERNEL, SPLINE_OUT = 41_328, 5, 32
 GRACLUS_NODES = 20_000
-# A knn, radius or nearest pair may differ between the card and the CPU
-# only where its f64 distance lies within this of the k-th distance or r².
-PAIR_RTOL = 1e-6
 # The earlier designs' times of K5 (its [N, F] key table), K6 (a warp
 # per row) and F1 (one block a cloud) on this script's shapes, printed
 # beside the current ones (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
@@ -380,19 +360,16 @@ SOURCES = {
            'pyg_lib_tpu/ops/pallas/segment_csr_kernel.py:47'),
     'K4': ('segment_minmax.cu',
            'pyg_lib_tpu/ops/pallas/segment_minmax_kernel.py:59'),
-    'K4s': ('segment_minmax.cu',
-            'pyg_lib_tpu/ops/pallas/segment_minmax_kernel.py:59'),
     'K5': ('spmm_dedup_minmax.cu',
            'pyg_lib_tpu/ops/pallas/spmm_dedup_minmax.py:292'),
     'K6': ('segment_softmax.cu',
            'pyg_lib_tpu/ops/pallas/segment_softmax_kernel.py:47'),
     'K7': ('spmm_range_fused.cu',
            'pyg_lib_tpu/ops/pallas/spmm_range_fused.py:221'),
-    'K1m': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
-    'K1p': ('spmm_chunked.cu', 'pyg_lib_tpu/ops/pallas/spmm_chunked.py:279'),
     'F1': ('fps.cu', 'pyg_lib_tpu/ops/geometry.py:59'),
     'G1': ('gather_rows.cu', 'pyg_lib_tpu/models/gnn.py:34'),
 }
+SOURCES.update(K1m=SOURCES['K1'], K1p=SOURCES['K1'], K4s=SOURCES['K4'])
 
 
 def range_graphs(rp, cl):
@@ -438,35 +415,6 @@ class ByWidth:
         key = (self.kid(args), args[self.at])
         self.counts[key] = self.counts.get(key, 0) + 1
         return self.fn(*args)
-
-
-def one_element_in(t):
-    """A copy of the contiguous ``t`` one element into a fresh storage: not
-    16-byte aligned."""
-    return t.new_empty(t.numel() + 1)[1:].view(t.shape).copy_(t)
-
-
-def bits(t):
-    """Tensor to compare bit for bit (-0.0 and +0.0 told apart)."""
-    import torch
-
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-
-def k6_row_sum_err(out, plan, idx=None):
-    """The largest |sum - 1| over the rows of a K6 output, each row summed
-    in f64 over its slots; rows of no slot and NaN columns are left out."""
-    import torch
-
-    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
-
-    slot, row = _padded_rows(plan.tile_ptr)
-    at = slot if idx is None else idx[slot].long()
-    sums = torch.zeros((plan.num_rows, out.shape[1]), dtype=torch.float64,
-                       device=out.device).index_add_(0, row, out[at].double())
-    full = torch.bincount(row, minlength=plan.num_rows) > 0
-    dev = (sums[full] - 1.0).abs().nan_to_num(0.0)
-    return float(dev.max()) if dev.numel() else 0.0
 
 
 def by_columns(fn, src, *args, block=BLOCK):
@@ -579,29 +527,225 @@ def card():
         check=True).stdout.strip().splitlines()[0]
 
 
-def main():
+def card_setup():
+    """The start of each of the smoke's processes on the card: exits with
+    its message where there is no card, puts the repository on
+    ``sys.path`` and turns TF32 off (the checks hold f32 matmuls to f32
+    bounds). Returns the card."""
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device is available')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pyg_lib_tpu_torch import _build, ops
-    from pyg_lib_tpu_torch.models import (GAT, GCN, SAGE, GATBatch,
-                                          sage_forward)
-    from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
-    from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
-    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
-    from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import K5_SEG
-    from pyg_lib_tpu_torch.ops.scatter_reduce import _fused as fused_closure
-    from pyg_lib_tpu_torch.testing import powerlaw_graph, uniform_graph
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device('cuda', 0)
+    return torch.device('cuda', 0)
+
+
+def plain(xm, plan, scale=None):
+    """The plain version of the kernel that applies ``plan``: K1, K1 per
+    range, K2/K2h or K7."""
+    from pyg_lib_tpu_torch import ops
+
+    if isinstance(plan, ops.DedupSpmmPlan):
+        return ops.dedup_sum_plain(xm, plan, scale)
+    if isinstance(plan, ops.FusedRangePlan):
+        return ops.fused_range_plain(xm, plan, scale)
+    if isinstance(plan, ops.RangeSpmmPlan):
+        return sum(ops.spmm_chunked_plain(xm[lo:hi], p, scale)
+                   for (lo, hi), p in zip(plan.bounds, plan.plans))
+    return ops.spmm_chunked_plain(xm, plan, scale)
+
+
+def kernel(xm, plan, scale=None):
+    """The kernel that applies ``plan``, as :func:`plain` dispatches."""
+    from pyg_lib_tpu_torch import ops
+
+    if isinstance(plan, ops.DedupSpmmPlan):
+        return ops.dedup_sum(xm, plan, scale)
+    if isinstance(plan, ops.FusedRangePlan):
+        return ops.fused_range_sum(xm, plan, scale)
+    if isinstance(plan, ops.RangeSpmmPlan):
+        return sum(ops.spmm_chunked(xm[lo:hi], p, scale)
+                   for (lo, hi), p in zip(plan.bounds, plan.plans))
+    return ops.spmm_chunked(xm, plan, scale)
+
+
+class Checks:
+    """The kernel checks of :func:`main`, each against its plain version
+    by the contract of ``pyg_lib_tpu_torch.testing``: each prints its
+    line and keeps each kernel's largest error in ``errs``; ``gen``
+    draws their inputs on ``dev``."""
+
+    def __init__(self, dev, gen):
+        self.dev, self.gen = dev, gen
+        self.errs = {k: 0.0 for k in COUNTERS}
+
+    def sum(self, label, kid, got, ref, mag, bf16=False):
+        from pyg_lib_tpu_torch.testing import SUM_BOUND, check_sum
+
+        e = check_sum(f'{kid} {label}', got, ref, mag, bf16=bf16)
+        self.errs[kid] = max(self.errs[kid], e)
+        print(f'  {kid} {label}: max_abs_err {e:.3g} (tolerance {SUM_BOUND}'
+              f'{" + 2^-8 |plain|" if bf16 else ""})', flush=True)
+        return e
+
+    def plan(self, label, kid, xm, plan, scale=None):
+        from pyg_lib_tpu_torch.testing import SUM_BOUND, check_plan
+
+        e = check_plan(f'{kid} {label}', kernel, plain, xm, plan, scale)
+        self.errs[kid] = max(self.errs[kid], e)
+        print(f'  {kid} {label}: max_abs_err {e:.3g} (tolerance '
+              f'{SUM_BOUND})', flush=True)
+        return e
+
+    def exact(self, label, kid, got, ref):
+        """Values and positions of K4/K5 against their plain version, bit
+        for bit."""
+        from pyg_lib_tpu_torch.testing import check_exact
+
+        check_exact(f'{kid} {label}', got, ref)
+        print(f'  {kid} {label}: max_abs_err 0, values and positions equal '
+              f'bit for bit', flush=True)
+
+    def k3(self, label, src, ptr):
+        import torch
+
+        from pyg_lib_tpu_torch import ops
+
+        got = ops.segment_sum_csr_kernel(src, ptr)
+        ref = by_columns(ops.segment_sum_csr_plain, src, ptr)
+        mag = by_columns(ops.segment_sum_csr_plain, src.abs().float(), ptr)
+        return self.sum(label, 'K3', got, ref, mag,
+                        bf16=src.dtype == torch.bfloat16)
+
+    def k4(self, label, src, plan, idx, negate=False):
+        from pyg_lib_tpu_torch import ops
+
+        self.exact(label, 'K4', ops.segment_max_kernel(src, plan, idx, negate),
+                   by_columns(ops.segment_max_plain, src, plan, idx, negate))
+
+    def k4s(self, label, src, plan, idx, negate=False):
+        """K4s: values and positions bit for bit those of the sum-less K4
+        and of the plain version, sums within the sum tolerance (equal
+        where the plain sum is infinite)."""
+        import torch
+
+        from pyg_lib_tpu_torch import ops
+        from pyg_lib_tpu_torch.testing import check_exact
+
+        got = ops.segment_max_kernel(src, plan, idx, negate, with_sum=True)
+        check_exact(f'K4s {label} against the sum-less K4', got[:2],
+                    ops.segment_max_kernel(src, plan, idx, negate))
+        ref = by_columns(lambda s, *a: ops.segment_max_plain(
+            s, *a, with_sum=True), src, plan, idx, negate)
+        self.exact(f'{label} (values, positions)', 'K4s', got[:2], ref[:2])
+        fin = torch.isfinite(ref[2])
+        if not torch.equal(got[2][~fin], ref[2][~fin]):
+            raise AssertionError(f'K4s {label}: infinite sums differ')
+        mag = by_columns(lambda s, *a: ops.segment_max_plain(
+            s, *a, with_sum=True)[2], src.abs().nan_to_num(posinf=0.0), plan,
+            idx)
+        return self.sum(f'{label} (sums of finite rows)', 'K4s',
+                        torch.where(fin, got[2], 0.0),
+                        torch.where(fin, ref[2], 0.0), mag)
+
+    def k5(self, label, x, plan, negate=False):
+        from pyg_lib_tpu_torch import ops
+
+        self.exact(label, 'K5', ops.dedup_minmax(x, plan, negate),
+                   by_columns(ops.dedup_minmax_plain, x, plan, negate))
+
+    def msgs(self, label, msgs, plan):
+        """K1's msgs_padded entry against its plain version."""
+        from pyg_lib_tpu_torch import ops
+
+        got = ops.segment_sum_chunked(msgs, plan)
+        ref = by_columns(ops.segment_sum_chunked_plain, msgs, plan)
+        mag = by_columns(ops.segment_sum_chunked_plain, msgs.abs(), plan)
+        return self.sum(label, 'K1m', got, ref, mag)
+
+    def k6(self, label, src, plan, idx=None):
+        """K6 against its plain version, within K6's bound."""
+        import torch
+
+        from pyg_lib_tpu_torch import ops
+        from pyg_lib_tpu_torch.testing import (K6_ATOL, K6_RTOL, K6_SUM_TOL,
+                                               check_softmax)
+
+        got = ops.segment_softmax_planned(src, plan, idx)
+        ref = by_columns(ops.segment_softmax_plain, src, plan, idx)
+        e, row_sum = check_softmax(f'K6 {label}', got, ref, plan, idx)
+        self.errs['K6'] = max(self.errs['K6'], e)
+        f32 = got.dtype == torch.float32
+        print(f'  K6 {label}: max_abs_err {e:.3g} (tolerance ({K6_RTOL:g} + '
+              f'n * 2^-23{"" if f32 else " + 2^-7"}) |plain| + '
+              f'{K6_ATOL:g}); NaN where the plain version has NaN'
+              + (f'; rows sum to 1 within {row_sum:.3g} (tolerance '
+                 f'{K6_SUM_TOL:g})' if f32 else ''), flush=True)
+        return e
+
+    def k6_values(self, rows, f, plan, idx, dtype):
+        """Logits with rows far above (+200) and far below (-200) the rest,
+        -inf at some rows' first slot and a row of -inf in column 0."""
+        import torch
+
+        from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
+
+        slot, row = _padded_rows(plan.tile_ptr)
+        at = slot if idx is None else idx[slot].long()
+        v = torch.randn((rows, f), generator=self.gen, device=self.dev) * 4
+        shift = torch.zeros(plan.num_rows, device=self.dev)
+        shift[0::13] = 200.0
+        shift[5::17] = -200.0
+        v[at] += shift[row][:, None]
+        bounds = plan.tile_ptr[:, 0, :128].reshape(-1)[:plan.num_rows].long()
+        first = bounds[3::11]
+        hit = torch.isin(slot, first)
+        v[at[hit], 0] = float('-inf')
+        v[at[row == 23], 0] = float('-inf')
+        return v.to(dtype)
+
+    def randn(self, *shape):
+        import torch
+
+        return torch.randn(shape, generator=self.gen, device=self.dev)
+
+
+def main():
+    """Sections 1 to 6 of the module's docstring; returns the card, the
+    kernels' largest errors and the kernels line's rows."""
+    import torch
+
+    dev = card_setup()
     smi = card()
     print(smi, flush=True)
+    build_kernels()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ck = Checks(dev, gen)
+    small_checks(ck)
+    paths = Paths()
+    children = run_children(paths)
+    b, main_errs = bench_graphs(ck, children)
+    gcn_sage_paths(ck, b, paths.run)
+    attention_range_paths(ck, b, paths.run)
+    fused_paths(ck, b, paths.run)
+    # -- 4a. GIN, PointNet++ and DGCNN, and the geometry ops --------------
+    f1_row = geometry_paths(dev, paths.run, b.rp_u, b.cl_u)
+    torch.cuda.empty_cache()
+    paths.restore()
+    print('K1, K1m, K3, K7 and G1 launches on the main paths by width: '
+          + ', '.join(f'{kid} F={f} {n}'
+                      for (kid, f), n in sorted(paths.by_width.items())),
+          flush=True)
+    return smi, ck.errs, timing(ck, b, paths, main_errs, children, f1_row)
 
-    # -- 1. build -------------------------------------------------------
+
+def build_kernels():
+    """1. The kernels (``nvcc``, a process a source) and the host engine."""
+    from pyg_lib_tpu_torch import _build
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
         host_build = pool.submit(_build.build_host)
@@ -617,199 +761,24 @@ def main():
         print(f'  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} '
               f'registers, {spills} with spill stores', flush=True)
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    errs = {k: 0.0 for k in COUNTERS}
 
-    def plain(xm, plan, scale=None):
-        if isinstance(plan, ops.DedupSpmmPlan):
-            return ops.dedup_sum_plain(xm, plan, scale)
-        if isinstance(plan, ops.FusedRangePlan):
-            return ops.fused_range_plain(xm, plan, scale)
-        if isinstance(plan, ops.RangeSpmmPlan):
-            return sum(ops.spmm_chunked_plain(xm[lo:hi], p, scale)
-                       for (lo, hi), p in zip(plan.bounds, plan.plans))
-        return ops.spmm_chunked_plain(xm, plan, scale)
+def small_checks(ck):
+    """2. Each kernel against its plain version on the card at small
+    shapes (the module's docstring lists the cases)."""
+    import torch
 
-    def kernel(xm, plan, scale=None):
-        if isinstance(plan, ops.DedupSpmmPlan):
-            return ops.dedup_sum(xm, plan, scale)
-        if isinstance(plan, ops.FusedRangePlan):
-            return ops.fused_range_sum(xm, plan, scale)
-        if isinstance(plan, ops.RangeSpmmPlan):
-            return sum(ops.spmm_chunked(xm[lo:hi], p, scale)
-                       for (lo, hi), p in zip(plan.bounds, plan.plans))
-        return ops.spmm_chunked(xm, plan, scale)
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels.spmm_dedup_minmax import K5_SEG
+    from pyg_lib_tpu_torch.testing import (check_exact, one_element_in,
+                                           powerlaw_graph, uniform_graph)
 
-    def abs_plan(plan):
-        """The plan with |weights|: its plain sum of |x| is Σ|terms|."""
-        if isinstance(plan, ops.FusedRangePlan):
-            if plan.weights is None:
-                return plan
-            return plan._replace(weights=tuple(w.abs()
-                                               for w in plan.weights))
-        if not isinstance(plan, ops.DedupSpmmPlan) or not plan.weighted:
-            return plan
-        meta = plan.edge_meta.clone()
-        meta[:, 2, :] = meta[:, 2, :].view(torch.float32).abs().view(
-            torch.int32)
-        hot_w = None if plan.hot_w is None else plan.hot_w.abs()
-        return plan._replace(edge_meta=meta, hot_w=hot_w)
+    gen, dev = ck.gen, ck.dev
 
-    def check_sum(label, kid, got, ref, mag, bf16=False):
-        err = (got.float() - ref.float()).abs()
-        tol = SUM_RTOL * mag + SUM_ATOL
-        if bf16:
-            tol = tol + 2.0**-8 * ref.float().abs()
-        e = float(err.max()) if err.numel() else 0.0
-        errs[kid] = max(errs[kid], e)
-        print(f'  {kid} {label}: max_abs_err {e:.3g} (tolerance '
-              f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g}'
-              f'{" + 2^-8 |plain|" if bf16 else ""})', flush=True)
-        if not torch.isfinite(got).all() or bool((err > tol).any()):
-            raise AssertionError(f'{kid} {label} disagrees with its plain '
-                                 f'version: max_abs_err {e}')
-        return e
-
-    def check(label, kid, xm, plan, scale=None):
-        got = kernel(xm, plan, scale)
-        torch.cuda.synchronize()
-        ref = plain(xm, plan, scale)
-        xa = xm.abs() if xm.dtype != torch.int8 else xm.abs().to(torch.int8)
-        mag = plain(xa, abs_plan(plan), None if scale is None else
-                    scale.abs())
-        return check_sum(label, kid, got, ref, mag)
-
-    def check_exact(label, kid, got, ref):
-        """Values and positions of K4/K5 against their plain version, bit
-        for bit."""
-        torch.cuda.synchronize()
-        same = all(g.shape == r.shape and torch.equal(bits(g), bits(r))
-                   for g, r in zip(got, ref))
-        diff = torch.where(got[0] == ref[0], torch.zeros_like(got[0]),
-                           (got[0] - ref[0]).abs())
-        e = float(diff.max()) if diff.numel() else 0.0
-        errs[kid] = max(errs[kid], e)
-        print(f'  {kid} {label}: max_abs_err {e:.3g}, values and positions '
-              f'{"equal bit for bit" if same else "DIFFER"}', flush=True)
-        if not same:
-            raise AssertionError(f'{kid} {label} disagrees with its plain '
-                                 f'version')
-        return e
-
-    def check_k3(label, src, ptr):
-        got = ops.segment_sum_csr_kernel(src, ptr)
-        torch.cuda.synchronize()
-        ref = by_columns(ops.segment_sum_csr_plain, src, ptr)
-        mag = by_columns(ops.segment_sum_csr_plain, src.abs().float(), ptr)
-        return check_sum(label, 'K3', got, ref, mag,
-                         bf16=src.dtype == torch.bfloat16)
-
-    def check_k4(label, src, plan, idx, negate=False):
-        got = ops.segment_max_kernel(src, plan, idx, negate)
-        ref = by_columns(ops.segment_max_plain, src, plan, idx, negate)
-        return check_exact(label, 'K4', got, ref)
-
-    def check_k4s(label, src, plan, idx, negate=False):
-        """K4s: values and positions bit for bit those of the sum-less K4
-        and of the plain version, sums within the sum tolerance (equal
-        where the plain sum is infinite)."""
-        got = ops.segment_max_kernel(src, plan, idx, negate, with_sum=True)
-        sumless = ops.segment_max_kernel(src, plan, idx, negate)
-        torch.cuda.synchronize()
-        if not all(torch.equal(bits(g), bits(r))
-                   for g, r in zip(got[:2], sumless)):
-            raise AssertionError(f'K4s {label}: values or positions differ '
-                                 f'from the sum-less K4')
-        ref = by_columns(lambda s, *a: ops.segment_max_plain(
-            s, *a, with_sum=True), src, plan, idx, negate)
-        check_exact(f'{label} (values, positions)', 'K4s', got[:2], ref[:2])
-        fin = torch.isfinite(ref[2])
-        if not torch.equal(got[2][~fin], ref[2][~fin]):
-            raise AssertionError(f'K4s {label}: infinite sums differ')
-        mag = by_columns(lambda s, *a: ops.segment_max_plain(
-            s, *a, with_sum=True)[2], src.abs().nan_to_num(posinf=0.0), plan,
-            idx)
-        return check_sum(f'{label} (sums of finite rows)', 'K4s',
-                         torch.where(fin, got[2], 0.0),
-                         torch.where(fin, ref[2], 0.0), mag)
-
-    def check_k5(label, x, plan, negate=False):
-        got = ops.dedup_minmax(x, plan, negate)
-        ref = by_columns(ops.dedup_minmax_plain, x, plan, negate)
-        return check_exact(label, 'K5', got, ref)
-
-    def check_msgs(label, msgs, plan):
-        """K1's msgs_padded entry against its plain version."""
-        got = ops.segment_sum_chunked(msgs, plan)
-        torch.cuda.synchronize()
-        ref = by_columns(ops.segment_sum_chunked_plain, msgs, plan)
-        mag = by_columns(ops.segment_sum_chunked_plain, msgs.abs(), plan)
-        return check_sum(label, 'K1m', got, ref, mag)
-
-    def check_k6(label, src, plan, idx=None):
-        """K6 against its plain version, within the bound of K6_RTOL."""
-        got = ops.segment_softmax_planned(src, plan, idx)
-        torch.cuda.synchronize()
-        ref = by_columns(ops.segment_softmax_plain, src, plan, idx).float()
-        slot, row = _padded_rows(plan.tile_ptr)
-        at = slot if idx is None else idx[slot].long()
-        n = torch.zeros(ref.shape[0], device=dev)
-        n[at] = torch.bincount(row, minlength=plan.num_rows)[row].float()
-        del slot, row, at
-        nan = torch.isnan(ref)
-        mag = ref.abs().masked_fill(nan, 0.0)
-        err = (got.float() - ref).abs().masked_fill(nan, 0.0)
-        rtol = K6_RTOL + n[:, None] * 2.0**-23
-        if src.dtype == torch.bfloat16:
-            rtol = rtol + 2.0**-7
-        e = float(err.max()) if err.numel() else 0.0
-        errs['K6'] = max(errs['K6'], e)
-        same_nan = torch.equal(torch.isnan(got.float()), nan)
-        # The row sums only in f32: a bf16 output's rounding moves a row's
-        # sum by up to 2^-9, and the f32 cases run the same merges.
-        row_sum = (k6_row_sum_err(got, plan, idx)
-                   if got.dtype == torch.float32 else 0.0)
-        print(f'  K6 {label}: max_abs_err {e:.3g} (tolerance ({K6_RTOL:g} + '
-              f'n * 2^-23{" + 2^-7" if src.dtype == torch.bfloat16 else ""})'
-              f' |plain| + {K6_ATOL:g}); NaN '
-              f'{"where" if same_nan else "NOT where"} the plain version has '
-              f'NaN' + (f'; rows sum to 1 within {row_sum:.3g} (tolerance '
-                        f'{K6_SUM_TOL:g})' if got.dtype == torch.float32
-                        else ''), flush=True)
-        if (got.dtype != src.dtype or not same_nan
-                or bool((err > rtol * mag + K6_ATOL).any())
-                or row_sum > K6_SUM_TOL):
-            raise AssertionError(f'K6 {label} disagrees with its plain '
-                                 f'version: max_abs_err {e}, row sum off '
-                                 f'by {row_sum}')
-        if idx is None and bool(got[~plan.valid_mask].float().abs().sum()):
-            raise AssertionError(f'K6 {label} wrote a pad slot')
-        return e
-
-    def k6_values(rows, f, plan, idx, dtype):
-        """Logits with rows far above (+200) and far below (-200) the rest,
-        -inf at some rows' first slot and a row of -inf in column 0."""
-        slot, row = _padded_rows(plan.tile_ptr)
-        at = slot if idx is None else idx[slot].long()
-        v = torch.randn((rows, f), generator=gen, device=dev) * 4
-        shift = torch.zeros(plan.num_rows, device=dev)
-        shift[0::13] = 200.0
-        shift[5::17] = -200.0
-        v[at] += shift[row][:, None]
-        bounds = plan.tile_ptr[:, 0, :128].reshape(-1)[:plan.num_rows].long()
-        first = bounds[3::11]
-        hit = torch.isin(slot, first)
-        v[at[hit], 0] = float('-inf')
-        v[at[row == 23], 0] = float('-inf')
-        return v.to(dtype)
-
-    def modes(x):
+    def modes(x):  # each input type: f32, bf16, int8 with its column scale
         xq, scale = ops.quantize_columns(x)
         return [('f32', x, None), ('bf16', x.to(torch.bfloat16), None),
                 ('int8', xq, scale)]
 
-    # -- 2. kernel checks at small shapes -------------------------------
     print('kernel checks (small plans):', flush=True)
     rp_u, cl_u = uniform_graph(1000, 16000)
     rp_p, cl_p = powerlaw_graph(3000, 40000)
@@ -854,21 +823,21 @@ def main():
         for mode, xm, scale in modes(x):
             if f != 600:
                 for gname, plan in k1_plans:
-                    check(f'{gname} F={f} {mode}', 'K1', xm[:1000] if
+                    ck.plan(f'{gname} F={f} {mode}', 'K1', xm[:1000] if
                           gname == 'uniform' else xm, plan, scale)
             for kid, pname, plan in k2_plans:
-                check(f'{pname} F={f} {mode}', kid, xm, plan, scale)
+                ck.plan(f'{pname} F={f} {mode}', kid, xm, plan, scale)
         # K2h caches the row list of hot_w's non-zeros: it must follow a
         # hot_w given by _replace after a first call, and one changed in
         # place.
         plan = hot_i8._replace(hot_w=hot_i8.hot_w.clone())
         kernel(x, plan)
         plan = plan._replace(hot_w=plan.hot_w.roll(37, 0))
-        check(f'hot int8, hot_w replaced after a call, F={f} f32', 'K2h', x,
+        ck.plan(f'hot int8, hot_w replaced after a call, F={f} f32', 'K2h', x,
               plan)
         plan.hot_w[plan.hot_w == 1] = 2
         plan.hot_w[:5] = 1
-        check(f'hot int8, hot_w changed in place, F={f} f32', 'K2h', x, plan)
+        ck.plan(f'hot int8, hot_w changed in place, F={f} f32', 'K2h', x, plan)
 
     # K3 over a ragged CSR with 5 leading and 9 trailing positions of no
     # row; K4 in its three index modes; K5 on a plain plan, on the
@@ -894,22 +863,22 @@ def main():
         for dtype in (torch.float32, torch.bfloat16):
             src = torch.randn((cl_r.shape[0] + 14, f), generator=gen,
                               device=dev).to(dtype)
-            check_k3(f'ragged gap+pad F={f} {str(dtype)[6:]}', src, ptr_r)
+            ck.k3(f'ragged gap+pad F={f} {str(dtype)[6:]}', src, ptr_r)
         for values in ('normal', 'ties'):
             for mode, rows, idx in k4_modes:
                 src = (tie_values(rows, f, gen, dev) if values == 'ties'
                        else torch.randn((rows, f), generator=gen,
                                         device=dev))
                 for negate in (False, True):
-                    check_k4(f'{mode} F={f} {values} negate={negate}', src,
+                    ck.k4(f'{mode} F={f} {values} negate={negate}', src,
                              k4_plan, idx, negate)
-                    check_k4s(f'{mode} F={f} {values} negate={negate}', src,
+                    ck.k4s(f'{mode} F={f} {values} negate={negate}', src,
                               k4_plan, idx, negate)
             for pname, rows, plan in k5_plans:
                 x = (tie_values(rows, f, gen, dev) if values == 'ties'
                      else torch.randn((rows, f), generator=gen, device=dev))
                 for negate in (False, True):
-                    check_k5(f'{pname} F={f} {values} negate={negate}', x,
+                    ck.k5(f'{pname} F={f} {values} negate={negate}', x,
                              plan, negate)
 
     # K3 and K4 on a hub row of 120,000 edges among 2,000 short rows (a
@@ -934,7 +903,7 @@ def main():
             big = torch.randn(e * f + 1, generator=gen, device=dev).to(dtype)
             for where, src in (('aligned', big[:-1].view(e, f)),
                                ('unaligned', big[1:].view(e, f))):
-                check_k3(f'hub row {where} F={f} {str(dtype)[6:]}', src,
+                ck.k3(f'hub row {where} F={f} {str(dtype)[6:]}', src,
                          ptr_h)
         for values in ('normal', 'ties'):
             for mode, rows, idx in hub_modes:
@@ -944,10 +913,10 @@ def main():
                 for where, src in (
                         ('aligned', big[:rows * f].view(rows, f)),
                         ('unaligned', big[1:rows * f + 1].view(rows, f))):
-                    check_k4(f'hub row {mode} {where} F={f} {values}', src,
+                    ck.k4(f'hub row {mode} {where} F={f} {values}', src,
                              hub_plan, idx, negate=where == 'unaligned')
                     for negate in (False, True):
-                        check_k4s(f'hub row {mode} {where} F={f} {values} '
+                        ck.k4s(f'hub row {mode} {where} F={f} {values} '
                                   f'negate={negate}', src, hub_plan, idx,
                                   negate)
     del big, src
@@ -979,15 +948,13 @@ def main():
                                    ('unaligned', one_element_in(xm[:rows]))):
                     label = f'hub row {name} {where} F={f} {mode}'
                     if kid == 'K1m':
-                        check_msgs(label, src, plan)
+                        ck.msgs(label, src, plan)
                         outs.append(ops.segment_sum_chunked(src, plan))
                     else:
-                        check(label, kid, src, plan, scale)
+                        ck.plan(label, kid, src, plan, scale)
                         outs.append(kernel(src, plan, scale))
-                if not torch.equal(bits(outs[0]), bits(outs[1])):
-                    raise AssertionError(f'{name} F={f} {mode}: the aligned '
-                                         f'and the unaligned x give other '
-                                         f'bits')
+                check_exact(f'{name} F={f} {mode}: the aligned and the '
+                            f'unaligned x', outs[:1], outs[1:])
     del x, xm, outs
 
     # K6 over a ragged plan (empty rows, a partial tile), a uniform plan
@@ -1006,13 +973,13 @@ def main():
                                   ('edge_perm', plan.edge_perm)):
                     rows = (plan.col_padded.shape[0] if idx is None else
                             max(plan.num_edges, 1))
-                    check_k6(f'{pname} {mode} F={f} {str(dtype)[6:]}',
-                             k6_values(rows, f, plan, idx, dtype), plan, idx)
+                    ck.k6(f'{pname} {mode} F={f} {str(dtype)[6:]}',
+                          ck.k6_values(rows, f, plan, idx, dtype), plan, idx)
         for f in (47, 128):
             msgs = torch.randn((plan.col_padded.shape[0], f), generator=gen,
                                device=dev)
             for mode, xm, _ in modes(msgs):
-                check_msgs(f'{pname} F={f} {mode}', xm, plan)
+                ck.msgs(f'{pname} F={f} {mode}', xm, plan)
 
     # K7 over S = 1, 2 and 4 equal ranges, explicit bounds, weights, and a
     # graph whose middle ranges hold no edge (dropped) and whose other two
@@ -1047,42 +1014,43 @@ def main():
             for pname, plan in k7_plans:
                 if plan.weights is not None and mode == 'int8':
                     continue  # refused on weighted plans
-                check(f'{pname} F={f} {mode}', 'K7', xm, plan, scale)
+                ck.plan(f'{pname} F={f} {mode}', 'K7', xm, plan, scale)
 
-    # -- 3. the R-GCN paths, in a process of their own -----------------
-    # The stacked form needs about 55 GB of the card; a process of its own
-    # gives it a fresh allocator with growable segments (PERF.md), and
-    # leaves the other paths' allocator as it was.
-    paths = Paths()
-    launches, by_width, run_path = paths.launches, paths.by_width, paths.run
+
+def run_children(paths):
+    """3. The paths that run in processes of their own, one after the
+    other, their launches added to ``paths``'s: the R-GCN's (its stacked
+    form needs about 55 GB of the card; a fresh allocator with growable
+    segments, PERF.md, leaves the other paths' allocator as it was), the
+    huge-graph step's (its graphs and plans leave with it), the host
+    layer's (Reddit's graph and features take some 2 GB of the host) and
+    the distribution's (four ranks of the card). Returns their results by
+    flag."""
+    import torch
+
     torch.cuda.empty_cache()
-    rgcn = child('--rgcn', RGCN_RESULT)
-    # -- 3a. the huge-graph step over sharded plans, in a process of its
-    # own too (its graphs and plans leave with it) ----------------------
-    sharded = child('--sharded', SHARDED_RESULT)
-    # -- 3b. the host layer's paths A, C, D and E, in a process of their
-    # own too (Reddit's graph and features take some 2 GB of the host) ---
-    host = child('--host', HOST_RESULT)
-    # -- 3c. distribution: four ranks of the card (paths H, T, E, N), in
-    # a process of its own too ----------------------------------------
-    dist = child('--dist', DIST_RESULT)
-    for res in (rgcn, sharded, host, dist):
-        for k, n in res['launches'].items():
-            launches[k] += n
-        for kid, f, n in res['by_width']:
-            by_width[kid, f] = by_width.get((kid, f), 0) + n
+    res = {flag: child(f'--{flag}', result) for flag, result in (
+        ('rgcn', RGCN_RESULT), ('sharded', SHARDED_RESULT),
+        ('host', HOST_RESULT), ('dist', DIST_RESULT))}
+    for r in res.values():
+        for k, n in r['launches'].items():
+            paths.launches[k] += n
+        for kid, f, n in r['by_width']:
+            paths.by_width[kid, f] = paths.by_width.get((kid, f), 0) + n
+    return res
 
-    def profile_step(label, model, graph, ms, top_n=8, call=None):
-        """One profiled training step (:func:`profile`); ``call``
-        replaces ``model(x, graph)``."""
-        def step():
-            model.zero_grad()
-            out = model(x, graph) if call is None else call()
-            torch.nn.functional.cross_entropy(out, labels).backward()
 
-        profile(label, step, ms, top_n)
+def bench_graphs(ck, children):
+    """3. The bench graphs and the tensors the paths share, and each kernel
+    against its plain version at the main paths' shapes. Returns the
+    graphs and those errors (the children's, at their paths' shapes, too)."""
+    import torch
 
-    # -- 3d. the graphs at bench scale ----------------------------------
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels.plan_cache import plan_for_ptr
+    from pyg_lib_tpu_torch.testing import powerlaw_graph, uniform_graph
+
+    dev = ck.dev
     t0 = time.perf_counter()
     rp_u, cl_u = uniform_graph(N_NODES, N_EDGES)
     g_u = ops.build_spmm_graph(rp_u, cl_u, with_edge_maps=True,
@@ -1133,14 +1101,21 @@ def main():
             and g_w.fwd.weights is not None and g_w.bwd.weights is not None
             and len(g_w.bwd.plans) == RANGES):
         raise AssertionError('bench graphs did not get the expected plans')
-    graphs = {'uniform': g_u, 'powerlaw': g_p}
-    sage_graphs = {'uniform': g_u, 'powerlaw': g_pp}
     ptr_u = torch.tensor(rp_u, device=dev)
-    row_u = torch.tensor(cl_u.astype(np.int64), device=dev)
-    csr_plan = plan_for_ptr(ptr_u)  # the planned segment_max_csr's plan
+    t_ptr_p = np.zeros(N_NODES + 1, np.int64)
+    np.cumsum(np.bincount(cl_p, minlength=N_NODES), out=t_ptr_p[1:])
+    ptr_tp = torch.tensor(t_ptr_p, device=dev)
+    b = SimpleNamespace(
+        rp_u=rp_u, cl_u=cl_u, rp_p=rp_p, cl_p=cl_p, e_u=e_u, e_p=e_p,
+        g_u=g_u, g_p=g_p, g_pp=g_pp, g_uf=g_uf, g_ur=g_ur, g_w=g_w, w_u=w_u,
+        graphs={'uniform': g_u, 'powerlaw': g_p},
+        sage_graphs={'uniform': g_u, 'powerlaw': g_pp},
+        ptr_u=ptr_u, row_u=torch.tensor(cl_u.astype(np.int64), device=dev),
+        csr_plan=plan_for_ptr(ptr_u),  # the planned segment_max_csr's plan
+        t_ptr_p=t_ptr_p, ptr_tp=ptr_tp, plan_tp=plan_for_ptr(ptr_tp))
 
     print('kernel checks (main-path shapes):', flush=True)
-    main_errs = {k: 0.0 for k in COUNTERS}
+    mc = Checks(dev, ck.gen)
     sides = [('K1', 'uniform fwd', g_u.fwd), ('K1', 'uniform bwd', g_u.bwd),
              ('K2h', 'powerlaw fwd', g_p.fwd),
              ('K2', 'powerlaw bwd', g_p.bwd),
@@ -1149,27 +1124,22 @@ def main():
              ('K7', 'uniform weighted fwd', g_w.fwd),
              ('K7', 'uniform weighted bwd', g_w.bwd)]
     for f in (F_BENCH, DIMS[-1]):
-        x = torch.randn((N_NODES, f), generator=gen, device=dev)
-        found = [(kid, check(f'{label} F={f} f32', kid, x, plan))
-                 for kid, label, plan in sides]
+        x = torch.randn((N_NODES, f), generator=mc.gen, device=mc.dev)
+        for kid, label, plan in sides:
+            mc.plan(f'{label} F={f} f32', kid, x, plan)
         for negate in (False, True):
-            found.append(('K4', check_k4(
-                f'uniform fwd col_padded F={f} negate={negate}', x,
-                g_u.fwd, g_u.fwd.col_padded, negate)))
-            found.append(('K5', check_k5(
-                f'powerlaw mm F={f} negate={negate}', x, g_p.mm, negate)))
-        found.append(('K4', check_k4(f'powerlaw fwd col_padded F={f}', x,
-                                     g_pp.fwd, g_pp.fwd.col_padded)))
-        msgs = x[row_u]
-        found.append(('K3', check_k3(f'uniform CSR F={f} f32', msgs, ptr_u)))
-        found.append(('K4', check_k4(f'uniform CSR edge_perm F={f}', msgs,
-                                     csr_plan, csr_plan.edge_perm)))
+            mc.k4(f'uniform fwd col_padded F={f} negate={negate}', x,
+                  g_u.fwd, g_u.fwd.col_padded, negate)
+            mc.k5(f'powerlaw mm F={f} negate={negate}', x, g_p.mm, negate)
+        mc.k4(f'powerlaw fwd col_padded F={f}', x, g_pp.fwd,
+              g_pp.fwd.col_padded)
+        msgs = x[b.row_u]
+        mc.k3(f'uniform CSR F={f} f32', msgs, b.ptr_u)
+        mc.k4(f'uniform CSR edge_perm F={f}', msgs, b.csr_plan,
+              b.csr_plan.edge_perm)
         for negate in (False, True):
-            found.append(('K4s', check_k4s(
-                f'uniform CSR edge_perm F={f} negate={negate}', msgs,
-                csr_plan, csr_plan.edge_perm, negate)))
-        for kid, e in found:
-            main_errs[kid] = max(main_errs[kid], e)
+            mc.k4s(f'uniform CSR edge_perm F={f} negate={negate}', msgs,
+                   b.csr_plan, b.csr_plan.edge_perm, negate)
         del x, msgs
         torch.cuda.empty_cache()
 
@@ -1178,94 +1148,131 @@ def main():
     # rows of about 0.8M edges) through edge_perm. K1's msgs_padded entry
     # on the uniform plan's padded messages at F=512 (pad slots 0, as
     # GAT's weighted messages).
-    plan = g_u.fwd
-    e_pad_u = plan.col_padded.numel()
-    main_errs['K6'] = check_k6('uniform fwd padded F=4', k6_values(
-        e_pad_u, HEADS, plan, None, torch.float32), plan)
-    t_ptr_p = np.zeros(N_NODES + 1, np.int64)
-    np.cumsum(np.bincount(cl_p, minlength=N_NODES), out=t_ptr_p[1:])
-    ptr_tp = torch.tensor(t_ptr_p, device=dev)
-    plan_tp = plan_for_ptr(ptr_tp)
-    src_tp = torch.randn((e_p, HEADS), generator=gen, device=dev)
-    main_errs['K6'] = max(main_errs['K6'], check_k6(
-        'powerlaw transpose CSR edge_perm F=4', src_tp, plan_tp,
-        plan_tp.edge_perm))
-    via_op = ops.softmax_csr(src_tp, ptr_tp)
-    if not torch.equal(via_op, ops.segment_softmax_planned(
-            src_tp, plan_tp, plan_tp.edge_perm)):
+    plan, plan_tp = g_u.fwd, b.plan_tp
+    mc.k6('uniform fwd padded F=4', mc.k6_values(
+        plan.col_padded.numel(), HEADS, plan, None, torch.float32), plan)
+    b.src_tp = torch.randn((b.e_p, HEADS), generator=mc.gen, device=mc.dev)
+    mc.k6('powerlaw transpose CSR edge_perm F=4', b.src_tp, plan_tp,
+          plan_tp.edge_perm)
+    if not torch.equal(ops.softmax_csr(b.src_tp, b.ptr_tp),
+                       ops.segment_softmax_planned(b.src_tp, plan_tp,
+                                                   plan_tp.edge_perm)):
         raise AssertionError('softmax_csr did not take the planned K6 path')
     print(f'  softmax_csr on the power-law transpose CSR (longest row '
-          f'{int(np.diff(t_ptr_p).max())} edges) is K6 through edge_perm',
+          f'{int(np.diff(b.t_ptr_p).max())} edges) is K6 through edge_perm',
           flush=True)
-    del via_op
-    msgs_u = torch.randn((e_pad_u, F_BENCH), generator=gen, device=dev)
+    msgs_u = torch.randn((plan.col_padded.numel(), F_BENCH), generator=mc.gen,
+                         device=mc.dev)
     msgs_u.mul_(plan.valid_mask[:, None])
-    main_errs['K1m'] = check_msgs(f'uniform fwd F={F_BENCH}', msgs_u, plan)
+    mc.msgs(f'uniform fwd F={F_BENCH}', msgs_u, plan)
     del msgs_u
     torch.cuda.empty_cache()
-    for kid, e in [*rgcn['errs'].items(), *sharded['errs'].items()]:
-        main_errs[kid] = max(main_errs[kid], e)  # at those paths' shapes
-        errs[kid] = max(errs[kid], e)
+    for kid, e in [*mc.errs.items(), *children['rgcn']['errs'].items(),
+                   *children['sharded']['errs'].items()]:
+        mc.errs[kid] = max(mc.errs[kid], e)  # at those paths' shapes
+        ck.errs[kid] = max(ck.errs[kid], e)
+    return b, mc.errs
 
-    # -- 4. the main paths, each counted on its own ----------------------
-    x = torch.randn((N_NODES, DIMS[0]), generator=gen, device=dev)
-    labels = torch.randint(0, DIMS[-1], (N_NODES, ), generator=gen,
-                           device=dev)
 
-    def train(models, gdict, split=None, call=False):
-        """``STEPS`` SGD steps per graph; ms per step after the first.
-        ``split`` (a dict with a ``'kid'``) also counts that kernel's
-        launches in the forwards and in the backwards apart. With
-        ``call``, each ``gdict`` value is the tuple of batch tensors the
-        model takes after ``x``."""
-        def count():
-            return 0 if split is None else getattr(
-                getattr(ops, COUNTERS[split['kid']][0]),
-                COUNTERS[split['kid']][1])
+def train_steps(loss_of, opt, split=None):
+    """``STEPS`` steps of ``loss_of()``: its backward and ``opt``'s step.
+    Returns the ms per step after the first (which pays cuBLAS set-up) and
+    the losses, which must be finite. ``split`` (a dict with a ``'kid'``)
+    also counts that kernel's launches in the forwards and in the
+    backwards apart."""
+    import torch
 
-        step_ms = {}
-        for gname, graph in gdict.items():
-            model = models[gname]
-            opt = torch.optim.SGD(model.parameters(), lr=0.1)
-            for step in range(STEPS):
-                if step == 1:  # the first step pays cuBLAS set-up
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                opt.zero_grad()
-                c0 = count()
-                out = model(x, *graph) if call else model(x, graph)
-                loss = torch.nn.functional.cross_entropy(out, labels)
-                c1 = count()
-                loss.backward()
-                if split is not None:
-                    split['forward'] = split.get('forward', 0) + c1 - c0
-                    split['backward'] = (split.get('backward', 0) + count()
-                                         - c1)
-                opt.step()
-                if not torch.isfinite(loss):
-                    raise AssertionError(f'loss on {gname} is not finite')
+    from pyg_lib_tpu_torch import ops
+
+    def count():
+        return 0 if split is None else getattr(
+            getattr(ops, COUNTERS[split['kid']][0]),
+            COUNTERS[split['kid']][1])
+
+    losses = []
+    for step in range(STEPS):
+        if step == 1:
             torch.cuda.synchronize()
-            step_ms[gname] = (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
-        return step_ms
+            t0 = time.perf_counter()
+        opt.zero_grad()
+        c0 = count()
+        loss = loss_of()
+        c1 = count()
+        loss.backward()
+        if split is not None:
+            split['forward'] = split.get('forward', 0) + c1 - c0
+            split['backward'] = split.get('backward', 0) + count() - c1
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'losses {losses} are not finite')
+    return ms, losses
 
-    cpu_gen = torch.Generator().manual_seed(0)
+
+def train(models, gdict, x, labels, split=None, call=False):
+    """:func:`train_steps` of SGD per graph of ``gdict`` with its model of
+    ``models`` on ``x`` and ``labels``; ms per step after the first, by
+    graph. With ``call``, each ``gdict`` value is the tuple of batch
+    tensors the model takes after ``x``."""
+    import torch
+
+    step_ms = {}
+    for gname, graph in gdict.items():
+        model = models[gname]
+        step_ms[gname], _ = train_steps(
+            lambda: torch.nn.functional.cross_entropy(
+                model(x, *graph) if call else model(x, graph), labels),
+            torch.optim.SGD(model.parameters(), lr=0.1), split)
+    return step_ms
+
+
+def profile_step(label, model, graph, ms, b, top_n=8, call=None):
+    """One profiled training step (:func:`profile`) on ``b.x`` and
+    ``b.labels``; ``call`` replaces ``model(b.x, graph)``."""
+    import torch
+
+    def step():
+        model.zero_grad()
+        out = model(b.x, graph) if call is None else call()
+        torch.nn.functional.cross_entropy(out, b.labels).backward()
+
+    profile(label, step, ms, top_n)
+
+
+def gcn_sage_paths(ck, b, run_path):
+    """4 and 5. GCN and the GraphSAGE max-pool train over the bench graphs'
+    plans, ``spmm`` max and min and ``sage_forward`` run forward and
+    backward, each a main path; then each against the plain versions."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.models import GCN, SAGE, sage_forward
+    from pyg_lib_tpu_torch.testing import (SUM_BOUND, abs_plan, check_exact,
+                                           check_sum, cuda_ms)
+
+    gen, dev = ck.gen, ck.dev
+    g_u, g_p, graphs, sage_graphs = b.g_u, b.g_p, b.graphs, b.sage_graphs
+    ptr_u, row_u, csr_plan = b.ptr_u, b.row_u, b.csr_plan
+    b.x = x = torch.randn((N_NODES, DIMS[0]), generator=gen, device=dev)
+    b.labels = labels = torch.randint(0, DIMS[-1], (N_NODES, ),
+                                      generator=gen, device=dev)
+
+    b.cpu_gen = cpu_gen = torch.Generator().manual_seed(0)
     gcn = {k: GCN(DIMS, generator=cpu_gen, device=dev) for k in graphs}
-    gcn_ms = run_path('GCN', ('K1', 'K2', 'K2h'), lambda: train(gcn, graphs))
-    print(f'  {STEPS} GCN {DIMS} training steps per graph; ms per step '
-          f'after the first {gcn_ms}', flush=True)
     sage = {k: SAGE(DIMS, generator=cpu_gen, device=dev)
             for k in sage_graphs}
-    sage_ms = run_path('SAGE max-pool', ('K4', ),
-                       lambda: train(sage, sage_graphs))
-    print(f'  {STEPS} SAGE max-pool {DIMS} training steps per graph; ms per '
-          f'step after the first {sage_ms}', flush=True)
-
-    for mname, models, gdict, ms in (('GCN', gcn, graphs, gcn_ms),
-                                     ('SAGE max-pool', sage, sage_graphs,
-                                      sage_ms)):
+    for mname, models, gdict, need in (
+            ('GCN', gcn, graphs, ('K1', 'K2', 'K2h')),
+            ('SAGE max-pool', sage, sage_graphs, ('K4', ))):
+        ms = run_path(mname, need, lambda: train(models, gdict, x, labels))
+        print(f'  {STEPS} {mname} {DIMS} training steps per graph; ms per '
+              f'step after the first {ms}', flush=True)
         for gname, graph in gdict.items():
             profile_step(f'{mname} {gname}', models[gname], graph,
-                         ms[gname])
+                         ms[gname], b)
 
     xs = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev,
                      requires_grad=True)
@@ -1283,7 +1290,8 @@ def main():
     mm_res = run_path('spmm max/min', ('K4', 'K5'), minmax_path)
 
     sage_params = SAGE(DIMS, generator=cpu_gen, device=dev).params()
-    cot47 = torch.randn((N_NODES, DIMS[-1]), generator=gen, device=dev)
+    b.cot47 = cot47 = torch.randn((N_NODES, DIMS[-1]), generator=gen,
+                                  device=dev)
     leaves = [p for layer in sage_params['layers'] for p in layer.values()]
 
     def sage_forward_path():
@@ -1302,31 +1310,6 @@ def main():
                       sage_forward_path)
     print('  sage_forward forward + backward ms: ' + ', '.join(
         f'{a} {r[2]:.3f}' for a, r in sf_res.items()), flush=True)
-
-    # -- 5. each path against the plain versions ------------------------
-    def plain_gcn(params, x, graph):
-        inv = torch.rsqrt(graph.deg.clamp(min=1.0))[:, None]
-        layers = params['layers']
-        for i, layer in enumerate(layers):
-            h = x @ layer['w']
-            x = plain(h * inv, graph.fwd) * inv + h * inv**2 + layer['b']
-            if i < len(layers) - 1:
-                x = torch.relu(x)
-        return x
-
-    def plain_maxpool(params, x, graph):
-        plan = graph.fwd
-        empty = (graph.deg < 0.5)[:, None]
-        layers = params['layers']
-        for i, layer in enumerate(layers):
-            h = torch.relu(x @ layer['w_nbr'])
-            agg = by_columns(ops.segment_max_plain, h, plan,
-                             plan.col_padded)[0]
-            agg = torch.where(empty, torch.zeros_like(agg), agg)
-            x = x @ layer['w_self'] + agg + layer['b']
-            if i < len(layers) - 1:
-                x = torch.relu(x)
-        return x
 
     fwd_ms = {}
     with torch.no_grad():
@@ -1354,47 +1337,26 @@ def main():
         cg = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
         (gk, ) = torch.autograd.grad((ops.spmm(xg, graph) * cg).sum(), xg)
         (gp, ) = torch.autograd.grad((plain(xg, graph.fwd) * cg).sum(), xg)
-        bound = plain(cg.abs(), abs_plan(graph.bwd))
-        err = (gk - gp).abs()
-        e = float(err.max())
+        e = check_sum(f'spmm grad {gname}', gk, gp,
+                      plain(cg.abs(), abs_plan(graph.bwd)))
         print(f'spmm grad {gname}: max_abs_err {e:.3g} (tolerance '
-              f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
-        if float((err - SUM_RTOL * bound - SUM_ATOL).max()) > 0:
-            raise AssertionError(f'spmm gradient on {gname} disagrees')
-        del xg, cg, gk, gp, bound, err
+              f'{SUM_BOUND})', flush=True)
+        del xg, cg, gk, gp
         torch.cuda.empty_cache()
 
     # spmm max/min: values bit for bit, the gradient as the winners' sums.
     xd = xs.detach()
     for (gname, reduce), (out, grad) in mm_res.items():
         graph = g_p if gname == 'powerlaw' else g_u
-        plan = graph.mm if graph.mm is not None else graph.fwd
-        is_min = reduce == 'min'
-        if isinstance(plan, ops.DedupMinmaxPlan):
-            vals, pos = by_columns(ops.dedup_minmax_plain, xd, plan, is_min)
-            idx = plan.uniq_cols
-        else:
-            vals, pos = by_columns(ops.segment_max_plain, xd, plan,
-                                   plan.col_padded, is_min)
-            idx = plan.col_padded
-        empty = (graph.deg < 0.5)[:, None]
-        vals = torch.where(empty, torch.zeros_like(vals),
-                           -vals if is_min else vals)
-        hit = ~empty & (pos < POS_NONE)
-        tgt = torch.where(hit, idx[torch.where(hit, pos, 0).long()],
-                          N_NODES).long()
+        vals, tgt = winners(xd, [graph.mm if graph.mm is not None else
+                                 graph.fwd], graph.deg, reduce == 'min')
         grads = [torch.zeros((N_NODES + 1, F_BENCH), device=dev)
                  .scatter_add_(0, tgt, c)[:N_NODES] for c in (cot, cot.abs())]
-        same = torch.equal(bits(out), bits(vals))
-        e = float((grad - grads[0]).abs().max())
-        print(f'spmm {reduce} {gname}: values '
-              f'{"equal bit for bit" if same else "DIFFER"}; grad '
-              f'max_abs_err {e:.3g} (tolerance {SUM_RTOL:g} * sum|terms| + '
-              f'{SUM_ATOL:g})', flush=True)
-        if not same or bool(((grad - grads[0]).abs() > SUM_RTOL * grads[1] +
-                             SUM_ATOL).any()):
-            raise AssertionError(f'spmm {reduce} on {gname} disagrees')
-        del vals, pos, grads, tgt
+        check_exact(f'spmm {reduce} {gname} values', (out, ), (vals, ))
+        e = check_sum(f'spmm {reduce} {gname} grad', grad, *grads)
+        print(f'spmm {reduce} {gname}: values equal bit for bit; grad '
+              f'max_abs_err {e:.3g} (tolerance {SUM_BOUND})', flush=True)
+        del vals, grads, tgt
     del mm_res, xs, xd, cot
     torch.cuda.empty_cache()
 
@@ -1438,7 +1400,86 @@ def main():
         torch.cuda.empty_cache()
     del sf_res
 
-    # -- 5b. attention and range-split paths, each checked -------------
+
+def plain_gcn(params, x, graph):
+    """GCN's forward through the plain versions."""
+    import torch
+
+    inv = torch.rsqrt(graph.deg.clamp(min=1.0))[:, None]
+    layers = params['layers']
+    for i, layer in enumerate(layers):
+        h = x @ layer['w']
+        x = plain(h * inv, graph.fwd) * inv + h * inv**2 + layer['b']
+        if i < len(layers) - 1:
+            x = torch.relu(x)
+    return x
+
+def plain_maxpool(params, x, graph):
+    """The GraphSAGE max-pool's forward through the plain versions."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    plan = graph.fwd
+    empty = (graph.deg < 0.5)[:, None]
+    layers = params['layers']
+    for i, layer in enumerate(layers):
+        h = torch.relu(x @ layer['w_nbr'])
+        agg = by_columns(ops.segment_max_plain, h, plan,
+                         plan.col_padded)[0]
+        agg = torch.where(empty, torch.zeros_like(agg), agg)
+        x = x @ layer['w_self'] + agg + layer['b']
+        if i < len(layers) - 1:
+            x = torch.relu(x)
+    return x
+
+
+def plain_gat(params, x, graph):
+    """The GAT forward through the plain versions, ``BLOCK`` feature
+    columns of the weighted messages at a time."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+
+    plan = graph.fwd
+    layers = params['layers']
+    for i, layer in enumerate(layers):
+        heads, out_h = layer['a_src'].shape
+        h = x @ layer['w']
+        hh = h.view(h.shape[0], heads, out_h)
+        s_src = (hh * layer['a_src']).sum(-1)
+        s_dst = (hh * layer['a_dst']).sum(-1)
+        logits = torch.nn.functional.leaky_relu(
+            s_src[plan.col_padded.long()] +
+            s_dst[plan.row_padded.long()], 0.2)
+        alpha = ops.segment_softmax_plain(logits, plan)
+        parts = []
+        for f0 in range(0, h.shape[1], BLOCK):
+            cols = torch.arange(f0, min(f0 + BLOCK, h.shape[1]),
+                                device=x.device)
+            msgs = (h[:, cols].contiguous().index_select(
+                0, plan.col_padded) * alpha[:, cols // out_h])
+            parts.append(ops.segment_sum_chunked_plain(msgs, plan))
+            del msgs
+        x = torch.cat(parts, 1)
+        if i < len(layers) - 1:
+            x = torch.nn.functional.elu(x)
+    return x
+
+
+
+def attention_range_paths(ck, b, run_path):
+    """5b. GAT trains on each graph, a GCN over the range-fused graph, and
+    ``spmm`` runs over the weighted fused and the range-split graphs, each
+    a main path; then each against the plain versions."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.models import GAT, GCN
+    from pyg_lib_tpu_torch.testing import SUM_BOUND, abs_plan, check_sum
+
+    gen, dev, cpu_gen, x, labels = ck.gen, ck.dev, b.cpu_gen, b.x, b.labels
+    g_u, g_pp, g_uf, g_ur, g_w = b.g_u, b.g_pp, b.g_uf, b.g_ur, b.g_w
     # GAT [512, 512, 48], 4 heads, on chunked plans with edge maps: each
     # graph is a path of its own, so each must launch K6 and K1m.
     gat = {}
@@ -1448,38 +1489,10 @@ def main():
                          device=dev)
         gat_ms.update(run_path(f'GAT {gname}', ('K6', 'K1m'),
                                lambda: train({gname: gat[gname]},
-                                             {gname: graph})))
+                                             {gname: graph}, x, labels)))
         torch.cuda.empty_cache()
     print(f'  {STEPS} GAT {GAT_DIMS} ({HEADS} heads) training steps per '
           f'graph; ms per step after the first {gat_ms}', flush=True)
-
-    def plain_gat(params, x, graph):
-        """The GAT forward through the plain versions, ``BLOCK`` feature
-        columns of the weighted messages at a time."""
-        plan = graph.fwd
-        layers = params['layers']
-        for i, layer in enumerate(layers):
-            heads, out_h = layer['a_src'].shape
-            h = x @ layer['w']
-            hh = h.view(h.shape[0], heads, out_h)
-            s_src = (hh * layer['a_src']).sum(-1)
-            s_dst = (hh * layer['a_dst']).sum(-1)
-            logits = torch.nn.functional.leaky_relu(
-                s_src[plan.col_padded.long()] +
-                s_dst[plan.row_padded.long()], 0.2)
-            alpha = ops.segment_softmax_plain(logits, plan)
-            parts = []
-            for f0 in range(0, h.shape[1], BLOCK):
-                cols = torch.arange(f0, min(f0 + BLOCK, h.shape[1]),
-                                    device=dev)
-                msgs = (h[:, cols].contiguous().index_select(
-                    0, plan.col_padded) * alpha[:, cols // out_h])
-                parts.append(ops.segment_sum_chunked_plain(msgs, plan))
-                del msgs
-            x = torch.cat(parts, 1)
-            if i < len(layers) - 1:
-                x = torch.nn.functional.elu(x)
-        return x
 
     with torch.no_grad():
         for gname, graph in (('uniform', g_u), ('powerlaw', g_pp)):
@@ -1489,7 +1502,7 @@ def main():
             del out
             torch.cuda.empty_cache()
     for gname, graph in (('uniform', g_u), ('powerlaw', g_pp)):
-        profile_step(f'GAT {gname}', gat[gname], graph, gat_ms[gname],
+        profile_step(f'GAT {gname}', gat[gname], graph, gat_ms[gname], b,
                      top_n=16)
         torch.cuda.empty_cache()
     del gat
@@ -1500,7 +1513,7 @@ def main():
     gcn_r = GCN(DIMS, generator=cpu_gen, device=dev)
     k7_split = {'kid': 'K7'}
     gcn_r_ms = run_path('GCN range-fused', ('K7', ), lambda: train(
-        {'uniform': gcn_r}, {'uniform': g_uf}, split=k7_split))
+        {'uniform': gcn_r}, {'uniform': g_uf}, x, labels, split=k7_split))
     print(f'  {STEPS} GCN {DIMS} training steps on the uniform graph '
           f'(range_split={RANGES}, range_fused, chunk=auto); ms per step '
           f'after the first {gcn_r_ms}; K7 launches forward '
@@ -1512,7 +1525,8 @@ def main():
     with torch.no_grad():
         close('GCN range-fused forward uniform', gcn_r(x, g_uf),
               plain_gcn(gcn_r.params(), x, g_uf))
-    profile_step('GCN range-fused uniform', gcn_r, g_uf, gcn_r_ms['uniform'])
+    profile_step('GCN range-fused uniform', gcn_r, g_uf, gcn_r_ms['uniform'],
+                 b)
     del gcn_r
     torch.cuda.empty_cache()
 
@@ -1540,22 +1554,32 @@ def main():
                  plain(xd.abs(), abs_plan(graph.fwd))),
                 ('grad', grad, plain(cr, graph.bwd),
                  plain(cr.abs(), abs_plan(graph.bwd)))):
-            err = (got - ref).abs()
-            e = float(err.max())
+            e = check_sum(f'spmm {gname} {what}', got, ref, mag)
             print(f'spmm {gname} {what}: max_abs_err {e:.3g} (tolerance '
-                  f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
-            if bool((err > SUM_RTOL * mag + SUM_ATOL).any()):
-                raise AssertionError(f'spmm {gname} {what} disagrees')
-            del err, ref, mag
+                  f'{SUM_BOUND})', flush=True)
+            del ref, mag
         del out, grad
     del xr, xd, cr, rs_res
     torch.cuda.empty_cache()
 
-    # -- 5c. fused multi-aggregation, COO sums, padded-batch GAT ---------
+
+def fused_paths(ck, b, run_path):
+    """5c. ``fused_scatter_reduce`` (both lists), the sorted-COO sums and
+    the padded-batch GAT, each a main path and each against the plain
+    versions; the fused path timed against the composite."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.models import GATBatch
+    from pyg_lib_tpu_torch.ops.scatter_reduce import _fused as fused_closure
+    from pyg_lib_tpu_torch.testing import cuda_ms
+
+    gen, dev, cpu_gen, x, labels = ck.gen, ck.dev, b.cpu_gen, b.x, b.labels
+    ptr_u, row_u, e_u, cot47 = b.ptr_u, b.row_u, b.e_u, b.cot47
     # The uniform graph's messages x[src] in destination order (F=512);
     # its destinations as a host array (the fused path's index) and on
     # the card (the COO index).
-    dst_np = np.repeat(np.arange(N_NODES), np.diff(rp_u))
+    dst_np = np.repeat(np.arange(N_NODES), np.diff(b.rp_u))
     dst_u = torch.tensor(dst_np, device=dev)
     msgs_f = x[row_u].requires_grad_(True)
     f_msg = msgs_f.shape[1]
@@ -1615,11 +1639,11 @@ def main():
                 del src, o, g
             ref = torch.cat(parts, 1)
             if r in ('min', 'max'):
-                check_exact(f'fused {"+".join(rl)}: {r}', 'K4s', (got, ),
-                            (ref, ))
+                ck.exact(f'fused {"+".join(rl)}: {r}', 'K4s', (got, ),
+                         (ref, ))
             else:
                 mag = mag_u / counts_u if r == 'mean' else mag_u
-                check_sum(f'fused {"+".join(rl)}: {r}', 'K4s', got, ref, mag)
+                ck.sum(f'fused {"+".join(rl)}: {r}', 'K4s', got, ref, mag)
             del ref, parts
         close(f'fused {"+".join(rl)} input gradient', grad, grad_ref)
         del out, grad, grad_ref
@@ -1634,8 +1658,8 @@ def main():
                                  coo_path)
     ref = by_columns(ops.segment_sum_csr_plain, msgs_d, ptr_u)
     mag = by_columns(ops.segment_sum_csr_plain, msgs_d.abs(), ptr_u)
-    check_sum('segment_sum_coo', 'K3', coo_sum, ref, mag)
-    check_sum('segment_mean_coo', 'K3', coo_mean, ref / counts_u,
+    ck.sum('segment_sum_coo', 'K3', coo_sum, ref, mag)
+    ck.sum('segment_mean_coo', 'K3', coo_mean, ref / counts_u,
               mag / counts_u)
     del coo_sum, coo_mean, ref, mag
 
@@ -1680,7 +1704,8 @@ def main():
     gat_b = GATBatch(GAT_BATCH_DIMS, heads=HEADS, generator=cpu_gen,
                      device=dev)
     gat_b_ms = run_path('GATBatch padded', ('K3', ), lambda: train(
-        {'uniform': gat_b}, {'uniform': batch_b}, call=True))['uniform']
+        {'uniform': gat_b}, {'uniform': batch_b}, x, labels,
+        call=True))['uniform']
     print(f'  {STEPS} GATBatch {GAT_BATCH_DIMS} ({HEADS} heads) training '
           f'steps on the uniform graph as one padded batch of {e_slots} '
           f'edge slots; ms per step after the first {gat_b_ms:.3f}',
@@ -1706,22 +1731,65 @@ def main():
         close(f'  GATBatch grad {name}', g, r)
     del out, grads, ref, refs
     torch.cuda.empty_cache()
-    profile_step('GATBatch uniform', gat_b, None, gat_b_ms, top_n=16,
+    profile_step('GATBatch uniform', gat_b, None, gat_b_ms, b, top_n=16,
                  call=lambda: gat_b(x, *batch_b))
     del gat_b, row_b, col_b, batch_b
     torch.cuda.empty_cache()
 
-    # -- 4a. GIN, PointNet++ and DGCNN, and the geometry ops --------------
-    f1_row = geometry_paths(dev, run_path, rp_u, cl_u)
-    torch.cuda.empty_cache()
 
-    paths.restore()
-    print('K1, K1m, K3, K7 and G1 launches on the main paths by width: '
-          + ', '.join(f'{kid} F={f} {n}'
-                      for (kid, f), n in sorted(by_width.items())),
-          flush=True)
+def timed_row(run, run_plain, run_lib, nbytes, flops):
+    """A kernel ``run`` timed beside its plain version ``run_plain`` and
+    one PyTorch call that computes the same function, ``run_lib``, and its
+    bound: the larger of ``nbytes`` at the card's HBM peak and ``flops``
+    at its f32 peak."""
+    from pyg_lib_tpu_torch.testing import cuda_ms
 
-    # -- 6. timing ------------------------------------------------------
+    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+    return {'ms': cuda_ms(run), 'plain_ms': cuda_ms(run_plain, iters=3),
+            'bound_ms': max(nbytes / HBM_BYTES_PER_S,
+                            flops / F32_FLOPS) * 1e3,
+            'bound_by': 'bytes' if by_bytes else 'operations',
+            'library_ms': cuda_ms(run_lib)}
+
+
+def kernel_row(rows, launches, errs, kid, label, run, run_plain, run_lib,
+               nbytes, flops, lib_name, f=F_BENCH):
+    """One kernel's row of the kernels line (:func:`timed_row`, its
+    launches and largest error from ``launches`` and ``errs``), appended
+    to ``rows`` and printed; ``lib_name`` names ``run_lib``."""
+    r = {'name': kid, 'route': 'cuda',
+         'source': f'pyg_lib_tpu_torch/csrc/{SOURCES[kid][0]}',
+         'replaces': SOURCES[kid][1], 'launches': launches[kid],
+         'max_abs_err': errs[kid],
+         **timed_row(run, run_plain, run_lib, nbytes, flops)}
+    was = (f' (earlier design: {EARLIER_MS[kid]:.3f} ms)'
+           if kid in EARLIER_MS else '')
+    print(f'  {kid} {label} F={f} f32: {r["ms"]:.3f} ms{was}, plain '
+          f'{r["plain_ms"]:.3f} ms, {lib_name} {r["library_ms"]:.3f} '
+          f'ms, bound {r["bound_ms"]:.3f} ms ({r["bound_by"]}: '
+          f'{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)', flush=True)
+    rows.append(r)
+
+
+def timing(ck, b, paths, main_errs, children, f1_row):
+    """6. The kernels timed; returns the kernels line's rows (the child
+    processes' included)."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
+    from pyg_lib_tpu_torch.testing import cuda_ms
+
+    rows = []
+    row = functools.partial(kernel_row, rows, paths.launches, main_errs)
+    gen, dev, e_u, e_p, w_u = ck.gen, ck.dev, b.e_u, b.e_p, b.w_u
+    rp_u, cl_u, rp_p, cl_p = b.rp_u, b.cl_u, b.rp_p, b.cl_p
+    ptr_u, row_u, csr_plan = b.ptr_u, b.row_u, b.csr_plan
+    g_u, g_p, g_uf, g_ur, g_w = b.g_u, b.g_p, b.g_uf, b.g_ur, b.g_w
+    ptr_tp, plan_tp, src_tp, t_ptr_p = b.ptr_tp, b.plan_tp, b.src_tp, b.t_ptr_p
+    launches, by_width = paths.launches, paths.by_width
+    host, dist = children['host'], children['dist']
+    e_pad_u = g_u.fwd.col_padded.numel()
     csr = {}
     for gname, (rp, cl) in {'uniform': (rp_u, cl_u),
                             'powerlaw': (rp_p, cl_p)}.items():
@@ -1731,8 +1799,8 @@ def main():
         csr[gname] = (a, a.t().to_sparse_csr())
     xb = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev)
     print('spmm (bench.py useful bytes: E*F*4 + E*4 + N*F*4):', flush=True)
-    for gname, graph in graphs.items():
-        e = e_u if gname == 'uniform' else e_p
+    for gname, graph in b.graphs.items():
+        e = b.e_u if gname == 'uniform' else b.e_p
         useful = e * F_BENCH * 4 + e * 4 + N_NODES * F_BENCH * 4
         lib_ms = cuda_ms(lambda: torch.sparse.mm(csr[gname][0], xb))
         for prec in (None, 'bf16'):
@@ -1741,29 +1809,6 @@ def main():
                   f'{useful / ms / 1e6:.1f} GB/s, bound '
                   f'{useful / HBM_BYTES_PER_S * 1e3:.3f} ms; '
                   f'torch.sparse.mm f32 {lib_ms:.3f} ms', flush=True)
-
-    rows = []
-
-    def row(kid, label, run, run_plain, run_lib, nbytes, flops, lib_name,
-            f=F_BENCH):
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-        r = {
-            'name': kid, 'route': 'cuda',
-            'source': f'pyg_lib_tpu_torch/csrc/{SOURCES[kid][0]}',
-            'replaces': SOURCES[kid][1], 'launches': launches[kid],
-            'max_abs_err': main_errs[kid], 'ms': cuda_ms(run),
-            'plain_ms': cuda_ms(run_plain, iters=3), 'bound_ms': bound_ms,
-            'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >=
-                         flops / F32_FLOPS else 'operations'),
-            'library_ms': cuda_ms(run_lib),
-        }
-        was = (f' (earlier design: {EARLIER_MS[kid]:.3f} ms)'
-               if kid in EARLIER_MS else '')
-        print(f'  {kid} {label} F={f} f32: {r["ms"]:.3f} ms{was}, plain '
-              f'{r["plain_ms"]:.3f} ms, {lib_name} {r["library_ms"]:.3f} '
-              f'ms, bound {bound_ms:.3f} ms ({r["bound_by"]}: '
-              f'{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP)', flush=True)
-        rows.append(r)
 
     for kid, label, plan, lib in (
             ('K1', 'uniform fwd', g_u.fwd, csr['uniform'][0]),
@@ -1845,9 +1890,9 @@ def main():
     # edges), each held against its plain version first; beside each,
     # torch.segment_reduce on the same messages.
     msgs = torch.randn((e_p, F_BENCH), generator=gen, device=dev)
-    hub_k3_err = check_k3(f'powerlaw transpose CSR F={F_BENCH} f32', msgs,
+    hub_k3_err = ck.k3(f'powerlaw transpose CSR F={F_BENCH} f32', msgs,
                           ptr_tp)
-    check_k4(f'powerlaw transpose CSR edge_perm F={F_BENCH}', msgs, plan_tp,
+    ck.k4(f'powerlaw transpose CSR edge_perm F={F_BENCH}', msgs, plan_tp,
              plan_tp.edge_perm)
     torch.cuda.empty_cache()
     hub = {
@@ -1885,7 +1930,7 @@ def main():
           f'messages gathered beforehand): {reduce_only:.3f} ms', flush=True)
     torch.cuda.empty_cache()
     mm = g_p.mm
-    rp_d, cl_d = ops.dedup_pairs(rp_p, cl_p)
+    rp_d, cl_d = ops.dedup_pairs(b.rp_p, b.cl_p)
     ptr_d = torch.tensor(rp_d, device=dev)
     idx_d = torch.tensor(cl_d, device=dev)
     msgs = xb[idx_d]
@@ -1987,7 +2032,7 @@ def main():
     # its row is F=256's, F=100's beside it.
     del msgs, xb
     torch.cuda.empty_cache()
-    g1, errs['G1'] = g1_rows(dev)
+    g1, ck.errs['G1'] = g1_rows(dev)
     rows.append(dict(
         g1[G1_WIDTHS[0]], name='G1', route='cuda',
         source=f'pyg_lib_tpu_torch/csrc/{SOURCES["G1"][0]}',
@@ -1995,7 +2040,7 @@ def main():
         **{f'f{f}': g1[f] for f in G1_WIDTHS[1:]}))
     # K1's pieces, timed by the sharded process over the huge power-law
     # graph's hub rows.
-    rows.append(dict(sharded['row'], launches=launches['K1p']))
+    rows.append(dict(children['sharded']['row'], launches=launches['K1p']))
     rows.append(dict(f1_row, launches=launches['F1']))
     # K3 on path A's batches (Reddit's shape) and on path P's
     # (ogbn-products'), at each width it ran at there, with its launches
@@ -2016,7 +2061,7 @@ def main():
         k3[key] = {f: dict(r, launches=p['widths'].get(f, 0),
                            launches_per_rank=p['per_rank'])
                    for f, r in dist['k3_' + label.lower()].items()}
-    return smi, errs, rows
+    return rows
 
 
 def child(flag, result):
@@ -2103,6 +2148,11 @@ class Paths:
                 widths[key] = widths.get(key, 0) + n
         return result
 
+    def widths(self, counts=None):
+        """``by_width`` (or ``counts``) as ``[[kid, f, n], ...]``."""
+        return [[kid, f, n] for (kid, f), n in
+                sorted((self.by_width if counts is None else counts).items())]
+
     def restore(self):
         """Put the C entry points back."""
         from pyg_lib_tpu_torch import _build
@@ -2111,10 +2161,14 @@ class Paths:
             setattr(_build.load(lib), fn, tally.fn)
 
 
-def close(label, out, ref, rtol=GCN_RTOL):
-    """``out`` finite, of ``ref``'s shape and within ``rtol * max|ref|``
-    of it."""
+def close(label, out, ref, rtol=None):
+    """``out`` finite, of ``ref``'s shape and within ``rtol`` (by default
+    ``GCN_RTOL``) times ``max|ref|`` of it."""
     import torch
+
+    from pyg_lib_tpu_torch.testing import GCN_RTOL
+
+    rtol = GCN_RTOL if rtol is None else rtol
 
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise AssertionError(f'{label} is malformed')
@@ -2155,25 +2209,46 @@ def profile(label, step, ms, top_n=8):
           flush=True)
 
 
-def rgcn_kid(plan):
-    """The kernel that applies a per-relation plan: K1, K2 or K2h."""
+def winners(x, plans, deg, is_min, block=BLOCK):
+    """The plain versions' max/min values over the min/max or chunked
+    ``plans`` (0 on an empty row) and the winning rows of ``x`` (``n``,
+    its row count, on an empty row), ``block`` columns at a time."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
+
+    n, vals, tgts = x.shape[0], [], []
+    for p in plans:
+        if isinstance(p, ops.DedupMinmaxPlan):
+            v, q = by_columns(ops.dedup_minmax_plain, x, p, is_min,
+                              block=block)
+            idx = p.uniq_cols
+        else:
+            v, q = by_columns(ops.segment_max_plain, x, p, p.col_padded,
+                              is_min, block=block)
+            idx = p.col_padded
+        hit = q < POS_NONE
+        tgts.append(torch.where(hit, idx[torch.where(hit, q, 0).long()],
+                                n).long())
+        vals.append(v)
+        del q, hit
+    rows = deg.shape[0]
+    empty = (deg < 0.5)[:, None]
+    vals = torch.cat(vals)[:rows]
+    vals = torch.where(empty, 0.0, -vals if is_min else vals)
+    return vals, torch.where(empty, n, torch.cat(tgts)[:rows])
+
+
+def kid_of(plan):
+    """The kernel that applies ``plan``: K1, K2, K2h or K5."""
     from pyg_lib_tpu_torch import ops
 
     if isinstance(plan, ops.DedupSpmmPlan):
         return 'K2h' if plan.num_hot else 'K2'
+    if isinstance(plan, ops.DedupMinmaxPlan):
+        return 'K5'
     return 'K1'
-
-
-def plain_sum(x, plan):
-    """The plain version of the kernel that applies ``plan`` (chunked,
-    dedup or fused-range) to ``x``, ``BLOCK`` columns at a time."""
-    from pyg_lib_tpu_torch import ops
-
-    if isinstance(plan, ops.DedupSpmmPlan):
-        return by_columns(ops.dedup_sum_plain, x, plan)
-    if isinstance(plan, ops.FusedRangePlan):
-        return by_columns(ops.fused_range_plain, x, plan)
-    return by_columns(ops.spmm_chunked_plain, x, plan)
 
 
 def describe(plan):
@@ -2181,8 +2256,10 @@ def describe(plan):
     from pyg_lib_tpu_torch import ops
 
     if isinstance(plan, ops.DedupSpmmPlan):
-        return (f'{rgcn_kid(plan)} dedup chunks={plan.num_chunks} '
+        return (f'{kid_of(plan)} dedup chunks={plan.num_chunks} '
                 f'ec={plan.ec} uc={plan.uc} hot={plan.num_hot}')
+    if isinstance(plan, ops.DedupMinmaxPlan):
+        return f'K5 dedup min/max chunks={plan.num_chunks} ec={plan.ec}'
     if isinstance(plan, ops.FusedRangePlan):
         return (f'K7 fused S={len(plan.plans)} chunk={plan.chunk} '
                 f'slots={plan.cat_cols.numel()} '
@@ -2342,7 +2419,6 @@ def rgcn_paths(dev, run_path):
                                           build_rgcn_planned,
                                           rgcn_forward_planned,
                                           rgcn_forward_spmm)
-    from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
     from pyg_lib_tpu_torch.testing import mag_graph
 
     class PlainSpmm(torch.autograd.Function):
@@ -2352,11 +2428,11 @@ def rgcn_paths(dev, run_path):
         @staticmethod
         def forward(ctx, x, graph):
             ctx.graph = graph
-            return plain_sum(x, graph.fwd)
+            return by_columns(plain, x, graph.fwd)
 
         @staticmethod
         def backward(ctx, g):
-            return plain_sum(g.contiguous(), ctx.graph.bwd), None
+            return by_columns(plain, g.contiguous(), ctx.graph.bwd), None
 
     class PlainPadded(torch.autograd.Function):
         """``segment_sum_padded`` with K1m's plain version (its backward
@@ -2439,7 +2515,7 @@ def rgcn_paths(dev, run_path):
                         for i, k in into_paper]),
         np.concatenate([np.repeat(1.0 / np.maximum(deg[k], 1), deg[k])
                         for _, k in into_paper]).astype(np.float32))
-    del deg  # rowptr_d and col_d stay for the mini-batch path (rgcn_main)
+    del deg  # rowptr_d and col_d stay for the mini-batch path (rgcn_child)
     print(f'R-GCN graph (ogbn-mag shape, Zipf(1.2) sources, seed 0): nodes '
           f'{num_nodes}, edges {edges}, longest row and column '
           f'{longest} ({t_gen:.1f} s); plan builds (s) {builds}',
@@ -2461,53 +2537,34 @@ def rgcn_paths(dev, run_path):
             and paper_pad * MAG_DIMS[-1] >= INT32_ELEMENTS):
         raise AssertionError('the R-GCN plans are not the expected ones')
 
+    forms = {'per-relation': graphs, 'stacked': stacked,
+             'range-sliced': sliced}
+
     # -- training, each form a path of its own ----------------------------
     gen = torch.Generator(device=dev).manual_seed(7)
     x_dict = {t: torch.randn((n, MAG_DIMS[0]), generator=gen, device=dev)
               for t, n in num_nodes.items()}
     target = torch.randint(0, MAG_DIMS[-1], (num_nodes['paper'], ),
                            generator=gen, device=dev)
-    model0 = RGCN(MAG_DIMS, len(rels),
-                  generator=torch.Generator().manual_seed(3), device=dev)
-    forms = {'per-relation': graphs, 'stacked': stacked,
-             'range-sliced': sliced}
+    model0 = RGCN(MAG_DIMS, len(rels), device=dev,
+                  generator=torch.Generator().manual_seed(3))
     need = {'per-relation': sorted(
-        {rgcn_kid(g.fwd) for g in graphs.values()} |
-        {rgcn_kid(graphs[k].bwd) for k in rels if k[2] == 'paper'}),
+        {kid_of(g.fwd) for g in graphs.values()} |
+        {kid_of(graphs[k].bwd) for k in rels if k[2] == 'paper'}),
         'stacked': ('K1m', ), 'range-sliced': ('K7', )}
 
     def train_rgcn(model, plans, split):
-        """``STEPS`` Adam steps; ms per step after the first. ``split``
-        gets K7's launches in the forwards and in the backwards."""
-        opt = torch.optim.Adam(model.parameters(), lr=RGCN_LR)
-        losses = []
-        for step in range(STEPS):
-            if step == 1:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            opt.zero_grad()
-            c0 = ops.fused_range_sum.launches
-            loss = torch.nn.functional.cross_entropy(
-                model(x_dict, plans)['paper'], target)
-            c1 = ops.fused_range_sum.launches
-            loss.backward()
-            split['forward'] = split.get('forward', 0) + c1 - c0
-            split['backward'] = (split.get('backward', 0) +
-                                 ops.fused_range_sum.launches - c1)
-            opt.step()
-            losses.append(loss.detach())
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
-        losses = [float(v) for v in losses]
-        if not np.isfinite(losses).all():
-            raise AssertionError(f'R-GCN losses {losses} are not finite')
-        return ms, losses
+        """``STEPS`` Adam steps (:func:`train_steps`); ``split`` gets K7's
+        launches in the forwards and in the backwards."""
+        return train_steps(lambda: torch.nn.functional.cross_entropy(
+            model(x_dict, plans)['paper'], target), torch.optim.Adam(
+                model.parameters(), lr=RGCN_LR), split)
 
     for form, plans in forms.items():
         model = copy.deepcopy(model0)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        split = {}
+        split = {'kid': 'K7'}
         ms, losses = run_path(f'R-GCN {form}', need[form],
                               lambda: train_rgcn(model, plans, split))
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2517,7 +2574,8 @@ def rgcn_paths(dev, run_path):
               f'{[round(v, 4) for v in losses]}; K7 launches forward '
               f'{split["forward"]}, backward {split["backward"]}',
               flush=True)
-        if form == 'range-sliced' and min(split.values()) <= 0:
+        if form == 'range-sliced' and min(split['forward'],
+                                          split['backward']) <= 0:
             raise AssertionError('K7 did not launch in both the forward and '
                                  'the backward of the range-sliced R-GCN')
         def step():
@@ -2566,9 +2624,27 @@ def rgcn_paths(dev, run_path):
         del out
         torch.cuda.empty_cache()
     del first, cots
+    errs = rgcn_kernels(SimpleNamespace(
+        dev=dev, gen=gen, x_dict=x_dict, num_nodes=num_nodes, rels=rels,
+        edges=edges, paper_coo=paper_coo, paper_pad=paper_pad, graphs=graphs,
+        stacked=stacked, forms=forms))
+    torch.cuda.empty_cache()
+    return errs, (num_nodes, rowptr_d, col_d)
 
-    # -- segment_matmul beside one torch.mm, and the kernels on their own
-    # plans at F=349 ------------------------------------------------------
+
+def rgcn_kernels(r):
+    """``segment_matmul`` beside one ``torch.mm``, and the kernels on the
+    forms' plans at F=349, each checked and timed; returns their largest
+    errors."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels import spmm_range_fused as k7_mod
+    from pyg_lib_tpu_torch.testing import SUM_BOUND, check_sum, cuda_ms
+
+    dev, gen, x_dict, stacked = r.dev, r.gen, r.x_dict, r.stacked
+    rels, edges, num_nodes = r.rels, r.edges, r.num_nodes
+    sliced, graphs, paper_coo = r.forms['range-sliced'], r.graphs, r.paper_coo
     with torch.no_grad():
         x_cat = torch.cat([x_dict[k[0]] for k in stacked.rel_order])
         rows = x_cat.shape[0]
@@ -2590,18 +2666,11 @@ def rgcn_paths(dev, run_path):
 
         def check(label, kid, got, ref, mag, against='its plain version',
                   note=''):
-            """A kernel's output against ``ref``, within SUM_RTOL of the
-            sum of the terms' magnitudes (``mag``)."""
-            err = (got.double() - ref.double()).abs()
-            e = float(err.max()) if err.numel() else 0.0
+            """A kernel's output against ``ref`` within the sum bound."""
+            e = check_sum(f'{kid} {label}', got, ref, mag)
             errs[kid] = max(errs.get(kid, 0.0), e)
             print(f'  {kid} {label}: max_abs_err {e:.3g} against {against} '
-                  f'(tolerance {SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})'
-                  f'{note}', flush=True)
-            if (not torch.isfinite(got).all()
-                    or bool((err > SUM_RTOL * mag + SUM_ATOL).any())):
-                raise AssertionError(f'{kid} {label} disagrees with '
-                                     f'{against}: max_abs_err {e}')
+                  f'(tolerance {SUM_BOUND}){note}', flush=True)
 
         def check64(label, kid, got, plan, src):
             """:func:`check` against the f64 sums of the kernel's terms
@@ -2620,11 +2689,9 @@ def rgcn_paths(dev, run_path):
                                ('bwd', graphs[k].bwd)):
                 n_in = num_nodes[k[0] if side == 'fwd' else k[2]]
                 xs = torch.randn((n_in, f), generator=gen, device=dev)
-                run = (ops.dedup_sum if isinstance(plan, ops.DedupSpmmPlan)
-                       else ops.spmm_chunked)
-                kid, label = rgcn_kid(plan), f'per-relation {k[1]} {side}'
-                check64(f'{label} F={f}', kid, run(xs, plan), plan, xs)
-                ms = cuda_ms(lambda: run(xs, plan))
+                kid, label = kid_of(plan), f'per-relation {k[1]} {side}'
+                check64(f'{label} F={f}', kid, kernel(xs, plan), plan, xs)
+                ms = cuda_ms(lambda: kernel(xs, plan))
                 floor = edges[k[1]] * f * 4 / HBM_BYTES_PER_S * 1e3
                 print(f'  {kid} {label} F={f} f32: {ms:.3f} ms, gather '
                       f'floor {floor:.3f} ms', flush=True)
@@ -2679,12 +2746,12 @@ def rgcn_paths(dev, run_path):
                   m.abs(), p), msgs, plan))
         ms = cuda_ms(lambda: ops.segment_sum_chunked(msgs, plan))
         nbytes = msgs.numel() * 4 + plan.num_rows * f * 4
-        print(f'  K1m stacked into paper F={f} f32 over [{paper_pad}, {f}] '
+        print(f'  K1m stacked into paper F={f} f32 over [{r.paper_pad}, {f}] '
               f'messages: {ms:.3f} ms, bound '
               f'{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms', flush=True)
         del msgs
     torch.cuda.empty_cache()
-    return errs, (num_nodes, rowptr_d, col_d)
+    return errs
 
 
 def mag_minibatch(dev, run_path, num_nodes, rowptr_d, col_d):
@@ -2798,37 +2865,38 @@ def mag_minibatch(dev, run_path, num_nodes, rowptr_d, col_d):
         close(f'  R-GCN mini-batch grad {name}', g.cpu(), r)
 
 
-def rgcn_main():
-    """``python3 chip_smoke.py --rgcn``: the R-GCN paths (:func:`rgcn_paths`)
-    in a process of their own, as :func:`main` runs them; its last line is
-    :data:`RGCN_RESULT` and, as JSON, the paths' launch counts (all, and
-    K1's, K1m's and K7's by width) and the kernels' largest errors against
-    their plain versions at the paths' shapes."""
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit('chip_smoke: no CUDA device is available')
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+def child_main(result, run):
+    """A child process of the smoke (``--rgcn``, ``--sharded``, ``--host``):
+    ``run(dev, paths)``'s main paths, counted by :class:`Paths`; its last
+    line is ``result`` and, as JSON, the paths' launch counts and what
+    ``run`` returns."""
     from pyg_lib_tpu_torch import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    dev = card_setup()
     _build.build()  # built by the calling process: loaded
     paths = Paths()
     t0 = time.perf_counter()
-    dev = torch.device('cuda', 0)
+    res = run(dev, paths)
+    paths.restore()
+    print(f'{result.split(" launches")[0]} paths: '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    print(result + json.dumps({'launches': paths.launches, **res}),
+          flush=True)
+
+
+def rgcn_child(dev, paths):
+    """``python3 chip_smoke.py --rgcn``: the R-GCN paths (:func:`rgcn_paths`
+    and path B); the kernels' largest errors against their plain versions
+    at the paths' shapes, and the launches of K1, K1m and K7 by width."""
+    import torch
+
     errs, graph = rgcn_paths(dev, paths.run)
     torch.cuda.empty_cache()  # the full-graph plans are gone
     t1 = time.perf_counter()
     mag_minibatch(dev, paths.run, *graph)
     print(f'R-GCN mini-batch path: {time.perf_counter() - t1:.1f} s',
           flush=True)
-    paths.restore()
-    print(f'R-GCN paths: {time.perf_counter() - t0:.1f} s', flush=True)
-    print(RGCN_RESULT + json.dumps({
-        'launches': paths.launches, 'errs': errs,
-        'by_width': [[kid, f, n] for (kid, f), n in
-                     sorted(paths.by_width.items())]}), flush=True)
+    return {'errs': errs, 'by_width': paths.widths()}
 
 
 def capture_cotangent(out):
@@ -2875,21 +2943,13 @@ def sharded_paths(dev, run_path):
 
     from pyg_lib_tpu_torch import ops
     from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
-    from pyg_lib_tpu_torch.ops.kernels.segment_minmax import POS_NONE
-    from pyg_lib_tpu_torch.testing import HUGE_NODES, huge_graph
+    from pyg_lib_tpu_torch.testing import (HUGE_NODES, SUM_BOUND, bits,
+                                           check_exact, check_sum)
 
-    tspmm = sys.modules['pyg_lib_tpu_torch.ops.spmm']
     n, f = HUGE_NODES, HUGE_F
     errs = {}
     gen = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn((n, f), generator=gen, device=dev)
-
-    def kid_of(plan):
-        if isinstance(plan, ops.DedupSpmmPlan):
-            return 'K2h' if plan.num_hot else 'K2'
-        if isinstance(plan, ops.DedupMinmaxPlan):
-            return 'K5'
-        return 'K1'
 
     def kids(plans):
         out = {kid_of(p) for p in plans}
@@ -2898,75 +2958,55 @@ def sharded_paths(dev, run_path):
             out.add('K1p')
         return out
 
-    def plain_split(xm, plan, scale=None):
-        """The plain version of the split's kernel with its sums in f64
-        (:func:`sums64`): the transpose's hub rows add up to 5.6M terms of
-        one sign, each of which an f32 index_add_ rounds to its running
-        sum's ulp (its result was 1% off on S4's first split)."""
-        out = sums64(xm, plan)
-        return out if scale is None else out * scale[None, :].double()
-
     def depths(plans, rows):
         return torch.cat([depth(p, f) for p in plans])[:rows]
 
     def plain_sharded(v, plans, rows, precision):
         """The sharded sum through the plain versions over the rows the
-        kernels read under ``precision``, and its Σ|terms|, in f64."""
+        kernels read under ``precision``, and its Σ|terms|, in f64
+        (:func:`sums64`): the transpose's hub rows add up to 5.6M terms of
+        one sign, each of which an f32 index_add_ rounds to its running
+        sum's ulp (its result was 1% off on S4's first split)."""
         if precision == 'int8':
             xm, scale = ops.quantize_columns(v)
         else:
             xm, scale = (v.to(torch.bfloat16) if precision == 'bf16'
                          else v), None
-        ref = torch.cat([plain_split(xm, p, scale) for p in plans])[:rows]
-        mag = torch.cat([plain_split(xm.abs(), p, scale)
-                         for p in plans])[:rows]
+        ref, mag = (torch.cat([sums64(m, p) for p in plans])[:rows]
+                    for m in (xm, xm.abs()))
+        if scale is not None:
+            ref, mag = ref * scale.double(), mag * scale.double()
         return ref, mag, scale
 
     def check(label, kid, got, ref, mag, extra=0.0, why='', deep=None):
-        """Within SUM_RTOL * mag + SUM_ATOL, plus ``extra`` (``why``), and,
-        where ``deep`` gives each row's addition depth d (:func:`depth`),
-        plus d * 2**-24 * mag. The error counts as kernel ``kid``'s
-        against its plain version unless ``kid`` is None."""
-        err = (got.double() - ref.double()).abs()
-        e = float(err.max())
+        """:func:`testing.check_sum` with ``extra`` (``why``) and ``deep``,
+        each row's addition depth (:func:`depth`). The error counts as
+        kernel ``kid``'s against its plain version unless ``kid`` is
+        None."""
+        e = check_sum(label, got, ref, mag, extra=extra, depth=deep)
         if kid is not None:
             errs[kid] = max(errs.get(kid, 0.0), e)
-        same = ref.dtype == got.dtype and torch.equal(
-            got.view(torch.int32), ref.view(torch.int32))
-        tol = SUM_RTOL * mag + SUM_ATOL + extra
         if deep is not None:
-            tol = tol + 2.0**-24 * deep[:, None] * mag
             why += (f' + d * 2^-24 * sum|terms| for addition depth d, up '
                     f'to {int(deep.max())}')
-        print(f'  {label}: max_abs_err {e:.3g} (tolerance {SUM_RTOL:g} * '
-              f'sum|terms| + {SUM_ATOL:g}{why}); largest error / '
-              f'max(sum|terms|, 1) {float((err / mag.clamp(min=1)).max()):.3g}'
-              f'{"; equal bit for bit" if same else ""}',
-              flush=True)
-        if (got.shape != ref.shape or not torch.isfinite(got).all()
-                or bool((err > tol).any())):
-            at = divmod(int((err - tol).argmax()), got.shape[1])
-            print(f'  {label}: worst at {at}: got {float(got[at]):.9g}, '
-                  f'plain {float(ref[at]):.9g}, sum|terms| '
-                  f'{float(mag[at]):.9g}, tolerance {float(tol[at]):.9g}',
-                  flush=True)
-            raise AssertionError(f'{label} disagrees: max_abs_err {e}')
+        rel = float(((got.double() - ref.double()).abs()
+                     / mag.clamp(min=1)).max())
+        same = torch.equal(bits(got), bits(ref))
+        print(f'  {label}: max_abs_err {e:.3g} (tolerance {SUM_BOUND}{why}); '
+              f'largest error / max(sum|terms|, 1) {rel:.3g}'
+              f'{"; equal bit for bit" if same else ""}', flush=True)
 
-    def check_exact(label, kid, call, plan, plain):
+    def check_integers(label, kid, call, plan, plain):
         """``call`` on ``plan`` over integers in [-1, 2] against ``plain``,
         bit for bit: every partial sum of a row of up to 5.6M such terms
         is an integer below 2**24, which f32 holds exactly, so a term
         dropped or added twice shows."""
         xi = torch.randint(-1, 3, (n, f), generator=gen, device=dev,
                            dtype=torch.int8).to(torch.bfloat16)
-        got, ref = call(xi, plan), plain(xi, plan)
-        bad = int((got.double() != ref).sum())
-        print(f'  {kid} {label} over integers: '
-              f'{"equal bit for bit to" if not bad else f"{bad} DIFFER from"}'
-              f' the exact sums', flush=True)
-        if bad:
-            raise AssertionError(f'{kid} {label}: {bad} sums of integers '
-                                 f'are not exact')
+        check_exact(f'{kid} {label} over integers',
+                    (call(xi, plan).double(), ), (plain(xi, plan), ))
+        print(f'  {kid} {label} over integers: equal bit for bit to the '
+              f'exact sums', flush=True)
 
     def train(graph, reduce, precision):
         """``STEPS`` steps; ms per step after the first, the last step's
@@ -3041,30 +3081,6 @@ def sharded_paths(dev, run_path):
         check(f'{label} gradient against the unsharded spmm', None, grad,
               grad_u, gmag, extra, why, deep=bdeep + depth(single.bwd, f))
 
-    def winners(plans, deg, is_min):
-        """The plain versions' max/min values (0 on an empty row) and
-        winning source rows (``n`` on an empty row) over ``plans``."""
-        vals, tgts = [], []
-        for p in plans:
-            if isinstance(p, ops.DedupMinmaxPlan):
-                v, q = by_columns(ops.dedup_minmax_plain, x, p, is_min,
-                                  block=HUGE_BLOCK)
-                idx = p.uniq_cols
-            else:
-                v, q = by_columns(ops.segment_max_plain, x, p, p.col_padded,
-                                  is_min, block=HUGE_BLOCK)
-                idx = p.col_padded
-            hit = q < POS_NONE
-            tgts.append(torch.where(hit, idx[torch.where(hit, q, 0).long()],
-                                    n).long())
-            vals.append(v)
-            del q, hit
-        rows = deg.shape[0]
-        empty = (deg < 0.5)[:, None]
-        vals = torch.cat(vals)[:rows]
-        vals = torch.where(empty, 0.0, -vals if is_min else vals)
-        return vals, torch.where(empty, n, torch.cat(tgts)[:rows])
-
     def check_winner_grad(label, out, grad, tgt):
         """The winner-only gradient against the cotangents of ``(out**2)
         .sum()`` added in f64 into the winners ``tgt``, within the sum
@@ -3088,13 +3104,10 @@ def sharded_paths(dev, run_path):
         plans = graph.mm if graph.mm is not None else graph.fwd
         kid = kid_of(plans[0]) if isinstance(plans[0],
                                              ops.DedupMinmaxPlan) else 'K4'
-        vals, tgt = winners(plans, graph.deg, is_min)
-        same = torch.equal(bits(out), bits(vals))
-        print(f'  {kid} {label}: values '
-              f'{"equal bit for bit" if same else "DIFFER"} from the plain '
+        vals, tgt = winners(x, plans, graph.deg, is_min, HUGE_BLOCK)
+        check_exact(f'{label} values', (out, ), (vals, ))
+        print(f'  {kid} {label}: values equal bit for bit from the plain '
               f'versions', flush=True)
-        if not same:
-            raise AssertionError(f'{label} values disagree')
         errs[kid] = errs.get(kid, 0.0)
         del vals
         check_winner_grad(f'{label} gradient against the plain versions',
@@ -3103,13 +3116,11 @@ def sharded_paths(dev, run_path):
         out_u = ops.spmm(xu, single, reduce)
         (grad_u, ) = torch.autograd.grad((out_u**2).sum(), xu)
         out_u = out_u.detach()
-        same = torch.equal(bits(out), bits(out_u))
-        print(f'  {label}: values {"equal bit for bit" if same else "DIFFER"}'
-              f' from the unsharded spmm', flush=True)
-        if not same:
-            raise AssertionError(f'{label} disagrees with the unsharded spmm')
-        _, tgt_u = winners([single.mm if single.mm is not None else
-                            single.fwd], single.deg, is_min)
+        check_exact(f'{label} against the unsharded spmm', (out, ), (out_u, ))
+        print(f'  {label}: values equal bit for bit from the unsharded spmm',
+              flush=True)
+        _, tgt_u = winners(x, [single.mm if single.mm is not None else
+                               single.fwd], single.deg, is_min, HUGE_BLOCK)
         moved = tgt_u != tgt
         pad = torch.cat([x, x.new_zeros((1, f))])
         tied = torch.equal(pad.gather(0, tgt)[moved],
@@ -3123,10 +3134,6 @@ def sharded_paths(dev, run_path):
         del pad, moved, tgt
         check_winner_grad(f'{label} unsharded gradient against its plain '
                           f'versions', out_u, grad_u, tgt_u)
-
-    def timed(build, *args, **kw):
-        t0 = time.perf_counter()
-        return build(*args, **kw), time.perf_counter() - t0
 
     def describe_sides(name, graph):
         for side in ('fwd', 'bwd', 'mm'):
@@ -3152,9 +3159,33 @@ def sharded_paths(dev, run_path):
                   f'{"" if chunks is None else f" chunks={chunks}"}{extra}; '
                   f'kernels {sorted(kids(plans))}', flush=True)
 
-    report = {}
+    h = SimpleNamespace(
+        dev=dev, gen=gen, n=n, f=f, errs=errs, report={}, kids=kids,
+        check=check, check_integers=check_integers, variant=variant,
+        check_mean=check_mean, check_minmax=check_minmax,
+        describe_sides=describe_sides)
+    sharded_uniform(h)
+    row = sharded_powerlaw(h)
+    print(f'sharded build seconds: {h.report}', flush=True)
+    return errs, row
 
-    # -- uniform columns: S1, S3, S2 --------------------------------------
+
+def timed(build, *args, **kw):
+    """``build(*args, **kw)`` and its seconds on the host's clock."""
+    t0 = time.perf_counter()
+    return build(*args, **kw), time.perf_counter() - t0
+
+
+def sharded_uniform(h):
+    """S1, S3 and S2 of :func:`sharded_paths`: uniform columns."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.testing import huge_graph
+
+    n, f, dev, report = h.n, h.f, h.dev, h.report
+    describe_sides = h.describe_sides
+    variant, check_mean, check_minmax = h.variant, h.check_mean, h.check_minmax
     t0 = time.perf_counter()
     rp, cl = huge_graph('uniform')
     edges = int(rp[-1])
@@ -3192,9 +3223,26 @@ def sharded_paths(dev, run_path):
     del g2, u1, rp, cl, deg_in
     torch.cuda.empty_cache()
 
-    # -- Zipf(1.2) columns: S4, S5 ----------------------------------------
+
+
+def sharded_powerlaw(h):
+    """S4 and S5 of :func:`sharded_paths`: Zipf(1.2) columns, and K1 and
+    K2 alone over the hub rows of their first backward split; returns K1's
+    piece row of the kernels line (without its launches)."""
+    import torch
+
+    from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.ops.kernels import spmm_chunked as k1_mod
+    from pyg_lib_tpu_torch.testing import cuda_ms, huge_graph
+
+    tspmm = sys.modules['pyg_lib_tpu_torch.ops.spmm']
+    n, f, dev, gen, report, kids = h.n, h.f, h.dev, h.gen, h.report, h.kids
+    variant, check_mean, check_minmax = h.variant, h.check_mean, h.check_minmax
+    check, check_integers = h.check, h.check_integers
+    describe_sides = h.describe_sides
     t0 = time.perf_counter()
     rp, cl = huge_graph('powerlaw')
+    edges = int(rp[-1])
     t_gen = time.perf_counter() - t0
     g4, report['S4 build s'] = timed(ops.build_spmm_graph_sharded, rp, cl,
                                      HUGE_SPLITS, chunk=512)
@@ -3229,8 +3277,8 @@ def sharded_paths(dev, run_path):
           f'{cut.pieces.shape[0]} pieces) bf16', 'K1p',
           ops.spmm_chunked(g16, plan), sums64(g16, plan),
           sums64(g16.abs(), plan))
-    check_exact('S4 backward split 0', 'K1p', ops.spmm_chunked, plan,
-                sums64)
+    check_integers('S4 backward split 0', 'K1p', ops.spmm_chunked, plan,
+                   sums64)
     k1_ms = {'bf16': cuda_ms(lambda: ops.spmm_chunked(g16, plan), iters=5),
              'f32': cuda_ms(lambda: ops.spmm_chunked(gb, plan), iters=5)}
     plain_ms = cuda_ms(lambda: by_columns(ops.spmm_chunked_plain, g16, plan,
@@ -3268,7 +3316,7 @@ def sharded_paths(dev, run_path):
           flush=True)
     row = {'name': 'K1p', 'route': 'cuda',
            'source': f'pyg_lib_tpu_torch/csrc/{SOURCES["K1p"][0]}',
-           'replaces': SOURCES['K1p'][1], 'max_abs_err': errs['K1p'],
+           'replaces': SOURCES['K1p'][1], 'max_abs_err': h.errs['K1p'],
            'ms': k1_ms['bf16'], 'plain_ms': plain_ms, 'bound_ms': bound_ms,
            'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >=
                         e0 * f / F32_FLOPS else 'operations'),
@@ -3295,40 +3343,22 @@ def sharded_paths(dev, run_path):
     # alone, as K1's above.
     plan = g5.bwd[0]
     kid = kid_of(plan)
-    call = (ops.dedup_sum if isinstance(plan, ops.DedupSpmmPlan) else
-            ops.spmm_chunked)
     g16 = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
-    check(f'{kid} S5 backward split 0 bf16', kid, call(g16, plan),
+    check(f'{kid} S5 backward split 0 bf16', kid, kernel(g16, plan),
           sums64(g16, plan), sums64(g16.abs(), plan))
-    check_exact('S5 backward split 0', kid, call, plan, sums64)
-    print(f'sharded build seconds: {report}', flush=True)
-    return errs, row
+    check_integers('S5 backward split 0', kid, kernel, plan, sums64)
+    return row
 
 
-def sharded_main():
+
+
+def sharded_child(dev, paths):
     """``python3 chip_smoke.py --sharded``: the huge-graph paths
-    (:func:`sharded_paths`) in a process of their own, as :func:`main`
-    runs them; its last line is :data:`SHARDED_RESULT` and, as JSON, the
-    paths' launch counts (all, and K1's by width), the kernels' largest
-    errors against their plain versions and K1's piece row of the
-    kernels line."""
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit('chip_smoke: no CUDA device is available')
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pyg_lib_tpu_torch import _build
-
-    _build.build()  # built by the calling process: loaded
-    paths = Paths()
-    t0 = time.perf_counter()
-    errs, row = sharded_paths(torch.device('cuda', 0), paths.run)
-    paths.restore()
-    print(f'sharded paths: {time.perf_counter() - t0:.1f} s', flush=True)
-    print(SHARDED_RESULT + json.dumps({
-        'launches': paths.launches, 'errs': errs, 'row': row,
-        'by_width': [[kid, f, n] for (kid, f), n in
-                     sorted(paths.by_width.items())]}), flush=True)
+    (:func:`sharded_paths`); the kernels' largest errors against their
+    plain versions, K1's piece row of the kernels line and K1's launches
+    by width."""
+    errs, row = sharded_paths(dev, paths.run)
+    return {'errs': errs, 'row': row, 'by_width': paths.widths()}
 
 
 def plain_kernels():
@@ -3468,6 +3498,8 @@ def check_pairs(label, got, ref, d64, bound):
     one and not the other whose f64 distance ``d64(q, c)`` lies within
     ``PAIR_RTOL`` relative of ``bound(q)`` (the query's k-th distance, or
     r²); the pairs both hold come in the same order."""
+    from pyg_lib_tpu_torch.testing import PAIR_RTOL
+
     if torch_equal(got, ref):
         print(f'  {label}: {ref.shape[-1]} pairs, equal', flush=True)
         return
@@ -3504,6 +3536,7 @@ def device_ops(dev, rp, cl, pos, ptr):
     import torch
 
     from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.testing import cuda_ms
 
     geo_mod = sys.modules['pyg_lib_tpu_torch.ops.geometry']
 
@@ -3690,32 +3723,14 @@ def geometry_paths(dev, run_path, rp, cl):
                            'head': _init_mlp(DGCNN_HEAD, gen, dev)}),
                   dg_loss, (), POINT_LR)}
 
-    def train(model, loss_fn, lr):
-        opt = torch.optim.Adam(model.parameters(), lr=lr)
-        losses = []
-        for step in range(STEPS):
-            if step == 1:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            opt.zero_grad()
-            loss = loss_fn(model.params())
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / (STEPS - 1)
-        losses = [float(v) for v in losses]
-        if not np.isfinite(losses).all():
-            raise AssertionError(f'losses {losses} are not finite')
-        return ms, losses
-
     for name, (model0, loss_fn, need, lr) in models.items():
         model = copy.deepcopy(model0)
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
-        ms, losses = run_path(name, need,
-                              lambda: train(model, loss_fn, lr))
+        ms, losses = run_path(name, need, lambda: train_steps(
+            lambda: loss_fn(model.params()),
+            torch.optim.Adam(model.parameters(), lr=lr)))
         peak = torch.cuda.max_memory_allocated() / 2**30
         extra = (f'; SA1 and SA2 groupings {pn_edges[0]} and {pn_edges[1]} '
                  f'edges' if name == 'PointNet++' else '')
@@ -3833,14 +3848,19 @@ def f1_shape(dev, label, pts, clouds, cheap):
     from pyg_lib_tpu_torch.ops.kernels.fps import (_batch_plan,
                                                    active_clusters,
                                                    fps_floor)
+    from pyg_lib_tpu_torch.testing import cuda_ms
 
     d = pts.shape[1]
     plan = _batch_plan(clouds, d)
     clusters = (f', {active_clusters(plan, d, dev)} such clusters at once'
                 if plan.tier != 'S' else '')
     got = ops.fps_kernel(pts, clouds)
-    ref, plain_ms = timed_once(lambda: ops.fps_plain(pts, clouds))
-    lib, lib_ms = timed_once(lambda: fps_batched_loop(pts, clouds))
+    ref, lib = [], []  # one call each: the plain versions take seconds
+    plain_ms = cuda_ms(lambda: ref.append(ops.fps_plain(pts, clouds)),
+                       iters=1, warmup=0, warm_s=0)
+    lib_ms = cuda_ms(lambda: lib.append(fps_batched_loop(pts, clouds)),
+                     iters=1, warmup=0, warm_s=0)
+    ref, lib = ref[0], lib[0]
     err = int((got.long() - ref.long()).abs().max())
     if not (torch_equal(got, ref) and torch_equal(lib, ref)):
         raise AssertionError(f'F1 on {label} differs from its plain version '
@@ -3873,21 +3893,6 @@ def f1_shape(dev, label, pts, clouds, cheap):
             'bound_ms': bound_ms, 'bound_by': bound_by, 'err': err}
 
 
-def timed_once(fn):
-    """``fn()``'s result and its ms on the card by CUDA events, one call
-    (for the plain versions on the large clouds, which take seconds)."""
-    import torch
-
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end)
-
-
 def reddit_data():
     """Path A's graph and data: ``testing.uniform_graph`` at Reddit's node
     and edge counts (seed 0; ``col`` as int64 for the sampler), features
@@ -3913,32 +3918,21 @@ def k3_row(label, msgs, ptr, f):
     import torch
 
     from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.testing import SUM_BOUND, check_sum
 
-    got = ops.segment_sum_csr_kernel(msgs, ptr)
-    torch.cuda.synchronize()
-    ref = ops.segment_sum_csr_plain(msgs, ptr)
-    mag = ops.segment_sum_csr_plain(msgs.abs(), ptr)
-    err = (got - ref).abs()
-    e = float(err.max())
+    e = check_sum(f'K3 {label} F={f}', ops.segment_sum_csr_kernel(msgs, ptr),
+                  ops.segment_sum_csr_plain(msgs, ptr),
+                  ops.segment_sum_csr_plain(msgs.abs(), ptr))
     print(f'  K3 {label} F={f}: max_abs_err {e:.3g} (tolerance '
-          f'{SUM_RTOL:g} * sum|terms| + {SUM_ATOL:g})', flush=True)
-    if not torch.isfinite(got).all() or bool(
-            (err > SUM_RTOL * mag + SUM_ATOL).any()):
-        raise AssertionError(f'K3 {label} F={f} disagrees with its plain '
-                             f'version')
+          f'{SUM_BOUND})', flush=True)
     rows, e_real = ptr.shape[0] - 1, int(ptr[-1])
     real, ptr64 = msgs[:e_real], ptr.long()
     nbytes = e_real * f * 4 + (rows + 1) * ptr.element_size() + rows * f * 4
-    flops = e_real * f
-    r = {'max_abs_err': e,
-         'ms': cuda_ms(lambda: ops.segment_sum_csr_kernel(msgs, ptr)),
-         'plain_ms': cuda_ms(lambda: ops.segment_sum_csr_plain(msgs, ptr),
-                             iters=3),
-         'bound_ms': max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-         'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
-                      else 'operations'),
-         'library_ms': cuda_ms(lambda: torch.segment_reduce(
-             real, 'sum', offsets=ptr64, axis=0))}
+    r = {'max_abs_err': e, **timed_row(
+        lambda: ops.segment_sum_csr_kernel(msgs, ptr),
+        lambda: ops.segment_sum_csr_plain(msgs, ptr),
+        lambda: torch.segment_reduce(real, 'sum', offsets=ptr64, axis=0),
+        nbytes, e_real * f)}
     print(f'  K3 {label} F={f} f32: {r["ms"]:.3f} ms, plain '
           f'{r["plain_ms"]:.3f} ms, torch.segment_reduce sum '
           f'{r["library_ms"]:.3f} ms, bound {r["bound_ms"]:.3f} ms '
@@ -3960,6 +3954,7 @@ def g1_rows(dev):
     import torch
 
     from pyg_lib_tpu_torch import ops
+    from pyg_lib_tpu_torch.testing import SUM_BOUND, check_sum
 
     gen = torch.Generator(device=dev).manual_seed(0)
     row = torch.randint(0, G1_REAL, (G1_EDGE_SLOTS, ), generator=gen,
@@ -3973,40 +3968,25 @@ def g1_rows(dev):
         g = torch.randn((G1_EDGE_SLOTS, f), generator=gen,
                         device=dev).to(dtype)
         got = ops.gather_rows_backward(g, idx, n)
-        same = torch.equal(got, ops.gather_rows_backward(g, idx, n))
-        ref = ops.gather_rows_backward_plain(g.float(), idx, n)
-        mag = ops.gather_rows_backward_plain(g.float().abs(), idx, n)
-        err = (got.float() - ref).abs()
-        tol = SUM_RTOL * mag + SUM_ATOL
-        if dtype == torch.bfloat16:
-            tol += 2.0**-8 * ref.abs()
-        e = float(err.max())
-        worst = max(worst, e)
-        print(f'  {label}: max_abs_err {e:.3g} (tolerance {SUM_RTOL:g} * '
-              f'sum|terms| + {SUM_ATOL:g}'
-              f'{" + 2^-8 |plain|" if dtype == torch.bfloat16 else ""}); '
-              f'two calls {"equal" if same else "DIFFER"} bit for bit',
-              flush=True)
-        if not torch.isfinite(got).all() or bool((err > tol).any()):
-            raise AssertionError(f'{label} disagrees with its plain version')
-        if not same:
+        if not torch.equal(got, ops.gather_rows_backward(g, idx, n)):
             raise AssertionError(f'{label}: two calls differ')
-        del got, ref, mag, err, tol
-        if dtype != torch.float32:
+        bf16 = dtype == torch.bfloat16
+        e = check_sum(label, got, ops.gather_rows_backward_plain(
+            g.float(), idx, n), ops.gather_rows_backward_plain(
+                g.float().abs(), idx, n), bf16=bf16)
+        worst = max(worst, e)
+        print(f'  {label}: max_abs_err {e:.3g} (tolerance {SUM_BOUND}'
+              f'{" + 2^-8 |plain|" if bf16 else ""}); two calls equal bit '
+              f'for bit', flush=True)
+        del got
+        if bf16:
             continue
         nbytes = (G1_EDGE_SLOTS * (f * 4 + 8) + n * f * 4 + (n + 1) * 8)
-        flops = G1_EDGE_SLOTS * f
-        r = rows[f] = {
-            'max_abs_err': e,
-            'ms': cuda_ms(lambda: ops.gather_rows_backward(g, idx, n)),
-            'plain_ms': cuda_ms(
-                lambda: ops.gather_rows_backward_plain(g, idx, n), iters=3),
-            'bound_ms': max(nbytes / HBM_BYTES_PER_S,
-                            flops / F32_FLOPS) * 1e3,
-            'bound_by': ('bytes' if nbytes / HBM_BYTES_PER_S >=
-                         flops / F32_FLOPS else 'operations'),
-            'library_ms': cuda_ms(lambda: torch.zeros(
-                (n, f), device=dev).index_add_(0, idx, g))}
+        r = rows[f] = {'max_abs_err': e, **timed_row(
+            lambda: ops.gather_rows_backward(g, idx, n),
+            lambda: ops.gather_rows_backward_plain(g, idx, n),
+            lambda: torch.zeros((n, f), device=dev).index_add_(0, idx, g),
+            nbytes, G1_EDGE_SLOTS * f)}
         _, _, top = device_time_by_kernel(
             lambda: ops.gather_rows_backward(g, idx, n))
         print(f'  {label}: {r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} '
@@ -4034,8 +4014,6 @@ def reddit_path(dev, run_path):
     timed. Returns K3's rows by width."""
     import torch
 
-    from pyg_lib_tpu_torch.examples.train_sage_weighted_disjoint import \
-        seed_loss
     from pyg_lib_tpu_torch.loader import NeighborLoader
 
     t0 = time.perf_counter()
@@ -4053,26 +4031,9 @@ def reddit_path(dev, run_path):
           f'buckets {loader.buckets} probed in {t_probe:.2f} s', flush=True)
     model, _, step = sage_trainer(REDDIT_DIMS, REDDIT_LR, 5, dev)
 
-    def path():
-        it = iter(loader)
-        ms, losses = [], []
-        for i in range(REDDIT_WARMUP + REDDIT_STEPS):
-            if i == REDDIT_WARMUP:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            losses.append(step(next(it)))
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        busy, wall, top = device_time_by_kernel(
-            lambda: [step(next(it)) for _ in range(REDDIT_PROFILED)])
-        for _ in it:  # the epoch's end: the loader closes its pool
-            pass
-        return ms, [float(v) for v in losses], peak, busy, wall, top
-
     ms, losses, peak, busy, wall, top = run_path(
-        'Reddit GraphSAGE mini-batch', ('K3', 'G1'), path,
+        'Reddit GraphSAGE mini-batch', ('K3', 'G1'), lambda: sage_steps(
+            step, loader, REDDIT_WARMUP, REDDIT_STEPS, REDDIT_PROFILED),
         engine=('neighbor_sample', ))
     timed = ms[REDDIT_WARMUP:]
     print(f'  Reddit step (mean of {len(timed)} after {REDDIT_WARMUP}): '
@@ -4089,7 +4050,47 @@ def reddit_path(dev, run_path):
     if not all(np.isfinite(losses)):
         raise AssertionError('the Reddit losses are not finite')
 
-    # One more batch: the step against the plain path, and K3's rows.
+    rows = batch_against_plain('Reddit', model, loader, REDDIT_DIMS[:2], dev)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sage_steps(step, loader, warmup, steps, profiled):
+    """``warmup`` steps, ``steps`` timed ones (host clock to a synchronize,
+    peak memory from the first timed one) and a profiled window of
+    ``profiled`` (:func:`device_time_by_kernel`) over ``loader``'s
+    batches; then the epoch's end. Returns the ms of the first two, all
+    losses, the peak and the window's busy ms, wall ms and kernels."""
+    import torch
+
+    it = iter(loader)
+    ms, losses = [], []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses.append(step(next(it)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, wall, top = device_time_by_kernel(
+        lambda: losses.extend(step(next(it)) for _ in range(profiled)))
+    for _ in it:  # the epoch's end: the loader closes its pool
+        pass
+    return ms, [float(v) for v in losses], peak, busy, wall, top
+
+
+def batch_against_plain(name, model, loader, dims, dev):
+    """One more batch of ``loader``: ``model``'s loss and weight gradients
+    against the plain path (K3's and G1's plain versions, with the kernel
+    path's ReLU branches) within ``GCN_RTOL``; and K3 at the widths
+    ``dims`` on that batch (:func:`k3_row`), whose rows it returns."""
+    import torch
+
+    from pyg_lib_tpu_torch.examples.train_sage_weighted_disjoint import \
+        seed_loss
+
     it = iter(loader)
     batch = next(it)
     it.close()
@@ -4099,18 +4100,17 @@ def reddit_path(dev, run_path):
     with plain_kernels():  # G1's plain version runs in backward
         ref, _ = relu_signs(lambda: seed_loss(params, batch), replay=signs)
         refs = torch.autograd.grad(ref, leaves)
-    close('Reddit GraphSAGE loss', loss.detach()[None], ref.detach()[None])
-    for (name, _), g, r in zip(model.named_parameters(), grads, refs):
-        close(f'  Reddit GraphSAGE grad {name}', g, r)
+    close(f'{name} GraphSAGE loss', loss.detach()[None], ref.detach()[None])
+    for (pname, _), g, r in zip(model.named_parameters(), grads, refs):
+        close(f'  {name} GraphSAGE grad {pname}', g, r)
     ptr, row = batch['rowptr'], batch['row']
     rows = {}
-    for f in REDDIT_DIMS[:2]:
-        src = batch['x'] if f == REDDIT_DIMS[0] else torch.randn(
+    for f in dims:
+        src = batch['x'] if f == dims[0] else torch.randn(
             (batch['x'].shape[0], f), device=dev)
         msgs = src[row.clamp(max=src.shape[0] - 1)]
-        rows[f] = k3_row('Reddit batch', msgs, ptr, f)
+        rows[f] = k3_row(f'{name} batch', msgs, ptr, f)
         del msgs
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -4128,7 +4128,8 @@ def reorder_path(dev, run_path, rp_u, cl_u):
     import torch
 
     from pyg_lib_tpu_torch import ops, partition
-    from pyg_lib_tpu_torch.testing import powerlaw_graph
+    from pyg_lib_tpu_torch.testing import (SUM_ATOL, SUM_BOUND, check_exact,
+                                           check_sum, cuda_ms, powerlaw_graph)
 
     rp_p, cl_p = powerlaw_graph(N_NODES, N_EDGES)
     t0 = time.perf_counter()
@@ -4168,13 +4169,8 @@ def reorder_path(dev, run_path, rp_u, cl_u):
           f'the power-law graph {"adopted" if chose else "declined"} the '
           f'relabelling', flush=True)
     for name, g in graphs.items():
-        mm = g.mm
-        if isinstance(mm, ops.DedupMinmaxPlan):
-            mm = f'K5 dedup min/max chunks={mm.num_chunks} ec={mm.ec}'
-        elif mm is not None:
-            mm = describe(mm)
         print(f'  {name}: fwd {describe(g.fwd)}; bwd {describe(g.bwd)}; mm '
-              f'{mm}', flush=True)
+              f'{g.mm and describe(g.mm)}', flush=True)
     if graphs['powerlaw on'].perm is None or graphs['uniform on'].perm is None:
         raise AssertionError("reorder='on' did not relabel")
     pairs = [('powerlaw on', 'powerlaw'), ('uniform on', 'uniform')]
@@ -4184,7 +4180,7 @@ def reorder_path(dev, run_path, rp_u, cl_u):
     for name, _ in pairs:
         g = graphs[name]
         plan_mm = g.mm if g.mm is not None else g.fwd
-        need |= {rgcn_kid(g.fwd), rgcn_kid(g.bwd),
+        need |= {kid_of(g.fwd), kid_of(g.bwd),
                  'K5' if isinstance(plan_mm, ops.DedupMinmaxPlan) else 'K4'}
     gen = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn((N_NODES, F_BENCH), generator=gen, device=dev,
@@ -4207,20 +4203,16 @@ def reorder_path(dev, run_path, rp_u, cl_u):
         the sum bound of ``mags``, each Σ|terms| (max's values bit for bit
         too)."""
         (out, grad), (r, r_grad), (mag, mag_grad) = got, ref, mags
-        same = torch.equal(bits(out), bits(r))
-        e = float((out - r).abs().max())
-        eg = float((grad - r_grad).abs().max())
+        if reduce == 'max':
+            check_exact(f'spmm max {label} values', (out, ), (r, ))
+        e, eg = (check_sum(f'spmm {reduce} {label} {what}', a, b, times * m,
+                           extra=(times - 1) * SUM_ATOL)
+                 for what, a, b, m in (('value', out, r, mag),
+                                       ('grad', grad, r_grad, mag_grad)))
         print(f'  spmm {reduce} {label}: max_abs_err {e:.3g}'
-              + (f' (values {"equal bit for bit" if same else "DIFFER"})'
-                 if reduce == 'max' else '')
-              + f', grad {eg:.3g} (tolerance {times} * ({SUM_RTOL:g} * '
-              f'sum|terms| + {SUM_ATOL:g}))', flush=True)
-        bad = bool(((out - r).abs() > times * (SUM_RTOL * mag + SUM_ATOL))
-                   .any()) or bool(((grad - r_grad).abs() > times * (
-                       SUM_RTOL * mag_grad + SUM_ATOL)).any())
-        if bad or (reduce == 'max' and not same) or not torch.isfinite(
-                out).all():
-            raise AssertionError(f'spmm {reduce} {label} disagrees')
+              + (' (values equal bit for bit)' if reduce == 'max' else '')
+              + f', grad {eg:.3g} (tolerance {times} * ({SUM_BOUND}))',
+              flush=True)
 
     def spmm_and_sizes(g, reduce):
         """``spmm``'s value and gradient over ``g``, and their Σ|terms|."""
@@ -4248,18 +4240,14 @@ def reorder_path(dev, run_path, rp_u, cl_u):
     del res
     xb = x.detach()
 
-    def run(plan):
-        if isinstance(plan, ops.DedupSpmmPlan):
-            return lambda: ops.dedup_sum(xb, plan)
-        return lambda: ops.spmm_chunked(xb, plan)
-
     for name, base in pairs:
         for side in ('fwd', 'bwd'):
             a = getattr(graphs[name], side)
             b = getattr(graphs[base], side)
-            print(f'  {rgcn_kid(a)} {name} {side} F={F_BENCH} f32: '
-                  f'{cuda_ms(run(a)):.3f} ms reordered, {cuda_ms(run(b)):.3f}'
-                  f' ms ({rgcn_kid(b)}) unreordered', flush=True)
+            print(f'  {kid_of(a)} {name} {side} F={F_BENCH} f32: '
+                  f'{cuda_ms(lambda: kernel(xb, a)):.3f} ms reordered, '
+                  f'{cuda_ms(lambda: kernel(xb, b)):.3f} ms ({kid_of(b)}) '
+                  f'unreordered', flush=True)
         g_r, g_b = graphs[name], graphs[base]
         print(f'  spmm {name} F={F_BENCH} f32 forward (the two permutations '
               f'included): sum {cuda_ms(lambda: ops.spmm(xb, g_r)):.3f} ms '
@@ -4469,8 +4457,6 @@ def products_path(dev, run_path):
 
     from pyg_lib_tpu_torch.checkpoint import (restore_checkpoint,
                                               save_checkpoint)
-    from pyg_lib_tpu_torch.examples.train_sage_weighted_disjoint import \
-        seed_loss
     from pyg_lib_tpu_torch.loader import NeighborLoader
 
     t0 = time.perf_counter()
@@ -4498,21 +4484,8 @@ def products_path(dev, run_path):
     model, opt, step = sage_trainer(PRODUCTS_DIMS, PRODUCTS_LR, 7, dev)
 
     def path():
-        it = iter(loader)
-        ms, losses = [], []
-        for i in range(PRODUCTS_WARMUP + PRODUCTS_STEPS):
-            if i == PRODUCTS_WARMUP:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            losses.append(step(next(it)))
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        busy, wall, top = device_time_by_kernel(
-            lambda: [step(next(it)) for _ in range(PRODUCTS_PROFILED)])
-        for _ in it:  # the epoch's end: the loader closes its pool
-            pass
+        res = sage_steps(step, loader, PRODUCTS_WARMUP, PRODUCTS_STEPS,
+                         PRODUCTS_PROFILED)
         loader_report('ogbn-products', loader)
         # The checkpoint at the epoch's end, then PRODUCTS_RESUME steps
         # twice: on, and from the restored checkpoint.
@@ -4548,7 +4521,7 @@ def products_path(dev, run_path):
             pairs = list(zip(state_bits(a), state_bits(b)))
             resumed['equal'][label] = (len(pairs), all(
                 torch.equal(u, v) for u, v in pairs))
-        return ms, [float(v) for v in losses], peak, busy, wall, top, resumed
+        return (*res, resumed)
 
     ms, losses, peak, busy, wall, top, resumed = run_path(
         'ogbn-products GraphSAGE (weighted, disjoint)', ('K3', 'G1'), path,
@@ -4583,29 +4556,9 @@ def products_path(dev, run_path):
             raise AssertionError(f'the run resumed from the checkpoint '
                                  f'differs from the run that went on: {k}')
 
-    # One more batch: the step against the plain path, and K3's rows.
-    it = iter(loader)
-    batch = next(it)
-    it.close()
-    params, leaves = model.params(), list(model.parameters())
-    loss, signs = relu_signs(lambda: seed_loss(params, batch))
-    grads = torch.autograd.grad(loss, leaves)
-    with plain_kernels():  # G1's plain version runs in backward
-        ref, _ = relu_signs(lambda: seed_loss(params, batch), replay=signs)
-        refs = torch.autograd.grad(ref, leaves)
-    close('ogbn-products GraphSAGE loss', loss.detach()[None],
-          ref.detach()[None])
-    for (name, _), g, r in zip(model.named_parameters(), grads, refs):
-        close(f'  ogbn-products GraphSAGE grad {name}', g, r)
-    ptr, row = batch['rowptr'], batch['row']
-    rows = {}
-    for f in PRODUCTS_DIMS[:2]:
-        src = batch['x'] if f == PRODUCTS_DIMS[0] else torch.randn(
-            (batch['x'].shape[0], f), device=dev)
-        msgs = src[row.clamp(max=src.shape[0] - 1)]
-        rows[f] = k3_row('ogbn-products batch', msgs, ptr, f)
-        del msgs
-    del batch, loader
+    rows = batch_against_plain('ogbn-products', model, loader,
+                               PRODUCTS_DIMS[:2], dev)
+    del loader
     torch.cuda.empty_cache()
     return data, rows
 
@@ -4618,8 +4571,6 @@ def temporal_path(dev, run_path, data):
     ``TEMPORAL_BATCHES`` Adam steps, the last ``TEMPORAL_PROFILED`` of them
     profiled. A sample of the same seeds holds no node later than its
     seed."""
-    import torch
-
     from pyg_lib_tpu_torch import sampler
     from pyg_lib_tpu_torch.examples.train_temporal_sage import \
         time_sort_neighborhoods
@@ -4639,27 +4590,10 @@ def temporal_path(dev, run_path, data):
     t_probe = time.perf_counter() - t0
     _, _, step = sage_trainer(PRODUCTS_DIMS, PRODUCTS_LR, 13, dev)
 
-    def path():
-        it = iter(loader)
-        ms, losses = [], []
-        for i in range(TEMPORAL_BATCHES - TEMPORAL_PROFILED):
-            if i == 1:
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            losses.append(step(next(it)))
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        busy, wall, top = device_time_by_kernel(
-            lambda: losses.extend(step(next(it))
-                                  for _ in range(TEMPORAL_PROFILED)))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        for _ in it:  # the epoch's end
-            pass
-        return ms, [float(v) for v in losses], busy, wall, top, peak
-
-    ms, losses, busy, wall, top, peak = run_path(
-        'ogbn-products temporal GraphSAGE', ('K3', 'G1'), path,
-        engine=('neighbor_sample', ))
+    ms, losses, peak, busy, wall, top = run_path(
+        'ogbn-products temporal GraphSAGE', ('K3', 'G1'), lambda: sage_steps(
+            step, loader, 1, TEMPORAL_BATCHES - TEMPORAL_PROFILED - 1,
+            TEMPORAL_PROFILED), engine=('neighbor_sample', ))
     print(f'  ogbn-products temporal: neighbourhoods time-sorted on the '
           f'card in {t_sort:.2f} s; buckets {loader.buckets} probed in '
           f'{t_probe:.2f} s; step ms {[round(v, 1) for v in ms]} (the '
@@ -4754,38 +4688,21 @@ def host_paths(dev, run_path):
     return k3_rows, k3_p, builds
 
 
-def host_main():
+def host_child(dev, paths):
     """``python3 chip_smoke.py --host``: paths A, C, D, E, P, Q and the
-    examples (:func:`host_paths`) in a process of their own, as
-    :func:`main` runs them; its last line is :data:`HOST_RESULT` and, as
-    JSON, the paths' launch counts (by width too, in all and path by
-    path), K3's rows at path A's and path P's widths and path C's build
-    seconds."""
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit('chip_smoke: no CUDA device is available')
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    examples (:func:`host_paths`); K3's rows at path A's and path P's
+    widths, path C's build seconds and the launches by width, in all and
+    path by path."""
     from pyg_lib_tpu_torch import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    _build.build()  # built by the calling process: loaded
     t0 = time.perf_counter()
     _build.build_host()
     print(f'host engine build: {time.perf_counter() - t0:.1f} s', flush=True)
-    paths = Paths()
-    t0 = time.perf_counter()
-    k3_rows, k3_p, builds = host_paths(torch.device('cuda', 0), paths.run)
-    paths.restore()
-    print(f'host paths: {time.perf_counter() - t0:.1f} s', flush=True)
-    print(HOST_RESULT + json.dumps({
-        'launches': paths.launches, 'k3': k3_rows, 'k3_p': k3_p,
-        'builds': builds,
-        'by_width': [[kid, f, n] for (kid, f), n in
-                     sorted(paths.by_width.items())],
-        'by_path': {name: [[kid, f, n] for (kid, f), n in sorted(w.items())]
-                    for name, w in paths.by_path.items()}}), flush=True)
+    k3_rows, k3_p, builds = host_paths(dev, paths.run)
+    return {'k3': k3_rows, 'k3_p': k3_p, 'builds': builds,
+            'by_width': paths.widths(),
+            'by_path': {name: paths.widths(w)
+                        for name, w in paths.by_path.items()}}
 
 
 # -- the distribution child (python3 chip_smoke.py --dist) -------------------
@@ -4799,28 +4716,17 @@ def sync(dev):
 
 
 def rank_setup(cfg):
-    """A rank's start: TF32 off, and on the card K3's and G1's C entry
-    points replaced by :class:`ByWidth` tallies (their calls by width).
-    Returns the rank's device and the tallies by kernel (``None`` on the
-    CPU)."""
+    """A rank's start: on the card, :func:`card_setup` and the C entry
+    points replaced by :class:`Paths`'s :class:`ByWidth` tallies (their
+    calls by width). Returns the rank's device and the tallies (``None``
+    on the CPU)."""
     import torch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(cfg['device'])
-    tally = None
-    if dev.type == 'cuda':
-        from pyg_lib_tpu_torch import _build
-        from pyg_lib_tpu_torch.ops.kernels import gather_rows as g1_mod
-        from pyg_lib_tpu_torch.ops.kernels import segment_csr as k3_mod
-
-        tally = {'K3': ByWidth(k3_mod._k3_lib(), 6, lambda a: 'K3'),
-                 'G1': ByWidth(g1_mod._lib(), 7, lambda a: 'G1')}
-        setattr(_build.load('segment_csr'), 'pygt_segment_sum_csr',
-                tally['K3'])
-        setattr(_build.load('gather_rows'), 'pygt_gather_rows_backward',
-                tally['G1'])
-    return dev, tally
+    if dev.type != 'cuda':
+        return dev, None
+    card_setup()
+    return dev, Paths().tallies
 
 
 def k3_start(dev, tally):
@@ -4835,7 +4741,7 @@ def k3_start(dev, tally):
         torch.cuda.reset_peak_memory_stats(dev)
     ops.segment_sum_csr_kernel.launches = 0
     ops.gather_rows_backward.launches = 0
-    for t in (tally or {}).values():
+    for t in tally or ():
         t.counts.clear()
 
 
@@ -4847,8 +4753,8 @@ def k3_read(dev, tally):
     from pyg_lib_tpu_torch import ops
 
     def widths(kid):
-        return [] if tally is None else [
-            [f, n] for (_, f), n in sorted(tally[kid].counts.items())]
+        return [[f, n] for t in tally or ()
+                for (k, f), n in sorted(t.counts.items()) if k == kid]
 
     peak = (torch.cuda.max_memory_allocated(dev) / 2**30
             if dev.type == 'cuda' else 0.0)
@@ -5106,7 +5012,7 @@ def gcn_dist_data(dev, cfg):
     from pyg_lib_tpu_torch import ops, partition
     from pyg_lib_tpu_torch.examples.train_dist_fullgraph import gcn_forward
     from pyg_lib_tpu_torch.models.gnn import _glorot
-    from pyg_lib_tpu_torch.testing import huge_graph
+    from pyg_lib_tpu_torch.testing import GCN_RTOL, huge_graph
 
     d = DIST_RANKS
     t0 = time.perf_counter()
@@ -5265,6 +5171,7 @@ def dryrun_against_plain(world, dev, tally):
     run's, with their tolerances (``GCN_RTOL`` of the plain run's
     largest). The plain run must launch no K3 and no G1."""
     from pyg_lib_tpu_torch.entry import dryrun_multichip
+    from pyg_lib_tpu_torch.testing import GCN_RTOL
 
     k3_start(dev, tally)
     got = dryrun_multichip(world, device=dev)
@@ -5308,6 +5215,7 @@ def dist_nccl_rank(rank, world, cfg):
 
     from pyg_lib_tpu_torch import ops, parallel, partition
     from pyg_lib_tpu_torch.parallel import _collectives as C
+    from pyg_lib_tpu_torch.testing import GCN_RTOL
 
     dev, tally = rank_setup(cfg)
     C.reset_stats()
@@ -5521,20 +5429,16 @@ def dist_main():
 
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit('chip_smoke: no CUDA device is available')
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    dev = card_setup()
     from pyg_lib_tpu_torch import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.cuda.init()
     _build.build()  # built by the calling process: loaded
     _build.build_host()
     tmp = tempfile.mkdtemp(prefix='pygt_dist_')
     t0 = time.perf_counter()
     try:
-        res = dist_paths(torch.device('cuda', 0), dist_cfg(tmp))
+        res = dist_paths(dev, dist_cfg(tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f'dist paths: {time.perf_counter() - t0:.1f} s', flush=True)
@@ -5639,29 +5543,6 @@ def device_time_by_kernel(fn):
     return busy_us / 1e3, wall_ms, top
 
 
-def cuda_ms(fn, iters=10, warmup=2, warm_s=0.1):
-    """Mean ms per call of ``fn`` on the card, by CUDA events, after at
-    least ``warmup`` calls and ``warm_s`` seconds of calls: a function
-    timed first after a pause (host work, ``empty_cache``) read 3-7% slow
-    over 20 calls on the H100 (PERF.md)."""
-    import torch
-
-    t0 = time.perf_counter()
-    done = 0
-    while done < warmup or time.perf_counter() - t0 < warm_s:
-        fn()
-        torch.cuda.synchronize()
-        done += 1
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 if __name__ == '__main__':
     if sys.argv[1:] == ['--rgcn']:
         # Growable segments: the stacked R-GCN's [E_pad, 349] message
@@ -5670,25 +5551,22 @@ if __name__ == '__main__':
         # segments until a slab no longer fits on the card (PERF.md).
         os.environ.setdefault('PYTORCH_CUDA_ALLOC_CONF',
                               'expandable_segments:True')
-        rgcn_main()
-        sys.exit(0)
-    if sys.argv[1:] == ['--sharded']:
-        sharded_main()
-        sys.exit(0)
-    if sys.argv[1:] == ['--host']:
-        host_main()
-        sys.exit(0)
-    if sys.argv[1:] == ['--dist']:
+        child_main(RGCN_RESULT, rgcn_child)
+    elif sys.argv[1:] == ['--sharded']:
+        child_main(SHARDED_RESULT, sharded_child)
+    elif sys.argv[1:] == ['--host']:
+        child_main(HOST_RESULT, host_child)
+    elif sys.argv[1:] == ['--dist']:
         dist_main()
-        sys.exit(0)
-    import torch
+    else:
+        import torch
 
-    t_start = time.perf_counter()
-    smi, errs, rows = main()
-    print(f'small-plan and main-shape max_abs_err: {errs}; total '
-          f'{time.perf_counter() - t_start:.1f} s', flush=True)
-    print(json.dumps({'kernels': rows}))
-    print(smi)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+        t_start = time.perf_counter()
+        smi, errs, rows = main()
+        print(f'small-plan and main-shape max_abs_err: {errs}; total '
+              f'{time.perf_counter() - t_start:.1f} s', flush=True)
+        print(json.dumps({'kernels': rows}))
+        print(smi)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))

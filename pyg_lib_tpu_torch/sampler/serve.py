@@ -60,23 +60,25 @@ def main(argv=None) -> int:
     ap.add_argument('--partition', required=True,
                     help='npz with rowptr/col (or hetero rowptr__s__r__d)')
     ap.add_argument('--host', default='0.0.0.0')
-    ap.add_argument('--port', type=int, required=True)
+    ap.add_argument('--port', type=int, required=True,
+                    help='0: a port the system picks, printed once bound')
     ap.add_argument('--authkey-file', required=True,
-                    help='file holding the cluster shared secret (bytes); '
+                    help='file holding the cluster shared secret (its bytes, '
+                    'as written); '
                     'the wire protocol unpickles peer data, so serving '
                     'without authentication is remote code execution')
     args = ap.parse_args(argv)
 
+    # The file's bytes are the secret: a random key (secrets.token_bytes)
+    # may begin or end with whitespace bytes, which stripping would drop.
     with open(args.authkey_file, 'rb') as f:
-        authkey = f.read().strip()
+        authkey = f.read()
     if len(authkey) < 16:
         ap.error('authkey must be at least 16 bytes of secret material')
 
     payload = load_partition_payload(args.partition)
     from pyg_lib_tpu_torch.sampler.transport import serve_partition
 
-    print(f'serving {args.partition} on {args.host}:{args.port}',
-          flush=True)
     serve_partition((args.host, args.port), payload, authkey=authkey)
     return 0
 

@@ -45,7 +45,7 @@ def _worker_main(address, ready, payload, authkey):
     hetero = payload.get('hetero', {})  # edge_type -> (rowptr, col)
 
     with Listener(address, authkey=authkey) as listener:
-        ready.send('ready')
+        ready.send(listener.address)
         ready.close()
         while True:  # serve sequential coordinator connections
             try:
@@ -98,17 +98,27 @@ def serve_partition(address, payload, authkey: bytes = None):
     generate one secret (e.g. ``secrets.token_bytes(32)``) and pass the
     same value to every ``serve_partition`` and
     ``SamplingService.connect``.
-    """
-    from multiprocessing import Pipe
 
+    Once it listens it prints ``serving on <host>:<port>``: the port it
+    bound, which the system picks where ``address`` asks for port 0.
+    """
     if not authkey:
         raise ValueError(
             'serve_partition requires an explicit authkey (shared '
             'secret); the connection unpickles peer data, so it must '
             'never accept unauthenticated peers')
-    a, b = Pipe()
-    _worker_main(address, b, payload, authkey)
-    a.close()
+    _worker_main(address, _Announce(), payload, authkey)
+
+
+class _Announce:
+    """The ready pipe of a partition served in this process: prints the
+    address the server listens on."""
+
+    def send(self, address):
+        print(f'serving on {address[0]}:{address[1]}', flush=True)
+
+    def close(self):
+        pass
 
 
 class SamplingService:
@@ -156,7 +166,7 @@ class SamplingService:
             pending.append((a, address))
             procs.append(proc)
         for a, address in pending:
-            if a.recv() != 'ready':  # pragma: no cover
+            if a.recv() != address:  # pragma: no cover
                 raise RuntimeError('partition server failed to start')
             a.close()
             conns.append(Client(address, authkey=authkey))

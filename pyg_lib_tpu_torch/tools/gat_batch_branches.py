@@ -13,7 +13,7 @@ computes the weight gradients of ``sum(out * cot)`` through the model
 (K3) and through :func:`chip_smoke.plain_gat_batch`, once with its own
 leaky_relu and once with the branches the kernel path took
 (:func:`chip_smoke.relu_signs`). It prints, per trial and per
-parameter, ``max|kernel - plain|`` over ``chip_smoke.GCN_RTOL *
+parameter, ``max|kernel - plain|`` over ``testing.GCN_RTOL *
 max|plain|`` (above 1 fails ``chip_smoke.py``'s check), and for each
 plain run the count of edge logits whose branch differs from the
 kernel path's: with its own branches, those the two paths' rounding
@@ -29,7 +29,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the batch, the plain GAT, the recorder)
-from pyg_lib_tpu_torch.testing import uniform_graph  # noqa: E402
+from pyg_lib_tpu_torch.testing import GCN_RTOL, uniform_graph  # noqa: E402
 
 
 def main(trials):
@@ -38,8 +38,7 @@ def main(trials):
     from pyg_lib_tpu_torch import _build
     from pyg_lib_tpu_torch.models import GATBatch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device('cuda', 0)
+    dev = chip_smoke.card_setup()
     print(chip_smoke.card(), flush=True)
     _build.build()
     n = chip_smoke.N_NODES
@@ -82,7 +81,7 @@ def main(trials):
                                for a, b in zip(taken, signs))
             refs = torch.autograd.grad((ref * cot).sum(), leaves)
             ratios = [float((g - r).abs().max()) /
-                      (chip_smoke.GCN_RTOL * float(r.abs().max()))
+                      (GCN_RTOL * float(r.abs().max()))
                       for g, r in zip(grads, refs)]
             worst[branches] = max(worst[branches], max(ratios))
             parts.append(f'{branches} branches ({switched} switched): ' +

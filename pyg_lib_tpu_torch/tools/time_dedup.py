@@ -24,8 +24,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import ab  # noqa: E402  (what the A B B A tools share)
-import chip_smoke  # noqa: E402  (the bench sizes and the CUDA-event timer)
-from pyg_lib_tpu_torch.testing import powerlaw_graph  # noqa: E402
+import chip_smoke  # noqa: E402  (the card and the bench sizes)
+from pyg_lib_tpu_torch.testing import (  # noqa: E402
+    check_sum, cuda_ms, powerlaw_graph)
 
 F = 512
 
@@ -46,26 +47,19 @@ def main(paths):
     x = torch.randn((chip_smoke.N_NODES, F),
                     generator=torch.Generator(dev).manual_seed(0), device=dev)
     plans = {'K2h': graph.fwd, 'K2': graph.bwd}
-    refs = {}
-    for kid, plan in plans.items():
-        ref = spmm_dedup.dedup_sum_plain(x, plan)
-        mag = spmm_dedup.dedup_sum_plain(x.abs(), plan)
-        refs[kid] = (ref, 1e-5 * mag + 1e-5)
+    refs = {kid: (spmm_dedup.dedup_sum_plain(x, plan),
+                  spmm_dedup.dedup_sum_plain(x.abs(), plan))
+            for kid, plan in plans.items()}
     for p in paths:
         # The wrapper takes its library from _build's table of loaded ones.
         _build._loaded['spmm_dedup'] = libs[p]
         line = []
         for kid, plan in plans.items():
-            got = spmm_dedup.dedup_sum(x, plan)
-            ref, tol = refs[kid]
-            err = (got - ref).abs()
-            if not bool((err <= tol).all()):
-                raise AssertionError(f'{p} {kid} disagrees with '
-                                     f'dedup_sum_plain: {float(err.max())}')
-            ms = chip_smoke.cuda_ms(lambda: spmm_dedup.dedup_sum(x, plan),
-                                    iters=20, warmup=3)
-            line.append(f'{kid} {ms:.3f} ms (max_abs_err '
-                        f'{float(err.max()):.3g})')
+            e = check_sum(f'{p} {kid}', spmm_dedup.dedup_sum(x, plan),
+                          *refs[kid])
+            ms = cuda_ms(lambda: spmm_dedup.dedup_sum(x, plan), iters=20,
+                         warmup=3)
+            line.append(f'{kid} {ms:.3f} ms (max_abs_err {e:.3g})')
         print(f'{p}: ' + ', '.join(line), flush=True)
 
 

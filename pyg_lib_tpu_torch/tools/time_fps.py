@@ -46,7 +46,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import ab  # noqa: E402  (what the A B B A tools share)
-import chip_smoke  # noqa: E402  (the F1 shapes and the CUDA-event timer)
+import chip_smoke  # noqa: E402  (the F1 shapes and the profiler reader)
+from pyg_lib_tpu_torch.testing import cuda_ms  # noqa: E402
 
 SHAPES = ('sa1', 'sa2', 'big', 'batch', 'huge')
 MACROS = {'S_THREADS': 'F1_S_THREADS', 'C_THREADS': 'F1_C_THREADS',
@@ -179,10 +180,10 @@ def main(args):
                         raise AssertionError(f'{a} differs from fps_plain '
                                              f'on {label}')
                 iters, warmup = (20, 3) if cheap else (3, 1)
-                ms = [chip_smoke.cuda_ms(lambda: call(pts, clouds),
-                                         iters=iters, warmup=warmup)
+                ms = [cuda_ms(lambda: call(pts, clouds), iters=iters,
+                              warmup=warmup)
                       for call in calls]
-                floor_ms = chip_smoke.cuda_ms(
+                floor_ms = cuda_ms(
                     lambda: floor(clouds, dev), iters=iters, warmup=warmup)
                 note = f'floor {floor_ms:.3f}'
                 if wrapped:

@@ -25,10 +25,7 @@ card:
 * K6 on the uniform graph's forward plan, padded ``[E_pad, 4]`` logits in
   f32 and bf16, and through ``edge_perm`` on the power-law graph's
   transpose CSR (hub rows up to 810,552 edges) at F=4: each source held
-  against ``segment_softmax_plain`` within ``(1e-5 + n·2⁻²³)·|plain| +
-  1e-7`` (a bf16 result one bf16 step more), NaN where the plain version
-  has NaN, and an f32 result's rows summing to 1 within
-  ``chip_smoke.K6_SUM_TOL``.
+  against ``segment_softmax_plain`` by ``testing.check_softmax``.
 
 Times are CUDA events, the mean of 20 calls after 3 (5 after 1 on the hub
 rows). Prints the card's name and power limit, each build's registers and
@@ -47,9 +44,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import ab  # noqa: E402  (what the A B B A tools share)
-import chip_smoke  # noqa: E402  (the bench sizes and the CUDA-event timer)
+import chip_smoke  # noqa: E402  (the bench sizes and the profiler reader)
 from pyg_lib_tpu_torch.testing import (  # noqa: E402
-    powerlaw_graph, uniform_graph)
+    check_exact, check_softmax, cuda_ms, powerlaw_graph, uniform_graph)
 
 HEADS = chip_smoke.HEADS
 
@@ -121,23 +118,6 @@ def _k6_call(lib, nparams):
                      [vp, i, vp, vp, vp, i, i, i, vp], launch)
 
 
-def _k6_tolerance(plan, idx, ref, bf16):
-    """The tolerance of K6 against its plain version, per element, and the
-    plain version's NaN mask."""
-    import torch
-
-    from pyg_lib_tpu_torch.ops.kernels.spmm_chunked import _padded_rows
-
-    slot, row = _padded_rows(plan.tile_ptr)
-    at = slot if idx is None else idx[slot].long()
-    n = torch.zeros(ref.shape[0], device=ref.device)
-    n[at] = torch.bincount(row, minlength=plan.num_rows)[row].float()
-    nan = torch.isnan(ref)
-    rtol = chip_smoke.K6_RTOL + n[:, None] * 2.0**-23 + (2.0**-7 if bf16
-                                                          else 0.0)
-    return rtol * ref.abs().masked_fill(nan, 0.0) + chip_smoke.K6_ATOL, nan
-
-
 def main(args):
     import torch
 
@@ -188,10 +168,8 @@ def main(args):
                 (f'powerlaw transpose CSR edge_perm F=4 (rows up to '
                  f'{int(np.diff(t_rp).max())})', src_t, plan_t,
                  plan_t.edge_perm, True)):
-            ref = ops.segment_softmax_plain(src, plan, idx).float()
-            tol, nan = _k6_tolerance(plan, idx, ref, src.dtype ==
-                                     torch.bfloat16)
-            k6_cases.append((label, src, plan, idx, hub, ref, tol, nan))
+            k6_cases.append((label, src, plan, idx, hub,
+                             ops.segment_softmax_plain(src, plan, idx)))
     torch.cuda.empty_cache()
     firsts = {}
     for arg, (path, kid, nparams, module, attrs) in zip(args, specs):
@@ -203,15 +181,11 @@ def main(args):
             for label, xf, plan, ref in k5_cases:
                 got = k5(xf, plan)
                 first = firsts.setdefault(label, got)
-                want = ref if first is got else first
-                if not (torch.equal(got[0].view(torch.int32),
-                                    want[0].view(torch.int32))
-                        and torch.equal(got[1], want[1])):
-                    whom = ('dedup_minmax_plain' if first is got else
-                            'the first K5 source')
-                    raise AssertionError(f'{arg} K5 {label} differs from '
-                                         f'{whom}')
-                ms = chip_smoke.cuda_ms(lambda: k5(xf, plan), 20, 3)
+                check_exact(f'{arg} K5 {label} against ' + (
+                    'dedup_minmax_plain' if first is got else
+                    'the first K5 source'), got, ref if first is got else
+                    first)
+                ms = cuda_ms(lambda: k5(xf, plan), 20, 3)
                 line.append(f'K5 {label} {ms:.3f} ms')
                 _, _, top = chip_smoke.device_time_by_kernel(
                     lambda: k5(xf, plan))
@@ -220,28 +194,16 @@ def main(args):
                 del got
         else:
             k6 = _k6_call(lib, nparams)
-            for label, src, plan, idx, hub, ref, tol, nan in k6_cases:
-                got = k6(src, plan, idx)
-                torch.cuda.synchronize()
-                err = (got.float() - ref).abs().masked_fill(nan, 0.0)
-                row_sum = (chip_smoke.k6_row_sum_err(got, plan, idx)
-                           if got.dtype == torch.float32 else 0.0)
-                if (not torch.equal(torch.isnan(got.float()), nan)
-                        or bool((err > tol).any())
-                        or row_sum > chip_smoke.K6_SUM_TOL):
-                    raise AssertionError(f'{arg} K6 {label} disagrees with '
-                                         f'segment_softmax_plain: '
-                                         f'{float(err.max())}, row sum off '
-                                         f'by {row_sum}')
-                ms = chip_smoke.cuda_ms(lambda: k6(src, plan, idx),
-                                        *((5, 1) if hub else (20, 3)))
-                line.append(f'K6 {label} {ms:.3f} ms (max_abs_err '
-                            f'{float(err.max()):.3g})')
+            for label, src, plan, idx, hub, ref in k6_cases:
+                e, _ = check_softmax(f'{arg} K6 {label}', k6(src, plan, idx),
+                                     ref, plan, idx)
+                ms = cuda_ms(lambda: k6(src, plan, idx),
+                             *((5, 1) if hub else (20, 3)))
+                line.append(f'K6 {label} {ms:.3f} ms (max_abs_err {e:.3g})')
                 _, _, top = chip_smoke.device_time_by_kernel(
                     lambda: k6(src, plan, idx))
                 prof.append(f'{label}: ' + '; '.join(
                     f'{name} {t:.3f}' for name, t in top))
-                del got, err
         ab.set_constants(module, saved)
         print(f'{arg}: ' + ', '.join(line), flush=True)
         print('  by kernel (ms): ' + ' | '.join(prof), flush=True)

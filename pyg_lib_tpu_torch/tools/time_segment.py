@@ -68,9 +68,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import ab  # noqa: E402  (what the A B B A tools share)
-import chip_smoke  # noqa: E402  (the bench sizes and the CUDA-event timer)
+import chip_smoke  # noqa: E402  (the bench sizes, graphs and plain versions)
 from pyg_lib_tpu_torch.testing import (  # noqa: E402
-    powerlaw_graph, uniform_graph)
+    abs_plan, check_exact, check_sum, cuda_ms, powerlaw_graph, uniform_graph)
 
 F = 512
 
@@ -212,11 +212,6 @@ def _sum_cases(x, gen):
                        device=x.device)
     msgs.mul_(g_u.fwd.valid_mask[:, None])
 
-    def abs_plan(plan):
-        if getattr(plan, 'weights', None) is None:
-            return plan
-        return plan._replace(weights=tuple(w.abs() for w in plan.weights))
-
     def ref(fn, src, plan, sc=None):
         def go():
             out = chip_smoke.by_columns(fn, src, plan)
@@ -225,14 +220,6 @@ def _sum_cases(x, gen):
                 out, mag = out * sc, mag * sc.abs()
             return out, mag
         return go
-
-    def per_range(xm, plan):
-        return sum(ops.spmm_chunked(xm[lo:hi], p)
-                   for (lo, hi), p in zip(plan.bounds, plan.plans))
-
-    def per_range_plain(xm, plan):
-        return sum(ops.spmm_chunked_plain(xm[lo:hi], p)
-                   for (lo, hi), p in zip(plan.bounds, plan.plans))
 
     def k1(label, xm, plan, sc=None):
         return (label, lambda: ops.spmm_chunked(xm, plan, sc),
@@ -261,8 +248,9 @@ def _sum_cases(x, gen):
                # heads alone (the softmax backward's row sums).
                k1m(msgs), k1m(msgs[:, :48].contiguous()),
                k1m(msgs[:, :4].contiguous()),
-               ('per range (range_split=4)', lambda: per_range(x, g_ur.fwd),
-                ref(per_range_plain, x, g_ur.fwd), e * F * 4)],
+               ('per range (range_split=4)',
+                lambda: chip_smoke.kernel(x, g_ur.fwd),
+                ref(chip_smoke.plain, x, g_ur.fwd), e * F * 4)],
         'K7': [k7('S=4f fwd', x, g_uf.fwd), k7('S=4f bwd', x, g_uf.bwd),
                k7('S=4f fwd F=47', x47, g_uf.fwd),
                k7('S=4f bwd F=47', x47, g_uf.bwd),
@@ -297,16 +285,14 @@ def main(args):
         sums, (rp_u, cl_u, w_u) = _sum_cases(x, gen)
         for kid in kinds & {'K1', 'K7'}:
             for label, _, plain, _ in sums[kid]:
-                ref, mag = plain()
-                sum_refs[kid, label] = (ref, mag.mul_(1e-5).add_(1e-5))
-                del mag
+                sum_refs[kid, label] = plain()
         rp_t = torch.from_numpy(rp_u)
         cl_t = torch.from_numpy(cl_u.astype(np.int64))
         a = torch.sparse_csr_tensor(rp_t, cl_t, torch.ones(cl_u.shape[0]),
                                     (n, n)).to(dev)
         a_w = torch.sparse_csr_tensor(rp_t, cl_t, torch.from_numpy(w_u),
                                       (n, n)).to(dev)
-        ms = [chip_smoke.cuda_ms(lambda: torch.sparse.mm(m, x), 20, 3)
+        ms = [cuda_ms(lambda: torch.sparse.mm(m, x), 20, 3)
               for m in (a, a_w)]
         print(f'torch.sparse.mm uniform CSR {ms[0]:.3f} ms, weighted CSR '
               f'{ms[1]:.3f} ms', flush=True)
@@ -345,13 +331,10 @@ def main(args):
     k3_refs, k4_refs, lib_line = {}, {}, []
     for name, (ptr, msgs) in csrs.items():
         if 'K3' in kinds:
-            ref = chip_smoke.by_columns(ops.segment_sum_csr_plain, msgs, ptr)
-            mag = chip_smoke.by_columns(ops.segment_sum_csr_plain,
-                                        msgs.abs(), ptr)
-            k3_refs[name] = (ref, 1e-5 * mag + 1e-5)
-            del mag
+            k3_refs[name] = tuple(chip_smoke.by_columns(
+                ops.segment_sum_csr_plain, m, ptr) for m in (msgs, msgs.abs()))
         for red in ('sum', 'max'):
-            ms = chip_smoke.cuda_ms(lambda: torch.segment_reduce(
+            ms = cuda_ms(lambda: torch.segment_reduce(
                 msgs, red, offsets=ptr, axis=0), iters=5, warmup=1)
             lib_line.append(f'{name} {red} {ms:.3f} ms')
     if lib_line:
@@ -372,12 +355,7 @@ def main(args):
                 _build._loaded['spmm_range_fused'] = _k7_lib_of(lib, nparams)
             for label, call, _, floor in sums[kid]:
                 got = call()
-                ref, tol = sum_refs[kid, label]
-                err = (got - ref).abs()
-                if not bool((err <= tol).all()):
-                    raise AssertionError(f'{arg} {kid} {label} disagrees with '
-                                         f'its plain version: '
-                                         f'{float(err.max())}')
+                check_sum(f'{arg} {kid} {label}', got, *sum_refs[kid, label])
                 first = firsts.setdefault(
                     (kid, label, tuple(sorted(attrs.items()))), got)
                 if not torch.equal(got.view(torch.int32),
@@ -385,40 +363,27 @@ def main(args):
                     raise AssertionError(f'{arg} {kid} {label} differs from '
                                          f'the first {kid} source with its '
                                          f'constants bit for bit')
-                ms = chip_smoke.cuda_ms(call, 20, 3)
+                ms = cuda_ms(call, 20, 3)
                 share = floor / chip_smoke.HBM_BYTES_PER_S * 1e3 / ms
                 line.append(f'{kid} {label} {ms:.3f} ms ({share:.0%} of its '
                             f'gather floor)')
-                del got, err
+                del got
         elif kid == 'K3':
             k3 = _k3_call(lib, nparams)
             for name, (ptr, msgs) in csrs.items():
-                got = k3(msgs, ptr)
-                ref, tol = k3_refs[name]
-                err = (got - ref).abs()
-                if not bool((err <= tol).all()):
-                    raise AssertionError(f'{arg} K3 {name} disagrees with '
-                                         f'segment_sum_csr_plain: '
-                                         f'{float(err.max())}')
+                e = check_sum(f'{arg} K3 {name}', k3(msgs, ptr),
+                              *k3_refs[name])
                 iters = (20, 3) if name == 'uniform' else (5, 1)
-                ms = chip_smoke.cuda_ms(lambda: k3(msgs, ptr), *iters)
-                line.append(f'K3 {name} {ms:.3f} ms (max_abs_err '
-                            f'{float(err.max()):.3g})')
-                del got, err
+                ms = cuda_ms(lambda: k3(msgs, ptr), *iters)
+                line.append(f'K3 {name} {ms:.3f} ms (max_abs_err {e:.3g})')
         else:
             k4 = _k4_call(lib, nparams)
             for label, src, plan, idx, hub in k4_cases:
-                got = k4(src, plan, idx)
-                ref = k4_refs[label]
-                if not (torch.equal(got[0].view(torch.int32),
-                                    ref[0].view(torch.int32))
-                        and torch.equal(got[1], ref[1])):
-                    raise AssertionError(f'{arg} K4 {label} differs from '
-                                         f'segment_max_plain')
-                ms = chip_smoke.cuda_ms(lambda: k4(src, plan, idx),
-                                        *((5, 1) if hub else (20, 3)))
+                check_exact(f'{arg} K4 {label}', k4(src, plan, idx),
+                            k4_refs[label])
+                ms = cuda_ms(lambda: k4(src, plan, idx),
+                             *((5, 1) if hub else (20, 3)))
                 line.append(f'K4 {label} {ms:.3f} ms')
-                del got
         ab.set_constants(module, saved)
         print(f'{arg}: ' + ', '.join(line), flush=True)
 

@@ -13,10 +13,9 @@ bodies import only torch and the port; JAX is imported inside the tests.
 
 import os
 import secrets
-import socket
 import subprocess
 import sys
-import time
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -419,47 +418,46 @@ def test_load_partition_payload_roundtrip(tmp_path):
         load_partition_payload(str(tmp_path / 'bad.npz'))
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(('127.0.0.1', 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def test_serve_cli_tcp_matches_inprocess(tmp_path):
     from multiprocessing.connection import Client
 
     rowptr, col, rng = _graph(6, 150, 1200)
     graph = partition_graph(rowptr, col, 2)
-    key = secrets.token_bytes(32)
+    # A random key may begin and end with whitespace bytes: the servers
+    # must take the file's bytes as they are (this one always does).
+    key = b'\r' + secrets.token_bytes(30) + b'\n'
     keyfile = tmp_path / 'cluster.key'
     keyfile.write_bytes(key)
     procs, addrs = [], []
     for p in range(2):
         np.savez(tmp_path / f'part{p}.npz', rowptr=graph.rowptr_parts[p],
                  col=graph.col_parts[p])
-        port = _free_port()
+        # Port 0: each server binds a port the system picks and prints
+        # it, so no other process can take it between a pick and a bind.
         procs.append(subprocess.Popen([
             sys.executable, '-m', 'pyg_lib_tpu_torch.sampler.serve',
             '--partition', str(tmp_path / f'part{p}.npz'), '--host',
-            '127.0.0.1', '--port', str(port), '--authkey-file', str(keyfile)
+            '127.0.0.1', '--port', '0', '--authkey-file', str(keyfile)
         ], cwd=REPO, env=dict(os.environ), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-        addrs.append(('127.0.0.1', port))
     try:
-        deadline = time.time() + 60
-        svc = None
-        while svc is None:
+        for pr in procs:
+            # A server prints its port once it listens; one silent for 60 s
+            # is killed, which ends its output.
+            timer = threading.Timer(60, pr.kill)
+            timer.start()
+            out = []
             try:
-                svc = SamplingService.connect(addrs, authkey=key)
-            except OSError:
-                if time.time() > deadline:
-                    for pr in procs:
-                        pr.kill()
-                        print(pr.stdout.read())
-                    pytest.fail('server did not come up')
-                time.sleep(0.1)
+                for line in pr.stdout:
+                    out.append(line)
+                    if line.startswith('serving on 127.0.0.1:'):
+                        break
+            finally:
+                timer.cancel()
+            if not out or not out[-1].startswith('serving on 127.0.0.1:'):
+                pytest.fail(f'server did not come up: {"".join(out)}')
+            addrs.append(('127.0.0.1', int(out[-1].rsplit(':', 1)[1])))
+        svc = SamplingService.connect(addrs, authkey=key)
         svc.disconnect()  # servers loop back to accept
         with pytest.raises(Exception):
             Client(addrs[0], authkey=b'not-the-cluster-key!')

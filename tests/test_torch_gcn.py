@@ -207,7 +207,7 @@ def test_sources_import_neither_jax_nor_reference():
             'plan_cache.py', 'gnn.py', 'softmax.py', 'segment_softmax.py',
             'spmm_range_fused.py', 'scatter.py', 'segment_coo.py',
             'composite.py', 'scatter_reduce.py', 'matmul.py',
-            'train_rgcn_fullgraph_spmm.py', 'headline.py', '_cpp.py',
+            'train_rgcn_fullgraph_spmm.py', '_cpp.py',
             '_numpy_impl.py', '_hetero_impl.py', 'padding.py', 'loader.py',
             'entry.py', 'metrics.py', 'datasets.py', 'home.py',
             'train_sage_minibatch.py', 'train_rgcn_hetero.py',
